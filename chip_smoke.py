@@ -1,16 +1,26 @@
-"""Drive the PyTorch port's turbo inflate once on one CUDA card.
+"""Drive the PyTorch port's inflate paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/``, holds each
-kernel against its plain PyTorch version on the committed bench fixture
-(``tests/golden/turbo_bench.*``: the 3.84 MB bench corpus in the turbo
-profile), decodes the fixture through ``zlibes_tpu_torch.inflate(...,
-device="cuda")`` with every kernel's launch count checked, times the
-kernels and the pipeline with CUDA events, and probes corrupted streams.
-Any failure raises.  The last line of standard output is one JSON object
-naming the device; the line before it is the card's name and power limit
-from nvidia-smi, and the line before that the per-kernel JSON record.
+Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
+two paths on committed fixtures of the 3.84 MB bench corpus:
+
+  * turbo: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``), kernels
+    ``lane_windows``, ``decode_turbo``, ``resolve_turbo``;
+  * wide: ``tests/golden/wide_bench.*`` (level 6, zlib's default), kernels
+    ``lane_windows`` (at the plan's width), ``decode_wide``,
+    ``resolve_wide``, plus the seek (``inflate_range``) and the
+    device-resident output (``inflate_to_device``).
+
+For each path it holds every kernel against its plain PyTorch version at
+the fixture's shapes, decodes the fixture through
+``zlibes_tpu_torch.inflate(..., device="cuda")`` with the launch counts
+set to 0 just before and read just after, times the kernels and the device
+pipeline with CUDA events and torch.profiler, and probes corrupted
+streams.  Any failure raises.  The last line of standard output is one
+JSON object naming the device; the line before it is the card's name and
+power limit from nvidia-smi, and the line before that the per-kernel JSON
+record (``launches`` of ``lane_windows`` sums both paths' runs).
 Imports no JAX.
 """
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 TURBO_SRC = "zlibes_tpu/ops/turbo_kernel.py"
+WIDE_SRC = "zlibes_tpu/ops/wide_kernel.py"
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 2) -> float:
@@ -106,10 +117,187 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
+    """The wide (default-profile) path on the level-6 fixture: kernels
+    against their plain versions, the public entry points, times and a
+    corruption probe.  Adds the wide kernels to ``records``; returns the
+    launch counts of the inflate run and the profiler's device ms by
+    kernel name."""
+    import zlibes_tpu_torch
+    from test_torch_fixed_streams import expand, fixed_stream
+    from zlibes_tpu_torch import ChecksumError, CorruptError, StreamIndex
+    from zlibes_tpu_torch.codec import wide as wd
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops import wide_kernel as wk
+    from zlibes_tpu_torch.ops.adler32 import adler32_device
+
+    comp = (GOLDEN / "wide_bench.zz").read_bytes()
+    index = StreamIndex.load(GOLDEN / "wide_bench.idx.npz")
+    assert index.wide and not index.turbo
+    assert zlib.decompress(comp) == corpus, "fixture does not encode the corpus"
+    plan = wd.WidePlan.build(comp, index, "cuda")
+    L = plan.Cb * plan.LPB
+    print(f"wide fixture: corpus {len(corpus)} B, stream {len(comp)} B, "
+          f"{len(index.blocks)} blocks ({plan.Cb} coded), "
+          f"{index.anchor_bit.size} anchors, L={L} lanes "
+          f"(LPB={plan.LPB}), SW={plan.SW} words, T={plan.T}, "
+          f"contiguous={plan.contiguous}")
+
+    # -- each kernel against its plain version, at the fixture's shapes
+    win = tk.lane_windows(plan.words, plan.start_w, width=plan.SW)
+    torch.cuda.synchronize()
+    win_p = tk.lane_windows_plain(plan.words, plan.start_w, plan.SW)
+    assert torch.equal(win, win_p), "lane_windows(width=SW) != plain"
+    lw = records["lane_windows"]
+    lw["max_abs_err"] = max(lw["max_abs_err"], max_abs_err(win, win_p))
+    lw["wide_ms"] = cuda_ms(lambda: tk.lane_windows(plan.words, plan.start_w,
+                                                    width=plan.SW))
+    lw["wide_plain_ms"] = cuda_ms(lambda: tk.lane_windows_plain(
+        plan.words, plan.start_w, plan.SW), runs=10)
+    print(f"kernel lane_windows at width {plan.SW}: exact vs plain, kernel "
+          f"{lw['wide_ms']:.4f} ms (median of 20), plain "
+          f"{lw['wide_plain_ms']:.4f} ms (median of 10), shape "
+          f"{list(win.shape)} {card}")
+
+    dec_args = (win, plan.bit0, plan.endb, plan.base, plan.lt, plan.dt)
+    tokens, starts, meta = wk.decode_wide(*dec_args, LPB=plan.LPB)
+    torch.cuda.synchronize()
+    tokens_p, starts_p, meta_p = wk.decode_wide_plain(*dec_args, plan.LPB)
+    emitted = (torch.arange(plan.T, device="cuda")[:, None]
+               < meta_p[0][None, :])
+    assert torch.equal(meta, meta_p), "decode_wide meta != plain"
+    assert torch.equal(tokens[emitted], tokens_p[emitted]), \
+        "decode_wide tokens != plain"
+    assert torch.equal(starts[emitted], starts_p[emitted]), \
+        "decode_wide starts != plain"
+    plan.check_meta(meta[:4].cpu().numpy())
+    records["decode_wide"] = dict(
+        replaces=f"{WIDE_SRC}:388",
+        max_abs_err=max(max_abs_err(meta, meta_p),
+                        max_abs_err(tokens[emitted], tokens_p[emitted]),
+                        max_abs_err(starts[emitted], starts_p[emitted])),
+        ms=cuda_ms(lambda: wk.decode_wide(*dec_args, LPB=plan.LPB)),
+        plain_ms=cuda_ms(lambda: wk.decode_wide_plain(*dec_args, plan.LPB),
+                         runs=3, warmup=1),
+        shape=list(tokens.shape), tokens=int(meta[0].sum()),
+        plain_runs=3)
+
+    toks, sts = wd._glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
+    rows = wk.resolve_wide(toks, sts)
+    torch.cuda.synchronize()
+    rows_p = wk.resolve_wide_plain(toks, sts)
+    assert torch.equal(rows, rows_p), "resolve_wide != plain"
+    assert rows.reshape(-1)[: plan.total_out].cpu().numpy().tobytes() == corpus
+    records["resolve_wide"] = dict(
+        replaces=f"{WIDE_SRC}:568", max_abs_err=max_abs_err(rows, rows_p),
+        ms=cuda_ms(lambda: wk.resolve_wide(toks, sts)),
+        plain_ms=cuda_ms(lambda: wk.resolve_wide_plain(toks, sts), runs=10),
+        shape=list(rows.shape))
+    for name in ("decode_wide", "resolve_wide"):
+        r = records[name]
+        print(f"kernel {name}: exact vs plain (max_abs_err {r['max_abs_err']}),"
+              f" kernel {r['ms']:.4f} ms (median of 20), plain "
+              f"{r['plain_ms']:.4f} ms (median of "
+              f"{r.get('plain_runs', 10)}), shape {r['shape']} {card}")
+    glue_ms = cuda_ms(lambda: wd._glue_wide(tokens, starts, meta, plan.Cb,
+                                            plan.LPB))
+    flat = rows.reshape(-1)[: plan.total_out]
+    adler_ms = cuda_ms(lambda: adler32_device(flat))
+    print(f"wide torch ops: glue {glue_ms:.4f} ms, adler32 {adler_ms:.4f} ms,"
+          f" median of 20 {card}")
+
+    # -- end to end through the public entry points
+    tk.LAUNCHES.clear()
+    out = zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
+    launches = dict(tk.LAUNCHES)
+    assert out == corpus, "wide inflate(device='cuda') output != corpus"
+    print(f"wide inflate(device='cuda'): {len(out)} B byte-exact, "
+          f"Adler-32 verified on the device; launches {launches}")
+    assert launches == {"lane_windows": 1, "decode_wide": 1,
+                        "resolve_wide": 1}, launches
+    for start, length in [(0, 100), (131070, 300), (400000, 80000)]:
+        got = zlibes_tpu_torch.inflate_range(comp, index, start, length,
+                                             device="cuda")
+        assert got == corpus[start : start + length], (start, length)
+    spans = zlibes_tpu_torch.inflate_to_device(comp, index, device="cuda")
+    assert len(spans) == 1 and spans[0][0].is_cuda
+    dev_out, off, n = spans[0]
+    assert (off, n) == (0, len(corpus))
+    assert dev_out[:n].cpu().numpy().tobytes() == corpus
+    print("wide inflate_range: 3 seeks byte-exact; inflate_to_device: one "
+          f"CUDA span of {n} B byte-exact")
+
+    trailer = int.from_bytes(comp[-4:], "big")
+
+    def device_pipeline():
+        rows = wd.run_wide(plan, check=False)
+        return adler32_device(rows.reshape(-1)[: plan.total_out])
+
+    assert int(device_pipeline()) == trailer
+    pipe_ms = cuda_ms(device_pipeline)
+    call_s = wall_s(lambda: zlibes_tpu_torch.inflate(comp, index=index,
+                                                     device="cuda"))
+    seek_s = wall_s(lambda: zlibes_tpu_torch.inflate_range(
+        comp, index, 131070, 300, device="cuda"))
+    plan_s = wall_s(lambda: wd.WidePlan.build(comp, index, "cuda"))
+    zlib_s = wall_s(lambda: zlib.decompress(comp))
+    n = len(corpus)
+    print(f"wide host: WidePlan.build (tables, lane spans, copies to the "
+          f"card) {plan_s * 1e3:.2f} ms, median of 5 {card}")
+    print(f"wide device pipeline (plan prebuilt, stream on device; windows + "
+          f"decode + glue + resolve + adler32): {pipe_ms:.4f} ms -> "
+          f"{n / pipe_ms / 1e6:.3f} GB/s of output, median of 20 {card}")
+    print(f"wide whole inflate() call, host to host: {call_s * 1e3:.2f} ms -> "
+          f"{n / call_s / 1e9:.3f} GB/s, median of 5 {card}")
+    print(f"wide inflate_range seek (300 B across a block boundary, 2 blocks "
+          f"decoded): {seek_s * 1e3:.2f} ms, median of 5 {card}")
+    print(f"CPython zlib.decompress of the wide stream, one core: "
+          f"{zlib_s * 1e3:.2f} ms -> {n / zlib_s / 1e9:.3f} GB/s, median of "
+          f"5 (host CPU beside {card})")
+    device_ms = profile_pipeline(device_pipeline, card)
+    if device_ms:
+        busy = sum(device_ms.values())
+        print(f"wide untraced device pipeline: device busy {busy:.4f} of "
+              f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
+              f"{card}")
+
+    # -- corruption probe: a flipped byte raises or lands in a bit gap; a
+    # distance reaching before its block's start raises CorruptError even
+    # with an Adler-32 that matches the clipped bytes
+    rng = np.random.default_rng(4)
+    raised = 0
+    for _ in range(6):
+        bad = bytearray(comp)
+        pos = int(rng.integers(16, len(bad) - 8))
+        bad[pos] ^= int(rng.integers(1, 256))
+        try:
+            got = zlibes_tpu_torch.inflate(bytes(bad), index=index,
+                                           device="cuda")
+        except (CorruptError, ChecksumError) as exc:
+            raised += 1
+            print(f"wide corruption at byte {pos}: {type(exc).__name__}")
+        else:
+            assert got == corpus, f"flip at byte {pos} decoded to wrong bytes"
+            print(f"wide corruption at byte {pos}: in a bit gap, output "
+                  f"unchanged")
+    assert raised >= 4, f"only {raised} of 6 wide corruptions detected"
+    tokens_bad = [(3, 1), 97, 98, 99]
+    bad_comp, bad_index = fixed_stream([tokens_bad], trailer=zlib.adler32(
+        expand(tokens_bad, clip=True)).to_bytes(4, "big"))
+    try:
+        zlibes_tpu_torch.inflate(bad_comp, index=bad_index, device="cuda")
+    except CorruptError as exc:
+        print(f"distance before the block's start: CorruptError ({exc})")
+    else:
+        raise AssertionError("distance before the block's start decoded")
+    return launches, device_ms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
     import zlibes_tpu_torch
     from tools.make_bench_fixture import bench_data
     from zlibes_tpu_torch import ChecksumError, CorruptError, StreamIndex
@@ -261,17 +449,32 @@ def main() -> None:
             print(f"corruption at byte {pos}: in a bit gap, output unchanged")
     assert raised >= 4, f"only {raised} of 6 corruptions detected"
 
+    wide_launches, wide_device_ms = wide_phase(corpus, card, records)
+    for name, n in wide_launches.items():
+        launches[name] = launches.get(name, 0) + n
+
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "zlibes_tpu_torch/csrc/turbo_kernels.cu",
-         "replaces": r["replaces"], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"],
-         "device_ms": next((v for k, v in device_ms.items()
-                            if f"{name}_kernel" in k), None)}
-        for name, r in records.items()]}))
+    def traced(ms: dict, name: str):
+        return next((v for k, v in ms.items() if f"{name}_kernel" in k), None)
+
+    wide = ("decode_wide", "resolve_wide")
+    records["lane_windows"]["wide_device_ms"] = traced(wide_device_ms,
+                                                       "lane_windows")
+    entries = []
+    for name, r in records.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "zlibes_tpu_torch/csrc/"
+                      + ("wide" if name in wide else "turbo") + "_kernels.cu",
+            "replaces": r["replaces"], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "device_ms": traced(wide_device_ms if name in wide else device_ms,
+                                name)})
+        entries[-1].update({k: r[k] for k in ("wide_ms", "wide_plain_ms",
+                                              "wide_device_ms") if k in r})
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,9 +13,13 @@ import pytest
 import torch
 
 import zlibes_tpu_torch
+from zlibes_tpu.spec import constants as C
 from zlibes_tpu.spec.refmodel import StreamIndex
 from zlibes_tpu_torch.codec import turbo as tb
+from zlibes_tpu_torch.codec import wide as wd
 from zlibes_tpu_torch.ops import turbo_kernel as tk
+from zlibes_tpu_torch.ops import wide_kernel as wk
+from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
 
 torch.set_num_threads(2)
 
@@ -136,3 +140,153 @@ def test_cuda_tensor_never_takes_plain(plans, monkeypatch):
     monkeypatch.setattr(kernels, "library", broken)
     with pytest.raises(RuntimeError, match="no library"):
         tk.lane_windows(p.words, p.start_w)
+
+
+# ---------------------------------------------------------------------------
+# wide (default-profile) kernels, on the committed level-6 fixture
+
+@pytest.fixture(scope="module")
+def wide_stream():
+    comp = (GOLDEN / "wide_bench.zz").read_bytes()
+    index = StreamIndex.load(GOLDEN / "wide_bench.idx.npz")
+    return comp, index, zlib.decompress(comp)
+
+
+@pytest.fixture(scope="module")
+def wide_plan(wide_stream):
+    comp, index, _ = wide_stream
+    return wd.WidePlan.build(comp, index, "cuda")
+
+
+def test_lane_windows_kernel_matches_plain_at_wide_width(wide_plan):
+    p = wide_plan
+    got = tk.lane_windows(p.words, p.start_w, width=p.SW)
+    torch.cuda.synchronize()
+    assert got.shape == (p.Cb * p.LPB, p.SW)
+    assert _same(got, tk.lane_windows_plain(p.words, p.start_w, p.SW))
+
+
+def _decode_wide_both(win, bit0, endb, base, lt, dt, LPB):
+    tok_k, st_k, meta_k = wk.decode_wide(win, bit0, endb, base, lt, dt,
+                                         LPB=LPB)
+    torch.cuda.synchronize()
+    tok_p, st_p, meta_p = wk.decode_wide_plain(win, bit0, endb, base, lt, dt,
+                                               LPB)
+    assert _same(meta_k, meta_p)
+    emitted = (torch.arange(tok_k.shape[0], device=win.device)[:, None]
+               < meta_p[0][None, :])
+    assert _same(tok_k[emitted], tok_p[emitted])
+    assert _same(st_k[emitted], st_p[emitted])
+    return tok_k, st_k, meta_k
+
+
+def test_decode_wide_kernel_matches_plain(wide_plan):
+    p = wide_plan
+    win = tk.lane_windows(p.words, p.start_w, width=p.SW)
+    _, _, meta = _decode_wide_both(win, p.bit0, p.endb, p.base, p.lt, p.dt,
+                                   p.LPB)
+    p.check_meta(meta.cpu().numpy())
+
+
+def test_decode_wide_kernel_matches_plain_on_garbage(wide_plan):
+    """Random windows under the fixture's tables: error, end-of-block,
+    distance and overrun paths agree too."""
+    p = wide_plan
+    g = torch.Generator().manual_seed(0)
+    LPB, SW = 128, 40
+    L = p.Cb * LPB
+    win = torch.randint(-2**31, 2**31 - 1, (L, SW), generator=g,
+                        dtype=torch.int64).int()
+    bit0 = torch.randint(0, 32, (L,), generator=g, dtype=torch.int32)
+    endb = bit0 + torch.randint(0, (SW - 3) * 32, (L,), generator=g,
+                                dtype=torch.int32)
+    base = torch.randint(0, 300, (L,), generator=g, dtype=torch.int32)
+    _, _, meta = _decode_wide_both(win.cuda(), bit0.cuda(), endb.cuda(),
+                                   base.cuda(), p.lt, p.dt, LPB)
+    assert meta[2].any() and (meta[2] == 0).any()
+
+
+@pytest.mark.parametrize("tokens,m,ok", [([(3, 1)], 0, False),
+                                         ([97, (3, 1)], 0, True),
+                                         ([(3, 129)], 1, False),
+                                         ([(3, 128)], 1, True)])
+def test_decode_wide_kernel_flags_distance_before_block_start(tokens, m, ok):
+    win, endb = fixed_lane(tokens, m)
+    lt, dt = (torch.from_numpy(x[None]).cuda() for x in wk.wide_decode_tables(
+        C.fixed_litlen_code_lengths(), C.fixed_dist_code_lengths()))
+    zero = torch.zeros(win.shape[0], dtype=torch.int32, device="cuda")
+    _, _, meta = _decode_wide_both(torch.from_numpy(win).cuda(), zero,
+                                   torch.from_numpy(endb).cuda(), zero, lt,
+                                   dt, 128)
+    assert int(meta[2, m]) == (0 if ok else 1)
+
+
+def test_resolve_wide_kernel_matches_plain(wide_stream, wide_plan):
+    p = wide_plan
+    win = tk.lane_windows(p.words, p.start_w, width=p.SW)
+    tokens, starts, meta = wk.decode_wide(win, p.bit0, p.endb, p.base, p.lt,
+                                          p.dt, LPB=p.LPB)
+    toks, sts = wd._glue_wide(tokens, starts, meta, p.Cb, p.LPB)
+    got = wk.resolve_wide(toks, sts)
+    torch.cuda.synchronize()
+    assert _same(got, wk.resolve_wide_plain(toks, sts))
+    assert got.reshape(-1)[: p.total_out].cpu().numpy().tobytes() == \
+        wide_stream[2]
+
+
+def test_resolve_wide_kernel_matches_plain_on_garbage():
+    """Random tokens and unsorted starts: far sources, clipped sources and
+    self-copies agree too."""
+    g = torch.Generator().manual_seed(1)
+    shape = (4, 96, wk.TOKENS_PAD)
+    toks = torch.randint(0, 1 << 26, shape, generator=g, dtype=torch.int32)
+    starts = torch.randint(-300, 2100, shape, generator=g, dtype=torch.int32)
+    got = wk.resolve_wide(toks.cuda(), starts.cuda())
+    torch.cuda.synchronize()
+    assert _same(got, wk.resolve_wide_plain(toks, starts))
+
+
+def test_wide_inflate_on_card_counts_launches(wide_stream, monkeypatch):
+    """One launch of each wide kernel, and no plain version runs."""
+    comp, index, data = wide_stream
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((tk, "lane_windows_plain"), (wk, "decode_wide_plain"),
+                      (wk, "resolve_wide_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    tk.LAUNCHES.clear()
+    out = zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
+    assert out == data
+    assert dict(tk.LAUNCHES) == {"lane_windows": 1, "decode_wide": 1,
+                                 "resolve_wide": 1}
+
+
+def test_wide_inflate_range_and_to_device_on_card(wide_stream):
+    comp, index, data = wide_stream
+    for start, length in [(0, 100), (131070, 300), (400000, 80000),
+                          (len(data) - 1, 1)]:
+        assert zlibes_tpu_torch.inflate_range(
+            comp, index, start, length, device="cuda") == \
+            data[start : start + length]
+    (out, off, n), = zlibes_tpu_torch.inflate_to_device(comp, index,
+                                                        device="cuda")
+    assert out.is_cuda and (off, n) == (0, len(data))
+    assert out[:n].cpu().numpy().tobytes() == data
+
+
+def test_turbo_inflate_to_device_on_card(fixture_stream):
+    comp, index = fixture_stream
+    (out, off, n), = zlibes_tpu_torch.inflate_to_device(comp, index,
+                                                        device="cuda")
+    assert out.is_cuda
+    assert out[:n].cpu().numpy().tobytes() == zlib.decompress(comp)
+
+
+def test_distance_before_block_start_raises_on_card():
+    tokens = [(3, 1), 97, 98, 99]
+    comp, index = fixed_stream([tokens], trailer=zlib.adler32(
+        expand(tokens, clip=True)).to_bytes(4, "big"))
+    with pytest.raises(zlibes_tpu_torch.CorruptError):
+        zlibes_tpu_torch.inflate(comp, index=index, device="cuda")

@@ -50,8 +50,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, zlibes_tpu_torch\n"
             "from zlibes_tpu_torch import ChecksumError, CorruptError\n"
             "import zlibes_tpu_torch.codec.turbo, "
+            "zlibes_tpu_torch.codec.wide, "
             "zlibes_tpu_torch.codec.inflate_pipeline, "
-            "zlibes_tpu_torch.ops.adler32, zlibes_tpu_torch.runtime.kernels\n"
+            "zlibes_tpu_torch.ops.adler32, zlibes_tpu_torch.ops.wide_kernel, "
+            "zlibes_tpu_torch.runtime.kernels\n"
+            "from zlibes_tpu_torch import inflate_range, inflate_to_device\n"
             "assert 'jax' not in sys.modules, sorted("
             "m for m in sys.modules if m.startswith('jax'))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -172,15 +175,53 @@ def test_corrupt_lane_raises_corrupt_error(turbo_stream):
 
 
 def test_non_turbo_indexes_not_ported():
+    """A generic index (neither turbo nor wide anchors), and any non-turbo
+    index on an FDICT stream, still raise, naming the ROADMAP item that
+    ports them."""
     data = _data(20000)
     comp, wide_index = dp.deflate(data, with_index=True, block_size=BS)
-    assert wide_index.wide and not wide_index.turbo
-    with pytest.raises(NotImplementedError, match="item 4"):
-        zlibes_tpu_torch.inflate(comp, index=wide_index, device="cpu")
     generic = StreamIndex(wide_index.blocks, wide_index.anchor_bit,
                           wide_index.anchor_out, wide_index.anchor_block)
     with pytest.raises(NotImplementedError, match="item 8"):
         zlibes_tpu_torch.inflate(comp, index=generic, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        zlibes_tpu_torch.inflate_range(comp, generic, 0, 10, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        zlibes_tpu_torch.inflate_to_device(comp, generic, device="cpu")
+    zd = b"brown fox lazy dog"
+    co = zlib.compressobj(6, zdict=zd)
+    fcomp = co.compress(data) + co.flush()
+    for index in (generic, wide_index):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            zlibes_tpu_torch.inflate(fcomp, index=index, dictionary=zd,
+                                     device="cpu")
+
+
+def test_wide_index_decodes():
+    data = _data(20000)
+    comp, wide_index = dp.deflate(data, with_index=True, block_size=BS)
+    assert wide_index.wide and not wide_index.turbo
+    assert zlibes_tpu_torch.inflate(comp, index=wide_index,
+                                    device="cpu") == data
+
+
+@pytest.mark.parametrize("start,length", [(0, 28500), (0, 1), (16380, 10),
+                                          (20000, 8500), (28499, 1)])
+def test_turbo_inflate_range(turbo_stream, start, length):
+    data, comp, index = turbo_stream
+    assert len(data) == 28500
+    got = zlibes_tpu_torch.inflate_range(comp, index, start, length,
+                                         device="cpu")
+    assert got == data[start : start + length]
+
+
+def test_turbo_inflate_to_device(turbo_stream):
+    data, comp, index = turbo_stream
+    (out, off, n), = zlibes_tpu_torch.inflate_to_device(comp, index,
+                                                        device="cpu")
+    assert (out.device.type, out.dtype, off, n) == ("cpu", torch.uint8, 0,
+                                                    len(data))
+    assert out[:n].numpy().tobytes() == data
 
 
 def test_no_index_decodes_through_native():

@@ -15,7 +15,8 @@ from zlibes_tpu.spec.errors import (
 )
 from zlibes_tpu.spec.refmodel import StreamIndex
 
-from .codec.api import inflate
+from .codec.api import inflate, inflate_range, inflate_to_device
 
-__all__ = ["inflate", "StreamIndex", "errors", "ZlibError", "HeaderError",
-           "TruncatedError", "CorruptError", "ChecksumError"]
+__all__ = ["inflate", "inflate_range", "inflate_to_device", "StreamIndex",
+           "errors", "ZlibError", "HeaderError", "TruncatedError",
+           "CorruptError", "ChecksumError"]

@@ -20,14 +20,44 @@ def inflate(data: bytes, *, index=None, verify_checksum: bool = True,
             device: torch.device | str = "cuda") -> bytes:
     """Decompress a zlib stream, verifying the Adler-32 trailer.
 
-    ``index=`` a turbo-profile StreamIndex selects the lane-parallel decode
-    on ``device`` (CUDA kernels on a card, their plain PyTorch versions on
-    the CPU).  Without an index the stream decodes through the shared
-    native runtime.  ``dictionary=`` supplies the preset dictionary for
-    FDICT streams (RFC 1950 §2.2).
+    ``index=`` a turbo-profile or a wide (default-profile, levels 1-9)
+    StreamIndex selects the lane-parallel decode on ``device`` (CUDA
+    kernels on a card, their plain PyTorch versions on the CPU).  Without
+    an index the stream decodes through the shared native runtime.
+    ``dictionary=`` supplies the preset dictionary for FDICT streams
+    (RFC 1950 §2.2).
     """
     from . import inflate_pipeline
 
     return inflate_pipeline.inflate(bytes(data), verify_checksum=verify_checksum,
                                     index=index, dictionary=dictionary,
                                     device=_device(device))
+
+
+def inflate_range(data: bytes, index, start: int, length: int, *,
+                  device: torch.device | str = "cuda") -> bytes:
+    """Random-access decode: output bytes [start, start+length) only.
+
+    Decodes, on ``device``, just the self-contained blocks covering the
+    range of a stream with a turbo or a wide index, so the cost is
+    O(length + block_size) whatever the stream's size.
+    """
+    from . import inflate_pipeline
+
+    return inflate_pipeline.inflate_range(bytes(data), index, start, length,
+                                          device=_device(device))
+
+
+def inflate_to_device(data: bytes, index, *,
+                      device: torch.device | str = "cuda"):
+    """Decompress a stream with a turbo or a wide index straight into
+    ``device`` memory, with no device-to-host copy of the output.
+
+    Returns a list of (uint8 tensor, out_offset, nbytes) spans covering the
+    output: bytes [out_offset, out_offset + nbytes) are the tensor's first
+    nbytes.
+    """
+    from . import inflate_pipeline
+
+    return inflate_pipeline.inflate_to_device(bytes(data), index,
+                                              device=_device(device))

@@ -1,13 +1,16 @@
 """zlib-container inflate for the PyTorch port.
 
 Counterpart of ``zlibes_tpu/codec/inflate_pipeline.py``.  Container
-framing and header parsing are host work; a turbo-indexed stream's payload
-decode, LZ resolve and Adler-32 run on the requested device.  A stream
-without an index decodes through the shared native runtime, as the JAX
-package does when that runtime is available.
+framing and header parsing are host work; the payload decode, LZ resolve
+and Adler-32 of a stream with a turbo or a wide (default-profile) index run
+on the requested device, as do the seek (``inflate_range``) and the
+device-resident output (``inflate_to_device``).  A stream without an index
+decodes through the shared native runtime, as the JAX package does when
+that runtime is available.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from zlibes_tpu.spec import constants as C
@@ -20,6 +23,7 @@ from zlibes_tpu.spec.errors import (
 from zlibes_tpu.spec.refmodel import (
     BitReader,
     BlockInfo,
+    StreamIndex,
     read_dynamic_code_lengths,
 )
 
@@ -54,10 +58,96 @@ def _decode_native(data: bytes, offset: int, dictionary: bytes | None):
     return torch.from_numpy(out), end_bit, adler
 
 
+def _generic_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "generic indexed inflate is not ported yet (ROADMAP queue 1 item 8)")
+
+
+def _inflate_indexed(data: bytes, index: StreamIndex,
+                     device: torch.device | str,
+                     check: bool = True) -> torch.Tensor:
+    """Device decode of an indexed stream's payload: the turbo path for a
+    turbo index, the wide path for a self-contained wide index.  Returns
+    the output bytes as a uint8 tensor on ``device``."""
+    if getattr(index, "turbo", False):
+        from .turbo import inflate_raw_turbo
+
+        return inflate_raw_turbo(data, index, device, check=check)
+    if getattr(index, "wide", False) and getattr(index, "self_contained",
+                                                 True):
+        from .wide import inflate_raw_wide
+
+        return inflate_raw_wide(data, index, device, check=check)
+    raise _generic_not_ported()
+
+
+def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
+                  *, device: torch.device | str) -> bytes:
+    """Random-access decode of output bytes [start, start+length).
+
+    Only the self-contained blocks overlapping the range are decoded, on
+    ``device``, through a sub-index that keeps the turbo and wide flags, so
+    a seek runs the same kernels as a whole-stream decode.  Block
+    out_starts are multiples of 128 KiB, so the sub-stream keeps the anchor
+    geometry (512 B turbo segments, 128 B wide sub-spans).
+    """
+    total = index.total_out
+    if start < 0 or length < 0 or start + length > total:
+        raise ValueError(
+            f"range [{start}, {start + length}) outside output [0, {total})")
+    if not getattr(index, "self_contained", True):
+        raise CorruptError(
+            "inflate_range requires self-contained blocks (indexes from this "
+            "framework's encoder); foreign chained streams must decode from "
+            "the start")
+    if length == 0:
+        return b""
+    end = start + length
+    keep = [i for i, b in enumerate(index.blocks) if b.out_len
+            and b.out_start < end and b.out_start + b.out_len > start]
+    out_lo = index.blocks[keep[0]].out_start
+    keep_arr = np.asarray(keep, np.int32)
+    mask = np.isin(index.anchor_block, keep_arr)
+    sub = StreamIndex(
+        [BlockInfo(b.btype, b.bfinal, b.start_bit, b.payload_start_bit,
+                   b.end_bit, b.out_start - out_lo, b.out_len)
+         for b in (index.blocks[i] for i in keep)],
+        index.anchor_bit[mask],
+        index.anchor_out[mask] - out_lo,
+        np.searchsorted(keep_arr, index.anchor_block[mask]).astype(np.int32),
+        True,
+        getattr(index, "chunk_reset", 0),
+        getattr(index, "turbo", False),
+        getattr(index, "max_tokens", 0),
+        getattr(index, "wide", False),
+    )
+    out = _inflate_indexed(bytes(data), sub, device)
+    return out[start - out_lo : end - out_lo].cpu().numpy().tobytes()
+
+
+def inflate_to_device(data: bytes, index: StreamIndex, *,
+                      device: torch.device | str):
+    """Decompress into device memory, with no copy of the output to the
+    host: returns [(uint8 tensor on ``device``, out_offset, nbytes)].
+
+    One span covers the whole output: a turbo stream's chunk rows or a wide
+    stream's block rows, flattened, or, for a wide stream with stored
+    content, one spliced tensor.  As in the reference, the decode's meta
+    checks are skipped; the caller verifies the bytes.
+    """
+    if not getattr(index, "self_contained", True):
+        raise CorruptError(
+            "inflate_to_device requires self-contained blocks (streams "
+            "produced by this framework); use inflate() for foreign streams")
+    out = _inflate_indexed(bytes(data), index, device, check=False)
+    return [(out, 0, index.total_out)]
+
+
 def inflate(data: bytes, *, device: torch.device | str,
             verify_checksum: bool = True, index=None,
             dictionary: bytes | None = None) -> bytes:
-    """zlib-container inflate; a turbo-indexed stream decodes on ``device``."""
+    """zlib-container inflate; a turbo- or wide-indexed stream decodes on
+    ``device``."""
     data = bytes(data)
     if len(data) < 6:
         raise TruncatedError("zlib stream shorter than minimal frame")
@@ -84,21 +174,15 @@ def inflate(data: bytes, *, device: torch.device | str,
     known_adler = None
     if index is None:
         out, end_bit, known_adler = _decode_native(data, offset, dictionary)
-    elif getattr(index, "turbo", False):
-        if dictionary is not None:
-            raise HeaderError("turbo streams never carry FDICT")
-        from .turbo import inflate_raw_turbo
-
-        out = inflate_raw_turbo(data, index, device)
-        end_bit = index.blocks[-1].end_bit
-    elif getattr(index, "wide", False):
-        raise NotImplementedError(
-            "default-profile (wide) indexed inflate is not ported yet "
-            "(ROADMAP queue 1 item 4)")
     else:
-        raise NotImplementedError(
-            "generic indexed inflate is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+        if dictionary is not None:
+            if getattr(index, "turbo", False):
+                raise HeaderError("turbo streams never carry FDICT")
+            # the reference decodes other indexed FDICT streams on its
+            # generic path
+            raise _generic_not_ported()
+        out = _inflate_indexed(data, index, device)
+        end_bit = index.blocks[-1].end_bit
     if verify_checksum:
         trailer_pos = (end_bit + 7) >> 3
         if trailer_pos + 4 > len(data):

@@ -203,11 +203,12 @@ def run_turbo(plan: TurboPlan, check: bool = True) -> torch.Tensor:
 
 
 def inflate_raw_turbo(data: bytes, index: StreamIndex,
-                      device: torch.device | str) -> torch.Tensor:
+                      device: torch.device | str,
+                      check: bool = True) -> torch.Tensor:
     """Full turbo inflate of a stream produced by CodecConfig.turbo().
 
     Returns the decompressed bytes as a uint8 tensor on ``device``.
     """
     plan = TurboPlan.build(data, index, device)
-    rows = run_turbo(plan)
+    rows = run_turbo(plan, check=check)
     return rows.reshape(-1)[: plan.total_out]

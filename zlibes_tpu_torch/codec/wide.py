@@ -1,0 +1,238 @@
+"""Wide inflate pipeline: the device decode of default-profile streams
+(per-block 15-bit tables, full 32 KiB window), which is what levels 1-9 of
+the encoder write.
+
+Counterpart of ``zlibes_tpu/codec/wide.py``: lane windows + per-lane
+two-level-table decode + block-row LZ resolve.  Every per-lane array is in
+lane order, and lane ``cb * LPB + m`` decodes the tokens that start in
+output sub-span ``[m*128, (m+1)*128)`` of coded block ``cb``.  The TPU
+pipeline's lane grid, word-planes, grouped 256-word fetch, per-grid-step
+sublane table rows and 8-row padding are not carried over.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zlibes_tpu.spec import constants as C
+from zlibes_tpu.spec.errors import CorruptError
+from zlibes_tpu.spec.refmodel import StreamIndex
+
+from ..ops import turbo_kernel as tk
+from ..ops import wide_kernel as wk
+
+SUB = wk.SUB
+# the largest lane window, in stream words, a valid wide index can need
+MAX_SW = 80
+
+
+def _glue_wide(tokens: torch.Tensor, starts: torch.Tensor,
+               meta: torch.Tensor, Cb: int, LPB: int):
+    """Token post-pass: block-row resolve layout + slot-0 cover tokens.
+
+    tokens, starts (T, L) int32 from ``decode_wide``, valid in
+    [0, meta[0]); meta (6, L).  Every 128-B sub-span's slot 0 receives its
+    boundary-covering token (the token with start < boundary < end) with a
+    negative start, found by a forward fill of each lane's last token over
+    lane order: a long match can skip whole sub-spans, so the cover can
+    come from several lanes back.  Block-start lanes never take a
+    predecessor, so the fill needs no reset at block boundaries.
+
+    Returns (toks, starts): (Cb, LPB, TOKENS_PAD) int32, invalid slots
+    carrying start START_PAD.
+    """
+    T, L = tokens.shape
+    dev = tokens.device
+    counts = meta[0]
+    valid = torch.arange(T, device=dev)[:, None] < counts[None, :]
+    tokens = torch.where(valid, tokens, 0)
+    starts = torch.where(valid, starts, wk.START_PAD)
+
+    lane = torch.arange(L, device=dev)
+    m_in_b = lane % LPB
+    boundary = (m_in_b * SUB).int()
+    # exclusive forward fill: the nearest lane before this one that emitted
+    # a token
+    filled = torch.cummax(torch.where(counts > 0, lane, -1), 0).values
+    pred = torch.cat([filled.new_full((1,), -1), filled[:-1]])
+    has_pred = pred >= 0
+    pred = pred.clamp(min=0)
+    pred_t = meta[4][pred]
+    pred_s = meta[5][pred] + (pred % LPB * SUB).int()  # within the block
+    plen = torch.where((pred_t & wk.TOK_MATCH_BIT) != 0,
+                       pred_t & wk.TOK_VAL_MASK, 1)
+    cross = has_pred & (m_in_b != 0) & (pred_s + plen > boundary)
+    cross = cross.reshape(Cb, LPB, 1)
+
+    def relayout(x, slot0, fill):
+        rows = torch.full((Cb, LPB, wk.TOKENS_PAD), fill, dtype=torch.int32,
+                          device=dev)
+        rows[:, :, :T] = x.T.reshape(Cb, LPB, T)
+        shifted = torch.cat([slot0.reshape(Cb, LPB, 1), rows[:, :, :-1]], 2)
+        return torch.where(cross, shifted, rows)
+
+    return (relayout(tokens, pred_t, 0),
+            relayout(starts, pred_s - boundary, wk.START_PAD))
+
+
+class WidePlan:
+    """Host-prepared device tensors for one wide-profile stream (reusable).
+
+    words     (NW,) int32    the stream as little-endian words
+    start_w   (L,) int32     first stream word of each lane's window
+    bit0/endb (L,) int32     lane start / end bit within its window
+    base      (L,) int32     first token's offset in the lane's sub-span
+    lt        (Cb, LL_W) int32, dt (Cb, D_W) int32: one table row per
+                             coded block
+    L = Cb * LPB lanes; a block's lanes past its output are empty
+    (bit0 == endb == 0).
+    """
+
+    __slots__ = ("words", "start_w", "bit0", "endb", "base", "lt", "dt",
+                 "endb_host", "coded", "stored", "contiguous", "total_out",
+                 "Cb", "LPB", "SW", "T")
+
+    @staticmethod
+    def build(data: bytes, index: StreamIndex,
+              device: torch.device | str) -> "WidePlan":
+        from .inflate_pipeline import _block_code_lengths
+
+        if not getattr(index, "wide", False):
+            raise CorruptError("stream index does not carry wide anchors")
+        if not getattr(index, "self_contained", True):
+            raise CorruptError("wide decode requires self-contained blocks")
+        p = WidePlan()
+        p.coded = [b for b in index.blocks
+                   if b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC)
+                   and b.out_len]
+        p.stored = [b for b in index.blocks
+                    if b.btype == C.BTYPE_STORED and b.out_len]
+        p.total_out = index.total_out
+        p.T = wk.MAX_TOKENS
+        raw = np.frombuffer(data, np.uint8)
+        words = np.zeros(-(-raw.size // 4), "<u4")
+        words.view(np.uint8)[: raw.size] = raw
+        p.words = torch.from_numpy(words.view(np.int32)).to(device)
+        if not p.coded:
+            # all-stored stream (incompressible input): copies only
+            p.Cb = p.LPB = p.SW = 0
+            p.contiguous = False
+            return p
+        max_out = max(b.out_len for b in p.coded)
+        LPB = max(128, -(-max_out // (SUB * 128)) * 128)
+        p.LPB = LPB
+        p.Cb = Cb = len(p.coded)
+        L = Cb * LPB
+        # rows flatten straight into the output iff the coded blocks tile
+        # it back to back at LPB*SUB bytes each (no stored content, uniform
+        # block size: the common case)
+        p.contiguous = not p.stored and all(
+            b.out_start == i * LPB * SUB for i, b in enumerate(p.coded))
+
+        # per-block two-level tables; every fixed block shares one pair
+        lt = np.zeros((Cb, wk.LL_W), np.int32)
+        dt = np.zeros((Cb, wk.D_W), np.int32)
+        cache: dict[object, tuple] = {}
+        for cb, b in enumerate(p.coded):
+            key = b.btype if b.btype == C.BTYPE_FIXED else b.start_bit
+            if key not in cache:
+                cache[key] = wk.wide_decode_tables(
+                    *_block_code_lengths(data, b))
+            lt[cb], dt[cb] = cache[key]
+
+        # per-lane anchor spans
+        abit = np.asarray(index.anchor_bit, np.int64)
+        aout = np.asarray(index.anchor_out, np.int64)
+        ablk = np.asarray(index.anchor_block, np.int64)
+        bit0_abs = np.zeros(L, np.int64)
+        end_abs = np.zeros(L, np.int64)
+        base = np.zeros(L, np.int64)
+        block_of = {id(b): i for i, b in enumerate(index.blocks)}
+        for cb, b in enumerate(p.coded):
+            sel = np.nonzero(ablk == block_of[id(b)])[0]
+            na_b = -(-b.out_len // SUB)
+            if sel.size != na_b:
+                raise CorruptError(
+                    f"wide index must carry one anchor per {SUB} B of "
+                    f"block output ({na_b} expected, {sel.size} found)")
+            ab = abit[sel]
+            rel = aout[sel] - b.out_start - np.arange(na_b) * SUB
+            if (np.diff(ab) < 0).any() or (rel < 0).any() \
+                    or (rel >= SUB + C.MAX_MATCH + 1).any():
+                raise CorruptError("wide anchors are not monotone uniform")
+            lo = cb * LPB
+            bit0_abs[lo : lo + na_b] = ab
+            end_abs[lo : lo + na_b] = np.concatenate([ab[1:], [b.end_bit]])
+            base[lo : lo + na_b] = rel
+
+        start_w = bit0_abs >> 5
+        endb = end_abs - (start_w << 5)
+        # a lane's 128-B sub-span codes at most ~128*15 + 48 bits (~66
+        # words): the window covers the lane's span + 2 words of lookahead,
+        # bucketed to multiples of 8 words
+        wneed = -(-int(endb.max(initial=0)) // 32) + 2
+        p.SW = max(8, -(-wneed // 8) * 8)
+        if p.SW > MAX_SW:
+            raise CorruptError("anchor span exceeds the lane stream window")
+
+        def lanes(x):
+            return torch.from_numpy(x.astype(np.int32)).to(device)
+
+        p.start_w = lanes(start_w)
+        p.bit0 = lanes(bit0_abs & 31)
+        p.endb = lanes(endb)
+        p.base = lanes(base)
+        p.endb_host = endb.astype(np.int32)
+        p.lt = torch.from_numpy(lt).to(device)
+        p.dt = torch.from_numpy(dt).to(device)
+        return p
+
+    def check_meta(self, meta: np.ndarray) -> None:
+        """Validate decode metadata (>= 4 rows, L): no lane flagged, every
+        lane ended exactly at its anchor (empty lanes: 0 == 0)."""
+        if meta[2].any() or meta[3].any():
+            raise CorruptError("invalid Huffman data in wide lane")
+        if not (meta[1] == self.endb_host).all():
+            raise CorruptError("wide lane did not end at its anchor")
+
+
+def run_wide(plan: WidePlan, check: bool = True) -> torch.Tensor:
+    """Execute the device stages; returns the (Cb, LPB*128) uint8 block rows
+    on the plan's device (row cb holds coded block cb's output up to its
+    out_len)."""
+    win = tk.lane_windows(plan.words, plan.start_w, width=plan.SW)
+    tokens, starts, meta = wk.decode_wide(win, plan.bit0, plan.endb,
+                                          plan.base, plan.lt, plan.dt,
+                                          LPB=plan.LPB, T=plan.T)
+    if check:
+        plan.check_meta(meta[:4].cpu().numpy())
+    toks, sts = _glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
+    return wk.resolve_wide(toks, sts)
+
+
+def inflate_raw_wide(data: bytes, index: StreamIndex,
+                     device: torch.device | str,
+                     check: bool = True) -> torch.Tensor:
+    """Full wide-profile inflate; returns the decompressed bytes as a uint8
+    tensor on ``device``.
+
+    Contiguous streams are the rows flattened; otherwise the coded rows and
+    the stored blocks' payloads (read from the plan's copy of the stream on
+    the device) are spliced into one tensor.
+    """
+    plan = WidePlan.build(data, index, device)
+    rows = run_wide(plan, check=check) if plan.coded else None
+    if plan.contiguous:
+        return rows.reshape(-1)[: plan.total_out]
+    out = torch.empty(plan.total_out, dtype=torch.uint8,
+                      device=plan.words.device)
+    for i, b in enumerate(plan.coded):
+        out[b.out_start : b.out_start + b.out_len] = rows[i, : b.out_len]
+    stream = plan.words.view(torch.uint8)
+    for b in plan.stored:
+        pos = (b.payload_start_bit >> 3) + 4   # past LEN / NLEN
+        if pos + b.out_len > len(data):
+            raise CorruptError("stored block runs past the end of the stream")
+        out[b.out_start : b.out_start + b.out_len] = \
+            stream[pos : pos + b.out_len]
+    return out

@@ -7,7 +7,8 @@
 // plain PyTorch versions beside them define the same results.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -shared -Xcompiler -fPIC -o libzt.so turbo_kernels.cu
+//        -c -Xcompiler -fPIC -o turbo_kernels.o turbo_kernels.cu
+// (runtime/kernels.py links it with the other sources into one library)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,17 +29,18 @@ constexpr int kJumpRounds = 12;    // 2^12 >= longest chain in 4096 bytes
 constexpr int kKindEob = 1, kKindLen = 2, kKindInvalid = 3;
 
 // ---------------------------------------------------------------- windows
-// out[l, w] = words[start_w[l] + w], 0 past the end of the stream.
+// out[l, w] = words[start_w[l] + w] for w < width, 0 past the end of the
+// stream.
 
 __global__ void lane_windows_kernel(const int32_t* __restrict__ words,
                                     int64_t nwords,
                                     const int32_t* __restrict__ start_w,
-                                    int64_t lanes,
+                                    int64_t lanes, int width,
                                     int32_t* __restrict__ out) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes * kStreamWords) return;
-  int64_t l = i / kStreamWords;
-  int64_t idx = (int64_t)start_w[l] + (i - l * kStreamWords);
+  if (i >= lanes * width) return;
+  int64_t l = i / width;
+  int64_t idx = (int64_t)start_w[l] + (i - l * width);
   out[i] = (idx >= 0 && idx < nwords) ? words[idx] : 0;
 }
 
@@ -179,12 +181,12 @@ static_assert(kSubsPerChunk * kSub == kChunk, "chunk = 16 sub-spans");
 extern "C" {
 
 int zt_lane_windows(const void* words, int64_t nwords, const void* start_w,
-                    int64_t lanes, void* out, void* stream) {
+                    int64_t lanes, int width, void* out, void* stream) {
   const int threads = 256;
-  int64_t n = lanes * kStreamWords;
+  int64_t n = lanes * width;
   unsigned blocks = (unsigned)((n + threads - 1) / threads);
   lane_windows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)words, nwords, (const int32_t*)start_w, lanes,
+      (const int32_t*)words, nwords, (const int32_t*)start_w, lanes, width,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }

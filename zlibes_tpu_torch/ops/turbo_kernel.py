@@ -140,7 +140,7 @@ def _route(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no turbo kernel for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -166,14 +166,14 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 # :227): on the TPU a scalar-prefetch DMA of two 128-word-aligned blocks per
 # lane and a select pass dropping the alignment residue; both compute
 #     out[l, w] = words[start_w[l] + w]   (0 past the end of the stream).
-# On the card this is one gather, one thread per output word: bound by
-# memory traffic (L*96*4 B written, the same read mostly from L2 because
-# neighbouring lanes' windows overlap).
+# The wide path's grouped 256-word fetch (zlibes_tpu/codec/wide.py:229-257,
+# :292) computes the same at width SW.  On the card this is one gather, one
+# thread per output word: bound by memory traffic (L*width*4 B written, the
+# same read mostly from L2 because neighbouring lanes' windows overlap).
 
-def lane_windows_plain(words: torch.Tensor,
-                       start_w: torch.Tensor) -> torch.Tensor:
-    idx = (start_w.long()[:, None]
-           + torch.arange(STREAM_WORDS, device=words.device))
+def lane_windows_plain(words: torch.Tensor, start_w: torch.Tensor,
+                       width: int = STREAM_WORDS) -> torch.Tensor:
+    idx = start_w.long()[:, None] + torch.arange(width, device=words.device)
     n = words.numel()
     inside = (idx >= 0) & (idx < n)
     got = words[idx.clamp(0, max(n - 1, 0))]
@@ -181,19 +181,24 @@ def lane_windows_plain(words: torch.Tensor,
                                                 device=words.device))
 
 
-def lane_windows(words: torch.Tensor, start_w: torch.Tensor) -> torch.Tensor:
+def lane_windows(words: torch.Tensor, start_w: torch.Tensor,
+                 width: int = STREAM_WORDS) -> torch.Tensor:
     """words (NW,) int32 stream words (little-endian), start_w (L,) int32
-    per-lane first word -> (L, 96) int32 lane windows."""
+    per-lane first word -> (L, width) int32 lane windows (96 words for a
+    turbo lane, the plan's SW for a wide lane)."""
     dev = words.device
     _check(words, "words", torch.int32, (words.numel(),), dev)
     L = start_w.numel()
     _check(start_w, "start_w", torch.int32, (L,), dev)
+    if width <= 0:
+        raise ValueError(f"width must be positive, got {width}")
     if not _route(words):
-        return lane_windows_plain(words, start_w)
-    out = torch.empty((L, STREAM_WORDS), dtype=torch.int32, device=dev)
+        return lane_windows_plain(words, start_w, width)
+    out = torch.empty((L, width), dtype=torch.int32, device=dev)
     if L:
         _launch("lane_windows", dev, _ptr(words), ctypes.c_int64(words.numel()),
-                _ptr(start_w), ctypes.c_int64(L), _ptr(out))
+                _ptr(start_w), ctypes.c_int64(L), ctypes.c_int(width),
+                _ptr(out))
     return out
 
 
@@ -221,9 +226,9 @@ def lane_windows(words: torch.Tensor, start_w: torch.Tensor) -> torch.Tensor:
 
 def _bits_at(win: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """The 63 stream bits starting at bit ``pos`` of each lane's window
-    (LSB-first), as int64; a token uses at most 9 + 7 + 9 + 15 of them.
-    Reads past the window's last word are clamped to it, as in the
-    kernel."""
+    (LSB-first), as int64; a turbo token uses at most 9 + 7 + 9 + 15 of
+    them, a wide token 15 + 5 + 15 + 13.  Reads past the window's last word
+    are clamped to it, as in the kernels."""
     sw = win.shape[1]
     wi = (pos >> 5)[:, None]
     s = pos & 31
@@ -329,16 +334,16 @@ def decode_turbo(win: torch.Tensor, bit0: torch.Tensor, endb: torch.Tensor,
 # clip(q - dist, 0, 4095) within the chunk.
 
 def _covering_slot(starts_flat: torch.Tensor, m: torch.Tensor,
-                   ql: torch.Tensor) -> torch.Tensor:
-    """Branch-free binary search, as in the kernel: per byte, the largest
-    slot i < TOKENS_PAD of its sub-span with start[i] <= ql (else 0)."""
+                   ql: torch.Tensor, pad: int = TOKENS_PAD) -> torch.Tensor:
+    """Branch-free binary search, as in the kernels: per byte, the largest
+    slot i < pad of its sub-span (``pad`` slots each) with start[i] <= ql
+    (else 0)."""
     lo = torch.zeros_like(ql)
-    step = 1 << ((TOKENS_PAD - 1).bit_length() - 1)
+    step = 1 << ((pad - 1).bit_length() - 1)
     while step:
         mid = lo + step
-        sv = starts_flat.gather(
-            1, m * TOKENS_PAD + mid.clamp(max=TOKENS_PAD - 1))
-        lo = torch.where((mid < TOKENS_PAD) & (sv <= ql), mid, lo)
+        sv = starts_flat.gather(1, m * pad + mid.clamp(max=pad - 1))
+        lo = torch.where((mid < pad) & (sv <= ql), mid, lo)
         step //= 2
     return lo
 

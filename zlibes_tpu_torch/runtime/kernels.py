@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Counterpart of the build-once pattern of ``zlibes_tpu/runtime/native.py``:
-at first use ``nvcc`` compiles the package's ``csrc/*.cu`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
+at first use ``nvcc`` compiles each of the package's ``csrc/*.cu`` for
+Hopper (``sm_90a``), all sources at once in parallel processes, and links
+them into one shared library with a plain C interface, under
 ``build/zlibes_tpu_torch/`` beside the package, named by a hash of the
 sources; ``ctypes`` loads it.  A missing ``nvcc`` or a failed build raises.
 """
@@ -21,7 +22,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "zlibes_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -29,9 +30,12 @@ _INT = ctypes.c_int
 # launcher name -> argument types; every launcher ends with the stream and
 # returns cudaGetLastError()
 _SIGNATURES = {
-    "zt_lane_windows": [_P, _I64, _P, _I64, _P, _P],
+    "zt_lane_windows": [_P, _I64, _P, _I64, _INT, _P, _P],
     "zt_decode_turbo": [_P, _P, _P, _P, _P, _INT, _INT, _P, _P, _P],
     "zt_resolve_turbo": [_P, _P, _INT, _P, _P],
+    "zt_decode_wide": [_P, _INT, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P, _P,
+                       _P, _P],
+    "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P],
 }
 
 
@@ -62,13 +66,34 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    srcs = sources()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(srcs, objs)]
+        errors = []
+        for src, proc in zip(srcs, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc {src.name} failed ({proc.returncode}):"
+                              f"\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        tmp.rename(so)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    tmp.rename(so)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so
 
 
