@@ -1,27 +1,30 @@
-"""Drive the PyTorch port's inflate paths once on one CUDA card.
+"""Drive the PyTorch port's inflate and encode paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
-two paths on committed fixtures of the 3.84 MB bench corpus:
+three paths on the 3.84 MB bench corpus and its committed fixtures:
 
-  * turbo: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``), kernels
-    ``lane_windows``, ``decode_turbo``, ``resolve_turbo``;
-  * wide: ``tests/golden/wide_bench.*`` (level 6, zlib's default), kernels
-    ``lane_windows`` (at the plan's width), ``decode_wide``,
+  * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
+    kernels ``lane_windows``, ``decode_turbo``, ``resolve_turbo``;
+  * wide inflate: ``tests/golden/wide_bench.*`` (level 6, zlib's default),
+    kernels ``lane_windows`` (at the plan's width), ``decode_wide``,
     ``resolve_wide``, plus the seek (``inflate_range``) and the
-    device-resident output (``inflate_to_device``).
+    device-resident output (``inflate_to_device``);
+  * turbo encode: ``zlibes_tpu_torch.deflate(corpus,
+    config=CodecConfig.turbo())``, kernels ``select_turbo`` and
+    ``encode_fields``; its output must equal ``turbo_bench.zz`` byte for
+    byte, its index ``turbo_bench.idx.npz``, and decode back to the corpus.
 
 For each path it holds every kernel against its plain PyTorch version at
-the fixture's shapes, decodes the fixture through
-``zlibes_tpu_torch.inflate(..., device="cuda")`` with the launch counts
-set to 0 just before and read just after, times the kernels and the device
-pipeline with CUDA events and torch.profiler, and probes corrupted
-streams.  Any failure raises.  The last line of standard output is one
-JSON object naming the device; the line before it is the card's name and
-power limit from nvidia-smi, and the line before that the per-kernel JSON
-record (``launches`` of ``lane_windows`` sums both paths' runs).
-Imports no JAX.
+the path's shapes, runs the path through its public entry point on the
+card with the launch counts set to 0 just before and read just after,
+times the kernels and the pipeline with CUDA events and torch.profiler,
+and (inflate) probes corrupted streams.  Any failure raises.  The last
+line of standard output is one JSON object naming the device; the line
+before it is the card's name and power limit from nvidia-smi, and the line
+before that the per-kernel JSON record (``launches`` of ``lane_windows``
+sums both inflate paths' runs).  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 TURBO_SRC = "zlibes_tpu/ops/turbo_kernel.py"
 WIDE_SRC = "zlibes_tpu/ops/wide_kernel.py"
+ENCODE_SRC = "zlibes_tpu/ops/encode_kernel.py"
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 2) -> float:
@@ -293,6 +297,158 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     return launches, device_ms
 
 
+def encode_phase(corpus: bytes, card: str,
+                 records: dict) -> tuple[dict, dict]:
+    """The turbo encoder on the bench corpus: its kernels against their
+    plain versions at the first dispatch's shapes, per-stage times, the
+    public ``deflate`` with its launch counts, the fixture byte for byte,
+    the round trip, whole-call and zlib times and a profiler breakdown.
+    Adds the encode kernels to ``records``; returns the launch counts of
+    the deflate run and the profiler's device ms by kernel name."""
+    import zlibes_tpu_torch
+    from zlibes_tpu_torch import CodecConfig, CodecStats, StreamIndex
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.inflate_pipeline import _block_code_lengths
+    from zlibes_tpu_torch.ops import deflate_kernel as dk
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops.entropy import limited_lengths_pair
+    from zlibes_tpu_torch.ops.lz77 import find_matches
+
+    gold = (GOLDEN / "turbo_bench.zz").read_bytes()
+    gold_index = StreamIndex.load(GOLDEN / "turbo_bench.idx.npz")
+    cfg = CodecConfig.turbo()
+    N, Bp = cfg.block_size, cfg.blocks_per_dispatch
+    nseg = N // cfg.seg_size
+    nblocks = -(-len(corpus) // N)
+    print(f"encode: corpus {len(corpus)} B, CodecConfig.turbo() (S="
+          f"{cfg.probe_words}, J={cfg.candidates}, {N} B blocks, {nblocks} "
+          f"blocks, {Bp} a dispatch -> {-(-nblocks // Bp)} dispatches of "
+          f"L={Bp * nseg} lanes)")
+
+    # -- the first dispatch, stage by stage, on the card
+    blk_np, nv_np = dp.block_rows(np.frombuffer(corpus, np.uint8), 0,
+                                  min(Bp, nblocks), N, Bp)
+    blk = torch.from_numpy(blk_np).cuda()
+    nv = torch.from_numpy(nv_np).cuda()
+
+    def match():
+        return find_matches(blk, nv, N=N, S=cfg.probe_words,
+                            J=cfg.candidates, reset=cfg.chunk_reset)
+
+    matches = match()
+    pv, slen = dp.select_inputs(blk, matches, nv, N)
+    toks, cnt = tk.select_turbo(pv, slen)
+    torch.cuda.synchronize()
+    toks_p, cnt_p = tk.select_turbo_plain(pv, slen)
+    assert torch.equal(cnt, cnt_p), "select_turbo counts != plain"
+    assert torch.equal(toks, toks_p), "select_turbo tokens != plain"
+    records["select_turbo"] = dict(
+        replaces=f"{TURBO_SRC}:712",
+        max_abs_err=max(max_abs_err(cnt, cnt_p), max_abs_err(toks, toks_p)),
+        ms=cuda_ms(lambda: tk.select_turbo(pv, slen)),
+        plain_ms=cuda_ms(lambda: tk.select_turbo_plain(pv, slen), runs=3,
+                         warmup=1),
+        shape=list(toks.shape), tokens=int(cnt.sum()), plain_runs=3)
+
+    tv, td, cnt = dp.select_glue(blk, matches, nv, N, cfg.lazy)
+    _, _, valid, ll_freq, d_freq = dk.token_symbols(tv, td, cnt, nseg=nseg)
+    ll, dl = _block_code_lengths(gold, gold_index.blocks[0])
+    ll_code, d_code = dp._encode_tables(ll, dl)
+    lt, dt = (t.cuda() for t in ek.pack_tables(ll_code, ll, d_code, dl))
+    f_args = (tv.reshape(-1), td.reshape(-1), valid.int().reshape(-1), lt, dt)
+    val, nb = ek.encode_fields(*f_args)
+    torch.cuda.synchronize()
+    val_p, nb_p = ek.encode_fields_plain(*f_args)
+    assert torch.equal(val, val_p), "encode_fields values != plain"
+    assert torch.equal(nb, nb_p), "encode_fields bit counts != plain"
+    records["encode_fields"] = dict(
+        replaces=f"{ENCODE_SRC}:123",
+        max_abs_err=max(max_abs_err(val, val_p), max_abs_err(nb, nb_p)),
+        ms=cuda_ms(lambda: ek.encode_fields(*f_args)),
+        plain_ms=cuda_ms(lambda: ek.encode_fields_plain(*f_args), runs=10),
+        shape=list(val.shape))
+    for name in ("select_turbo", "encode_fields"):
+        r = records[name]
+        print(f"kernel {name}: exact vs plain (max_abs_err {r['max_abs_err']}),"
+              f" kernel {r['ms']:.4f} ms (median of 20), plain "
+              f"{r['plain_ms']:.4f} ms (median of "
+              f"{r.get('plain_runs', 10)}), shape {r['shape']} {card}")
+
+    hdr = torch.full((Bp,), 611, dtype=torch.int32, device="cuda")
+    R = cfg.pack_row_width()
+    eob = int(ll[256])
+    stages = {
+        "match": match,
+        "select": lambda: dp.select_glue(blk, matches, nv, N, cfg.lazy),
+        "symbols": lambda: dk.token_symbols(tv, td, cnt, nseg=nseg),
+        "adler": lambda: dp.adler_terms(blk, nv),
+        "entropy": lambda: limited_lengths_pair(ll_freq.sum(0), d_freq.sum(0),
+                                                cfg.max_code_bits),
+        "pack": lambda: dk.pack_payload_turbo_dense(
+            tv, td, valid, lt, dt, hdr, eob, nseg=nseg, R=R),
+    }
+    stage_ms = {k: cuda_ms(fn, runs=10) for k, fn in stages.items()}
+    print(f"encode stages of one dispatch ({Bp} blocks, {Bp * N} B), CUDA "
+          f"events, median of 10: " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in stage_ms.items())
+          + f" {card}")
+
+    # -- end to end through the public entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    tk.LAUNCHES.clear()
+    out = zlibes_tpu_torch.deflate(corpus, config=cfg, device="cuda")
+    launches = dict(tk.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    assert out == gold, "deflate(device='cuda') != tests/golden/turbo_bench.zz"
+    print(f"deflate(device='cuda'): {len(out)} B (ratio "
+          f"{len(out) / len(corpus):.4f}), byte-exact with the fixture; "
+          f"launches {launches}; peak device memory {peak_mb:.1f} MiB above "
+          f"the {base_mb:.1f} MiB held before the call")
+    for name in ("select_turbo", "encode_fields"):
+        assert launches.get(name, 0) >= 1, f"{name} not launched by deflate"
+    stats = CodecStats()
+    out2, index = dp.deflate(corpus, with_index=True, config=cfg,
+                             stats=stats, device="cuda")
+    assert out2 == gold
+    assert index.blocks == gold_index.blocks, "index blocks != fixture"
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(index, f), getattr(gold_index, f)), f
+    assert (index.turbo, index.chunk_reset, index.max_tokens) == \
+        (gold_index.turbo, gold_index.chunk_reset, gold_index.max_tokens)
+    back = zlibes_tpu_torch.inflate(out, index=index, device="cuda")
+    assert back == corpus, "inflate(deflate(corpus)) != corpus"
+    print(f"index equals the fixture's ({len(index.blocks)} blocks, "
+          f"{index.anchor_bit.size} anchors, max_tokens {index.max_tokens});"
+          f" inflate(device='cuda') of the output returns the corpus; "
+          f"stages (host clock, queued work) "
+          f"{ {k: round(v * 1e3, 2) for k, v in stats.stage_s.items()} } ms")
+
+    n = len(corpus)
+    call_s = wall_s(lambda: zlibes_tpu_torch.deflate(corpus, config=cfg,
+                                                     device="cuda"))
+    z1_s = wall_s(lambda: zlib.compress(corpus, 1))
+    z6_s = wall_s(lambda: zlib.compress(corpus, 6))
+    print(f"whole deflate() call, host to host: {call_s * 1e3:.2f} ms -> "
+          f"{n / call_s / 1e9:.4f} GB/s of input, median of 5 {card}")
+    print(f"CPython zlib.compress, one core: level 1 {z1_s * 1e3:.2f} ms -> "
+          f"{n / z1_s / 1e9:.4f} GB/s ({len(zlib.compress(corpus, 1))} B), "
+          f"level 6 {z6_s * 1e3:.2f} ms -> {n / z6_s / 1e9:.4f} GB/s "
+          f"({len(zlib.compress(corpus, 6))} B), median of 5 (host CPU "
+          f"beside {card})")
+    device_ms = profile_pipeline(
+        lambda: zlibes_tpu_torch.deflate(corpus, config=cfg, device="cuda"),
+        card, runs=2)
+    if device_ms:
+        busy = sum(device_ms.values())
+        print(f"encode: device busy {busy:.4f} of {call_s * 1e3:.2f} ms per "
+              f"untraced deflate() call -> idle share "
+              f"{1 - busy / (call_s * 1e3):.3f} {card}")
+    return launches, device_ms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -452,6 +608,9 @@ def main() -> None:
     wide_launches, wide_device_ms = wide_phase(corpus, card, records)
     for name, n in wide_launches.items():
         launches[name] = launches.get(name, 0) + n
+    enc_launches, enc_device_ms = encode_phase(corpus, card, records)
+    for name in ("select_turbo", "encode_fields"):
+        launches[name] = enc_launches[name]
 
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 
@@ -459,18 +618,22 @@ def main() -> None:
         return next((v for k, v in ms.items() if f"{name}_kernel" in k), None)
 
     wide = ("decode_wide", "resolve_wide")
+    encode = ("select_turbo", "encode_fields")
     records["lane_windows"]["wide_device_ms"] = traced(wide_device_ms,
                                                        "lane_windows")
     entries = []
     for name, r in records.items():
+        group = ("wide" if name in wide else
+                 "encode" if name in encode else "turbo")
         entries.append({
             "name": name, "route": "cuda",
-            "source": "zlibes_tpu_torch/csrc/"
-                      + ("wide" if name in wide else "turbo") + "_kernels.cu",
+            "source": f"zlibes_tpu_torch/csrc/{group}_kernels.cu",
             "replaces": r["replaces"], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
-            "device_ms": traced(wide_device_ms if name in wide else device_ms,
+            "device_ms": traced({"wide": wide_device_ms,
+                                 "encode": enc_device_ms}.get(group,
+                                                              device_ms),
                                 name)})
         entries[-1].update({k: r[k] for k in ("wide_ms", "wide_plain_ms",
                                               "wide_device_ms") if k in r})

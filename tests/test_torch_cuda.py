@@ -290,3 +290,158 @@ def test_distance_before_block_start_raises_on_card():
         expand(tokens, clip=True)).to_bytes(4, "big"))
     with pytest.raises(zlibes_tpu_torch.CorruptError):
         zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# turbo encoder kernels (select_turbo, encode_fields) and the encoder
+
+@pytest.fixture(scope="module")
+def corpus():
+    import sys
+    sys.path.insert(0, str(GOLDEN.parent.parent))
+    from tools.make_bench_fixture import bench_data
+
+    return bench_data()
+
+
+def _select_both(pv, slen, lazy):
+    toks_k, cnt_k = tk.select_turbo(pv, slen, lazy=lazy)
+    torch.cuda.synchronize()
+    toks_p, cnt_p = tk.select_turbo_plain(pv, slen, lazy)
+    assert _same(cnt_k, cnt_p)
+    assert _same(toks_k, toks_p)      # both write 0 past each count
+    return toks_k, cnt_k
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+def test_select_turbo_kernel_matches_plain_on_random(lazy):
+    g = torch.Generator().manual_seed(2)
+    L = 4096
+    ml = torch.randint(0, 259, (L, tk.SEL_SEG), generator=g)
+    # each lane its own share of literals, from none to nearly all
+    lit_share = torch.rand((L, 1), generator=g)
+    ml = torch.where(torch.rand((L, tk.SEL_SEG), generator=g) < lit_share, 0,
+                     ml)
+    dist = torch.randint(1, 4096, (L, tk.SEL_SEG), generator=g)
+    lit = torch.randint(0, 256, (L, tk.SEL_SEG), generator=g)
+    pv = (dist | (ml << tk.SEL_LEN_SHIFT) | (lit << tk.SEL_LIT_SHIFT)).int()
+    slen = torch.randint(-3, tk.SEL_SEG + 1, (L,), generator=g,
+                         dtype=torch.int32)
+    _, cnt = _select_both(pv.cuda(), slen.cuda(), lazy)
+    assert (cnt == 0).any() and (cnt > 100).any()
+
+
+def _first_dispatch(corpus):
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops.lz77 import find_matches
+
+    cfg = zlibes_tpu_torch.CodecConfig.turbo()
+    N = cfg.block_size
+    blk, nv = tdp.block_rows(np.frombuffer(corpus, np.uint8), 0,
+                             cfg.blocks_per_dispatch, N,
+                             cfg.blocks_per_dispatch)
+    blk, nv = torch.from_numpy(blk).cuda(), torch.from_numpy(nv).cuda()
+    matches = find_matches(blk, nv, N=N, S=cfg.probe_words,
+                           J=cfg.candidates, reset=cfg.chunk_reset)
+    return cfg, blk, nv, matches
+
+
+def test_select_turbo_kernel_matches_plain_on_corpus(corpus):
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+
+    cfg, blk, nv, matches = _first_dispatch(corpus)
+    pv, slen = tdp.select_inputs(blk, matches, nv, cfg.block_size)
+    assert pv.shape == (cfg.blocks_per_dispatch * 256, tk.SEL_SEG)
+    _select_both(pv, slen, True)
+
+
+def _fields_both(tv, td, en, lt, dt):
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+
+    val_k, nb_k = ek.encode_fields(tv, td, en, lt, dt)
+    torch.cuda.synchronize()
+    val_p, nb_p = ek.encode_fields_plain(tv, td, en, lt, dt)
+    assert _same(val_k, val_p)        # code1 is unmasked in both
+    assert _same(nb_k, nb_p)
+
+
+def _corpus_tables(fixture_stream):
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.codec.inflate_pipeline import _block_code_lengths
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+
+    comp, index = fixture_stream
+    ll, dl = _block_code_lengths(comp, index.blocks[0])
+    ll_code, d_code = tdp._encode_tables(np.asarray(ll, np.int64),
+                                         np.asarray(dl, np.int64))
+    return [t.cuda() for t in ek.pack_tables(ll_code, ll, d_code, dl)]
+
+
+def test_encode_fields_kernel_matches_plain_on_random(fixture_stream):
+    lt, dt = _corpus_tables(fixture_stream)
+    g = torch.Generator().manual_seed(3)
+    n = 1 << 20
+    tv = torch.randint(-50, 600, (n,), generator=g, dtype=torch.int32)
+    td = torch.randint(-5, 40000, (n,), generator=g, dtype=torch.int32)
+    en = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    _fields_both(tv.cuda(), td.cuda(), en.cuda(), lt, dt)
+
+
+def test_encode_fields_kernel_matches_plain_on_corpus(corpus,
+                                                      fixture_stream):
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import deflate_kernel as dk
+
+    cfg, blk, nv, matches = _first_dispatch(corpus)
+    tv, td, cnt = tdp.select_glue(blk, matches, nv, cfg.block_size, True)
+    _, _, valid, _, _ = dk.token_symbols(tv, td, cnt, nseg=256)
+    lt, dt = _corpus_tables(fixture_stream)
+    _fields_both(tv.reshape(-1), td.reshape(-1), valid.int().reshape(-1),
+                 lt, dt)
+
+
+def test_encode_wrappers_never_take_plain(monkeypatch):
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+    from zlibes_tpu_torch.runtime import kernels
+
+    def broken():
+        raise RuntimeError("no library")
+
+    monkeypatch.setattr(kernels, "library", broken)
+    z = torch.zeros((4, tk.SEL_SEG), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no library"):
+        tk.select_turbo(z, z[:, 0].contiguous())
+    with pytest.raises(RuntimeError, match="no library"):
+        ek.encode_fields(z[0], z[1], z[2], z[0, :288].contiguous(),
+                         z[0, :32].contiguous())
+
+
+def test_deflate_on_card_equals_cpu_and_fixture(corpus, fixture_stream,
+                                                monkeypatch):
+    """The bench corpus on the card: the committed fixture byte for byte,
+    its index field by field, equal to the CPU run, through both encode
+    kernels and no plain version."""
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+
+    comp, index = fixture_stream
+    cfg = zlibes_tpu_torch.CodecConfig.turbo()
+    cpu = zlibes_tpu_torch.deflate(corpus, config=cfg, device="cpu")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(tk, "select_turbo_plain", plain)
+    monkeypatch.setattr(ek, "encode_fields_plain", plain)
+    tk.LAUNCHES.clear()
+    out, idx = tdp.deflate(corpus, with_index=True, config=cfg,
+                           device="cuda")
+    assert tk.LAUNCHES["select_turbo"] >= 1
+    assert tk.LAUNCHES["encode_fields"] >= 1
+    assert out == comp == cpu
+    assert idx.blocks == index.blocks
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(idx, f), getattr(index, f)), f
+    assert (idx.turbo, idx.chunk_reset, idx.max_tokens) == \
+        (index.turbo, index.chunk_reset, index.max_tokens)
+    assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == corpus

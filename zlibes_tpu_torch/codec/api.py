@@ -15,6 +15,30 @@ def _device(device: torch.device | str) -> torch.device:
     return dev
 
 
+def deflate(data: bytes, *, level: int | None = None, config=None,
+            block_size: int | None = None, stats=None,
+            dictionary: bytes | None = None,
+            device: torch.device | str = "cuda") -> bytes:
+    """Compress ``data`` into a zlib stream (header 0x78 0x9C + Adler-32) on
+    ``device`` (CUDA kernels on a card, their plain PyTorch versions on the
+    CPU).
+
+    The port encodes the turbo profile: ``config`` must be
+    ``CodecConfig.turbo(...)`` (shared tables, 512-byte segments, 4 KiB
+    window resets, codes of at most 9 bits).  ``level=``, the default
+    config and ``dictionary=`` raise NotImplementedError (the general
+    encoder is ROADMAP queue 1 item 7).  ``stats`` (a CodecStats) collects
+    per-call observability.  The pipeline's ``deflate(..., with_index=True)``
+    also returns the stream's StreamIndex.
+    """
+    from . import deflate_pipeline
+
+    dev = _device(device)
+    return deflate_pipeline.deflate(data, block_size=block_size,
+                                    level=level, config=config, stats=stats,
+                                    dictionary=dictionary, device=dev)
+
+
 def inflate(data: bytes, *, index=None, verify_checksum: bool = True,
             dictionary: bytes | None = None,
             device: torch.device | str = "cuda") -> bytes:

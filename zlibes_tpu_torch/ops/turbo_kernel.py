@@ -1,14 +1,19 @@
-"""Turbo-profile inflate kernels for NVIDIA Hopper, with their plain versions.
+"""Turbo-profile kernels for NVIDIA Hopper, with their plain versions.
 
-Counterpart of ``zlibes_tpu/ops/turbo_kernel.py``.  Three stages:
+Counterpart of ``zlibes_tpu/ops/turbo_kernel.py``.  Three inflate stages
+and one encode stage:
 
   * ``lane_windows``  each decode lane's 96 stream words (one gather);
   * ``decode_turbo``  per-lane Huffman decode into packed tokens + meta;
-  * ``resolve_turbo`` LZ expansion of 4 KiB chunk rows.
+  * ``resolve_turbo`` LZ expansion of 4 KiB chunk rows;
+  * ``select_turbo``  the encoder's greedy + lazy tokenisation of each
+    512-byte segment lane.
 
-Each wrapper launches its CUDA kernel (``csrc/turbo_kernels.cu``) for a
-CUDA tensor and runs its plain PyTorch version for a CPU tensor; any other
-device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+Each wrapper launches its CUDA kernel (``csrc/turbo_kernels.cu``, and
+``csrc/encode_kernels.cu`` for ``select_turbo``) for a CUDA tensor and runs
+its plain PyTorch version for a CPU tensor; any other device raises.
+``LAUNCHES`` counts kernel launches per wrapper, for every kernel of the
+port.
 
 All per-lane arrays are in lane order: lane ``l`` is row ``l`` of a
 (L, ...) array or column ``l`` of a (..., L) array.
@@ -385,3 +390,85 @@ def resolve_turbo(toks: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         _launch("resolve_turbo", dev, _ptr(toks), _ptr(starts),
                 ctypes.c_int(C_rows), _ptr(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# encode: greedy + lazy token selection per 512-byte segment lane
+#
+# Replaces select_turbo (zlibes_tpu/ops/turbo_kernel.py:696, kernel
+# _select_kernel :646).  The TPU kernel walks all lanes in lock step from
+# word-planes, one position or match per iteration, until the last lane
+# ends.  On the card one thread owns one lane and walks its own cursor to
+# its own end (csrc/encode_kernels.cu): per step one load of the packed
+# position (and one of the next, for the lazy rule) from the lane's 2 KB row,
+# which stays in L1.  It is bound by that serial chain of dependent loads,
+# ~segment-length steps per lane, so its speed comes from lanes in flight:
+# 4096 lanes of a dispatch fill 128 blocks of 32 threads.
+#
+# Contract: pv (L, 512) int32 packs each position's best match and byte as
+# dist (12 bits) | len << 12 (9 bits) | literal << 21; seg_len (L,) is the
+# number of valid positions of each lane.  Tokens are ``ml | dist << 9 |
+# TOK_MATCH_BIT`` for a match and the literal byte otherwise; slots at or
+# past a lane's count are 0.
+
+# packed per-position value: dist(12) | len(9 @12) | literal(8 @21)
+SEL_LEN_SHIFT = 12
+SEL_LIT_SHIFT = 21
+SEL_SEG = SEG_SPAN
+
+
+def select_turbo_plain(pv: torch.Tensor, seg_len: torch.Tensor,
+                       lazy: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    L, SEG = pv.shape
+    dev = pv.device
+    pv = pv.long()
+    seg_end = seg_len.long()
+    toks = torch.zeros((L, SEG), dtype=torch.int32, device=dev)
+    c = torch.zeros(L, dtype=torch.long, device=dev)
+    active = seg_end > 0
+    count = torch.zeros(L, dtype=torch.long, device=dev)
+    # exactly SEG steps, with no host sync: a lane advances >= 1 position a
+    # step, so it ends within SEG steps
+    for t in range(SEG):
+        cs = c.clamp(max=SEG - 1)
+        cur = pv.gather(1, cs[:, None])[:, 0]
+        ml = (cur >> SEL_LEN_SHIFT) & 511
+        dist = cur & 0xFFF
+        lit = (cur >> SEL_LIT_SHIFT) & 0xFF
+        ml = torch.minimum(ml, seg_end - c)
+        ml = torch.where((ml >= 131) & (dist >= 2049), 130, ml)
+        use = ml >= C.MIN_MATCH
+        if lazy:
+            nxt = pv.gather(1, (cs + 1).clamp(max=SEG - 1)[:, None])[:, 0]
+            ml1 = (nxt >> SEL_LEN_SHIFT) & 511
+            defer = use & (ml < C.MAX_MATCH) & (ml1 > ml) & (c + 1 < seg_end)
+            use = use & ~defer
+        tok = torch.where(use, ml | (dist << TOK_DIST_SHIFT) | TOK_MATCH_BIT,
+                          lit)
+        toks[:, t] = torch.where(active, tok, 0).int()
+        count += active.long()
+        c = torch.where(active, c + torch.where(use, ml, 1), c)
+        active = active & (c < seg_end)
+    return toks, count.int()
+
+
+def select_turbo(pv: torch.Tensor, seg_len: torch.Tensor,
+                 lazy: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """pv (L, 512) int32 packed positions, seg_len (L,) int32 valid
+    positions per lane -> (tokens (L, 512) int32 in the turbo token
+    packing, 0 past each count; counts (L,) int32).  Turbo profile only:
+    distances fit 12 bits (the 4 KiB window reset), and matches farther
+    than 2048 bytes are capped at 130 (the reference's ``split_far``, on
+    for codes of at most 9 bits)."""
+    dev = pv.device
+    L = pv.shape[0]
+    _check(pv, "pv", torch.int32, (L, SEL_SEG), dev)
+    _check(seg_len, "seg_len", torch.int32, (L,), dev)
+    if not _route(pv):
+        return select_turbo_plain(pv, seg_len, lazy)
+    toks = torch.empty((L, SEL_SEG), dtype=torch.int32, device=dev)
+    count = torch.empty(L, dtype=torch.int32, device=dev)
+    if L:
+        _launch("select_turbo", dev, _ptr(pv), _ptr(seg_len), ctypes.c_int(L),
+                ctypes.c_int(int(lazy)), _ptr(toks), _ptr(count))
+    return toks, count
