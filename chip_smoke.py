@@ -20,15 +20,23 @@ For each path it holds every kernel against its plain PyTorch version at
 the path's shapes, runs the path through its public entry point on the
 card with the launch counts set to 0 just before and read just after,
 times the kernels and the pipeline with CUDA events and torch.profiler,
-and (inflate) probes corrupted streams.  Any failure raises.  The last
-line of standard output is one JSON object naming the device; the line
-before it is the card's name and power limit from nvidia-smi, and the line
-before that the per-kernel JSON record (``launches`` of ``lane_windows``
-sums both inflate paths' runs).  Imports no JAX.
+and (inflate) probes corrupted streams.  ``resolve_wide`` is also held
+against its plain version on rows of 32 KiB and of 256 KiB (the kernel's
+path for rows too long for shared memory), ``select_turbo`` on the
+corpus' second dispatch (padded lanes) with ``lazy`` on and off.  Any
+failure raises.  The last line of standard output is one JSON object naming
+the device; the line before it is the card's name and power limit from
+nvidia-smi, and the line before that the per-kernel JSON record
+(``launches`` of ``lane_windows`` sums both inflate paths' runs;
+``bound_ms`` is the larger of the bytes each kernel's contract moves over
+the card's memory rate and its operations over the card's peak rate;
+``library_ms`` is null: no single PyTorch call computes any of these
+functions).  Imports no JAX and nothing of ``zlibes_tpu``.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +52,27 @@ GOLDEN = ROOT / "tests" / "golden"
 TURBO_SRC = "zlibes_tpu/ops/turbo_kernel.py"
 WIDE_SRC = "zlibes_tpu/ops/wide_kernel.py"
 ENCODE_SRC = "zlibes_tpu/ops/encode_kernel.py"
+
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 outside
+# the tensor cores, the rate the kernels' integer operations are held to
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: ``nbytes`` (each input read once,
+    each output written once, counted from this run's tensors) over the
+    memory rate, or ``ops`` (an estimate per item, stated where it is
+    made) over the peak rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=int(nbytes), ops=int(ops))
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 2) -> float:
@@ -121,6 +150,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def resolve_wide_other_rows(toks: torch.Tensor, sts: torch.Tensor,
+                            rows: torch.Tensor, record: dict,
+                            card: str) -> None:
+    """``resolve_wide`` on the fixture's own tokens at two other row
+    lengths, against its plain version and the bytes already resolved: the
+    first 32 KiB of every block (a match there copies from there), and
+    pairs of blocks as rows of 256 KiB (sources move with their bytes), too
+    long for shared memory, so that the kernel keeps them in its output
+    array.  Adds both error maxima to ``record``."""
+    from zlibes_tpu_torch.ops import wide_kernel as wk
+
+    Cb, nsubb, pad = toks.shape
+    short = 32768 // wk.SUB
+    pairs = Cb // 2
+    cases = {
+        "32 KiB rows": (toks[:, :short].contiguous(),
+                        sts[:, :short].contiguous(),
+                        rows[:, : short * wk.SUB]),
+        "256 KiB rows": (toks[: 2 * pairs].reshape(pairs, 2 * nsubb, pad),
+                         sts[: 2 * pairs].reshape(pairs, 2 * nsubb, pad),
+                         rows[: 2 * pairs].reshape(pairs, -1)),
+    }
+    assert short * wk.SUB <= wk.RESOLVE_SMEM_ROW < 2 * nsubb * wk.SUB
+    for name, (t, st, want) in cases.items():
+        got = wk.resolve_wide(t, st)
+        torch.cuda.synchronize()
+        got_p = wk.resolve_wide_plain(t, st)
+        assert torch.equal(got, got_p), f"resolve_wide != plain at {name}"
+        assert torch.equal(got, want), f"resolve_wide wrong bytes at {name}"
+        err = max_abs_err(got, got_p)
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        ms = cuda_ms(lambda: wk.resolve_wide(t, st))
+        print(f"kernel resolve_wide at {name} {list(got.shape)}: exact vs "
+              f"plain and the fixture's bytes (max_abs_err {err}), kernel "
+              f"{ms:.4f} ms (median of 20) {card}")
+
+
 def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     """The wide (default-profile) path on the level-6 fixture: kernels
     against their plain versions, the public entry points, times and a
@@ -158,6 +224,9 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
                                                     width=plan.SW))
     lw["wide_plain_ms"] = cuda_ms(lambda: tk.lane_windows_plain(
         plan.words, plan.start_w, plan.SW), runs=10)
+    # ~4 operations an output word (index, two compares, select)
+    lw["wide_bound_ms"] = bound(nbytes(plan.words, plan.start_w, win),
+                                4 * win.numel())["bound_ms"]
     print(f"kernel lane_windows at width {plan.SW}: exact vs plain, kernel "
           f"{lw['wide_ms']:.4f} ms (median of 20), plain "
           f"{lw['wide_plain_ms']:.4f} ms (median of 10), shape "
@@ -185,6 +254,12 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
                          runs=3, warmup=1),
         shape=list(tokens.shape), tokens=int(meta[0].sum()),
         plain_runs=3)
+    # written: the emitted tokens and starts and the meta rows; ~80
+    # operations a token (bit fetch, two two-level lookups, the checks)
+    n_tok = records["decode_wide"]["tokens"]
+    records["decode_wide"].update(bound(
+        nbytes(win, plan.bit0, plan.endb, plan.base, plan.lt, plan.dt, meta)
+        + 2 * 4 * n_tok, 80 * n_tok))
 
     toks, sts = wd._glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
     rows = wk.resolve_wide(toks, sts)
@@ -196,7 +271,10 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
         replaces=f"{WIDE_SRC}:568", max_abs_err=max_abs_err(rows, rows_p),
         ms=cuda_ms(lambda: wk.resolve_wide(toks, sts)),
         plain_ms=cuda_ms(lambda: wk.resolve_wide_plain(toks, sts), runs=10),
-        shape=list(rows.shape))
+        shape=list(rows.shape),
+        # ~50 operations a byte (8 search steps, the state, ~3 jump rounds)
+        **bound(nbytes(toks, sts, rows), 50 * rows.numel()))
+    resolve_wide_other_rows(toks, sts, rows, records["resolve_wide"], card)
     for name in ("decode_wide", "resolve_wide"):
         r = records[name]
         print(f"kernel {name}: exact vs plain (max_abs_err {r['max_abs_err']}),"
@@ -297,6 +375,45 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     return launches, device_ms
 
 
+def select_turbo_last_dispatch(corpus: bytes, cfg, record: dict,
+                               card: str) -> None:
+    """``select_turbo`` on the corpus' last dispatch, whose blocks past the
+    input's end give padded lanes (``seg_len`` 0) and whose last real block
+    is short, with ``lazy`` on and off, against its plain version.  Adds the
+    error maxima to ``record``."""
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops.lz77 import find_matches
+
+    N, Bp = cfg.block_size, cfg.blocks_per_dispatch
+    nblocks = -(-len(corpus) // N)
+    d0 = (nblocks - 1) // Bp * Bp
+    blk_np, nv_np = dp.block_rows(np.frombuffer(corpus, np.uint8), d0,
+                                  nblocks, N, Bp)
+    blk = torch.from_numpy(blk_np).cuda()
+    nv = torch.from_numpy(nv_np).cuda()
+    matches = find_matches(blk, nv, N=N, S=cfg.probe_words, J=cfg.candidates,
+                           reset=cfg.chunk_reset)
+    pv, slen = dp.select_inputs(blk, matches, nv, N)
+    padded = int((slen == 0).sum())
+    assert padded > 0 and int((slen > 0).sum()) > 0
+    for lazy in (True, False):
+        toks, cnt = tk.select_turbo(pv, slen, lazy=lazy)
+        torch.cuda.synchronize()
+        toks_p, cnt_p = tk.select_turbo_plain(pv, slen, lazy)
+        assert torch.equal(cnt, cnt_p), \
+            f"select_turbo counts != plain ({lazy=})"
+        assert torch.equal(toks, toks_p), \
+            f"select_turbo tokens != plain ({lazy=})"
+        assert not bool(cnt[slen == 0].any())
+        err = max(max_abs_err(cnt, cnt_p), max_abs_err(toks, toks_p))
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        print(f"kernel select_turbo on the last dispatch ({nblocks - d0} "
+              f"blocks of {Bp}, {padded} padded lanes of {slen.numel()}), "
+              f"lazy={lazy}: exact vs plain (max_abs_err {err}), "
+              f"{int(cnt.sum())} tokens {card}")
+
+
 def encode_phase(corpus: bytes, card: str,
                  records: dict) -> tuple[dict, dict]:
     """The turbo encoder on the bench corpus: its kernels against their
@@ -349,7 +466,11 @@ def encode_phase(corpus: bytes, card: str,
         ms=cuda_ms(lambda: tk.select_turbo(pv, slen)),
         plain_ms=cuda_ms(lambda: tk.select_turbo_plain(pv, slen), runs=3,
                          warmup=1),
-        shape=list(toks.shape), tokens=int(cnt.sum()), plain_runs=3)
+        shape=list(toks.shape), tokens=int(cnt.sum()), plain_runs=3,
+        # ~25 operations a position (the parallel token pass), ~4 a token
+        **bound(nbytes(pv, slen, toks, cnt),
+                25 * pv.numel() + 4 * int(cnt.sum())))
+    select_turbo_last_dispatch(corpus, cfg, records["select_turbo"], card)
 
     tv, td, cnt = dp.select_glue(blk, matches, nv, N, cfg.lazy)
     _, _, valid, ll_freq, d_freq = dk.token_symbols(tv, td, cnt, nseg=nseg)
@@ -367,7 +488,9 @@ def encode_phase(corpus: bytes, card: str,
         max_abs_err=max(max_abs_err(val, val_p), max_abs_err(nb, nb_p)),
         ms=cuda_ms(lambda: ek.encode_fields(*f_args)),
         plain_ms=cuda_ms(lambda: ek.encode_fields_plain(*f_args), runs=10),
-        shape=list(val.shape))
+        shape=list(val.shape),
+        # ~60 operations a token (two symbols, two extra-bit fields, merge)
+        **bound(nbytes(*f_args, val, nb), 60 * val.numel()))
     for name in ("select_turbo", "encode_fields"):
         r = records[name]
         print(f"kernel {name}: exact vs plain (max_abs_err {r['max_abs_err']}),"
@@ -455,12 +578,12 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
     import zlibes_tpu_torch
-    from tools.make_bench_fixture import bench_data
     from zlibes_tpu_torch import ChecksumError, CorruptError, StreamIndex
+    from zlibes_tpu_torch.bench_corpus import bench_data
     from zlibes_tpu_torch.codec import turbo as tb
     from zlibes_tpu_torch.ops import turbo_kernel as tk
     from zlibes_tpu_torch.ops.adler32 import adler32_device
-    from zlibes_tpu_torch.runtime import kernels
+    from zlibes_tpu_torch.runtime import kernels, native
 
     # -- 1. the card
     smi = subprocess.run(
@@ -480,6 +603,16 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(str(s.relative_to(ROOT)) for s in kernels.sources())}"
           f" -> {kernels.library_path().relative_to(ROOT)})")
+    # the host runtime for streams without an index, from the port's own
+    # zscan.cc: a CPython level-6 stream comes back through the public call
+    t0 = time.perf_counter()
+    assert native.available(), "the port's native runtime did not build"
+    raw = (GOLDEN / "raw.bin").read_bytes()
+    assert zlibes_tpu_torch.inflate(zlib.compress(raw, 6)) == raw
+    print(f"native: {time.perf_counter() - t0:.2f} s to build "
+          f"zlibes_tpu_torch/runtime/zscan.cc into "
+          f"{native.BUILD_DIR.relative_to(ROOT)} and inflate a CPython "
+          f"level-6 stream of {len(raw)} B without an index")
 
     # -- 3. the committed fixture and the corpus it encodes
     comp = (GOLDEN / "turbo_bench.zz").read_bytes()
@@ -504,7 +637,9 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: tk.lane_windows_plain(plan.words,
                                                        plan.start_w),
                          runs=10),
-        shape=list(win.shape))
+        shape=list(win.shape),
+        # ~4 operations an output word (index, two compares, select)
+        **bound(nbytes(plan.words, plan.start_w, win), 4 * win.numel()))
 
     dec_args = (win, plan.bit0, plan.endb, plan.lt, plan.dt)
     tokens, meta = tk.decode_turbo(*dec_args)
@@ -523,6 +658,11 @@ def main() -> None:
         ms=cuda_ms(lambda: tk.decode_turbo(*dec_args)),
         plain_ms=cuda_ms(lambda: tk.decode_turbo_plain(*dec_args), runs=10),
         shape=list(tokens.shape), tokens=int(meta[0].sum()))
+    # written: the emitted tokens and the meta rows; ~60 operations a token
+    # (bit fetch, two table lookups, the checks)
+    n_tok = records["decode_turbo"]["tokens"]
+    records["decode_turbo"].update(bound(
+        nbytes(*dec_args, meta) + 4 * n_tok, 60 * n_tok))
 
     toks16, starts16 = tb._glue_tokens(tokens, meta[0], plan.base, plan.C_pad)
     rows = tk.resolve_turbo(toks16, starts16)
@@ -535,7 +675,9 @@ def main() -> None:
         ms=cuda_ms(lambda: tk.resolve_turbo(toks16, starts16)),
         plain_ms=cuda_ms(lambda: tk.resolve_turbo_plain(toks16, starts16),
                          runs=10),
-        shape=list(rows.shape))
+        shape=list(rows.shape),
+        # ~80 operations a byte (9 search steps, 12 jump rounds)
+        **bound(nbytes(toks16, starts16, rows), 80 * rows.numel()))
     for name, r in records.items():
         print(f"kernel {name}: exact vs plain (max_abs_err {r['max_abs_err']}),"
               f" kernel {r['ms']:.4f} ms (median of 20), plain "
@@ -612,10 +754,21 @@ def main() -> None:
     for name in ("select_turbo", "encode_fields"):
         launches[name] = enc_launches[name]
 
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
+    assert not loaded, f"the port pulled in {loaded}"
 
-    def traced(ms: dict, name: str):
-        return next((v for k, v in ms.items() if f"{name}_kernel" in k), None)
+    def traced(ms: dict, name: str, launches_per_call: int = 1):
+        """Device ms per launch of ``name``'s wrapper, from the profiler's
+        ms per traced call (resolve_wide has two kernels a launch:
+        ..._expand_kernel and ..._walk_kernel)."""
+        pat = re.compile(rf"\b{name}_(\w+_)?kernel\b")
+        hits = [v for k, v in ms.items() if pat.search(k)]
+        return sum(hits) / launches_per_call if hits else None
+
+    # the traced deflate() call launches each encode kernel once a dispatch
+    per_call = {name: enc_launches[name] for name in
+                ("select_turbo", "encode_fields")}
 
     wide = ("decode_wide", "resolve_wide")
     encode = ("select_turbo", "encode_fields")
@@ -630,13 +783,16 @@ def main() -> None:
             "source": f"zlibes_tpu_torch/csrc/{group}_kernels.cu",
             "replaces": r["replaces"], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "bytes": r["bytes"], "ops": r["ops"],
             "device_ms": traced({"wide": wide_device_ms,
                                  "encode": enc_device_ms}.get(group,
                                                               device_ms),
-                                name)})
+                                name, per_call.get(name, 1))})
         entries[-1].update({k: r[k] for k in ("wide_ms", "wide_plain_ms",
-                                              "wide_device_ms") if k in r})
+                                              "wide_device_ms",
+                                              "wide_bound_ms") if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

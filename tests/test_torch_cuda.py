@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Needs a CUDA card and ``nvcc``; skips elsewhere.  Imports no JAX, so it
-also runs on a machine without it:
+Needs a CUDA card and ``nvcc``; skips elsewhere.  Imports no JAX and
+nothing of ``zlibes_tpu``, so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -13,12 +13,13 @@ import pytest
 import torch
 
 import zlibes_tpu_torch
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec.refmodel import StreamIndex
+from zlibes_tpu_torch import StreamIndex
+from zlibes_tpu_torch.bench_corpus import bench_data
 from zlibes_tpu_torch.codec import turbo as tb
 from zlibes_tpu_torch.codec import wide as wd
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
+from zlibes_tpu_torch.spec import constants as C
 from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
 
 torch.set_num_threads(2)
@@ -297,10 +298,6 @@ def test_distance_before_block_start_raises_on_card():
 
 @pytest.fixture(scope="module")
 def corpus():
-    import sys
-    sys.path.insert(0, str(GOLDEN.parent.parent))
-    from tools.make_bench_fixture import bench_data
-
     return bench_data()
 
 
@@ -445,3 +442,73 @@ def test_deflate_on_card_equals_cpu_and_fixture(corpus, fixture_stream,
     assert (idx.turbo, idx.chunk_reset, idx.max_tokens) == \
         (index.turbo, index.chunk_reset, index.max_tokens)
     assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == corpus
+
+
+# ---------------------------------------------------------------------------
+# the contract cases of test_torch_contract_cases.py, kernel versus plain,
+# and the shapes beside the bench's
+
+def test_resolve_wide_kernel_matches_plain_on_contract_cases():
+    import test_torch_contract_cases as cases
+
+    toks, starts, want = cases.resolve_inputs()
+    toks, starts = torch.from_numpy(toks), torch.from_numpy(starts)
+    got = wk.resolve_wide(toks.cuda(), starts.cuda())
+    torch.cuda.synchronize()
+    assert _same(got, wk.resolve_wide_plain(toks, starts))
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("nsubb,in_smem", [(32, True), (256, True),
+                                           (1792, True), (1824, False),
+                                           (2048, False)])
+def test_resolve_wide_kernel_matches_plain_at_other_row_lengths(nsubb,
+                                                                in_smem):
+    """Rows of 4 KiB, 32 KiB and 224 KiB keep their bytes in shared memory;
+    rows of 228 KiB and 256 KiB take the kernel's path that keeps them in
+    the output array.  Sorted starts, so that chains are long and far
+    sources common."""
+    assert (nsubb * wk.SUB <= wk.RESOLVE_SMEM_ROW) == in_smem
+    g = torch.Generator().manual_seed(nsubb)
+    shape = (3, nsubb, wk.TOKENS_PAD)
+    lit = torch.randint(0, 256, shape, generator=g, dtype=torch.int32)
+    ln = torch.randint(3, 259, shape, generator=g, dtype=torch.int32)
+    dist = torch.randint(1, 32769, shape, generator=g, dtype=torch.int32)
+    ism = torch.rand(shape, generator=g) < 0.7
+    toks = torch.where(ism, ln | (dist << wk.TOK_DIST_SHIFT)
+                       | wk.TOK_MATCH_BIT, lit)
+    starts = torch.randint(-200, 128, shape, generator=g,
+                           dtype=torch.int32).sort(dim=2).values
+    starts[:, :, 40:] = wk.START_PAD
+    got = wk.resolve_wide(toks.cuda(), starts.cuda())
+    torch.cuda.synchronize()
+    assert _same(got, wk.resolve_wide_plain(toks, starts))
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+def test_select_turbo_kernel_matches_plain_on_contract_cases(lazy):
+    import test_torch_contract_cases as cases
+
+    pv, slen = cases.select_inputs()
+    toks, cnt = _select_both(pv.cuda(), slen.cuda(), lazy)
+    for case in cases.SELECT_CASES:
+        cases.check_select_case(case, lazy, toks.cpu().numpy(),
+                                cnt.cpu().numpy())
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 8, 9, 4099])
+def test_select_turbo_kernel_matches_plain_on_ragged_dispatches(lanes):
+    """Lane counts that do not fill the kernel's last block, with padded
+    lanes (``seg_len`` 0) and ``lazy`` off."""
+    g = torch.Generator().manual_seed(lanes)
+    ml = torch.randint(0, 259, (lanes, tk.SEL_SEG), generator=g)
+    ml = torch.where(torch.rand((lanes, tk.SEL_SEG), generator=g) < 0.5, 0,
+                     ml)
+    dist = torch.randint(1, 4096, (lanes, tk.SEL_SEG), generator=g)
+    lit = torch.randint(0, 256, (lanes, tk.SEL_SEG), generator=g)
+    pv = (dist | (ml << tk.SEL_LEN_SHIFT) | (lit << tk.SEL_LIT_SHIFT)).int()
+    slen = torch.randint(0, tk.SEL_SEG + 1, (lanes,), generator=g,
+                         dtype=torch.int32)
+    slen[::3] = 0
+    _, cnt = _select_both(pv.cuda(), slen.cuda(), False)
+    assert (cnt[::3] == 0).all()

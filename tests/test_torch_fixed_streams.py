@@ -1,10 +1,11 @@
 """Hand-assembled fixed-Huffman DEFLATE streams with a wide index, and
 tests of the assembler against CPython zlib and the refmodel.
 
-Imports no JAX, so the card tests and ``chip_smoke.py`` use it too.  A
-block is a list of tokens: an int is a literal byte, a pair (length,
-distance) a match.  Every block here produces at most 128 output bytes, so
-its one wide anchor sits at its payload start.
+Imports the port's ``spec`` only (no JAX, nothing of ``zlibes_tpu``), so
+the card tests and ``chip_smoke.py`` use it too.  A block is a list of
+tokens: an int is a literal byte, a pair (length, distance) a match.  Every
+block here produces at most 128 output bytes, so its one wide anchor sits
+at its payload start.
 """
 from __future__ import annotations
 
@@ -13,10 +14,10 @@ import zlib
 import numpy as np
 import pytest
 
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec import refmodel
-from zlibes_tpu.spec.errors import CorruptError
-from zlibes_tpu.spec.refmodel import (
+from zlibes_tpu_torch.spec import constants as C
+from zlibes_tpu_torch.spec import refmodel
+from zlibes_tpu_torch.spec.errors import CorruptError
+from zlibes_tpu_torch.spec.refmodel import (
     BitWriter,
     BlockInfo,
     StreamIndex,

@@ -1,8 +1,8 @@
 """The PyTorch port's public inflate on the CPU: routing, typed errors,
-Adler-32, corruption, the committed bench fixture, and that the port never
-imports JAX.  The JAX package and CPython zlib are the references."""
-import subprocess
-import sys
+Adler-32, corruption and the committed bench fixture.  The JAX package and
+CPython zlib are the references; an index the JAX encoder made is carried
+across with ``index_from_reference`` before the port sees it, and every
+error expected from a port call is the port's own class."""
 import zlib
 from pathlib import Path
 
@@ -15,14 +15,15 @@ from zlibes_tpu.codec import deflate_pipeline as dp
 from zlibes_tpu.codec import inflate_pipeline as jip
 from zlibes_tpu.config import CodecConfig
 from zlibes_tpu.ops.adler32 import adler32_device as jax_adler32
-from zlibes_tpu.runtime import native
-from zlibes_tpu.spec import errors as E
-from zlibes_tpu.spec.refmodel import StreamIndex
+from zlibes_tpu.spec import errors as JE
 
 import zlibes_tpu_torch
+from zlibes_tpu_torch import StreamIndex, index_from_reference
+from zlibes_tpu_torch import errors as E
+from zlibes_tpu_torch.bench_corpus import bench_data
 from zlibes_tpu_torch.ops.adler32 import adler32_device
 from zlibes_tpu_torch.ops import turbo_kernel as tk
-from tools.make_bench_fixture import bench_data
+from zlibes_tpu_torch.runtime import native
 
 torch.set_num_threads(2)
 
@@ -43,30 +44,19 @@ def _data(n=30000, seed=0):
 def turbo_stream():
     data = _data()
     comp, index = dp.deflate(data, with_index=True, config=CFG, block_size=BS)
-    return data, comp, index
-
-
-def test_import_leaves_jax_out():
-    code = ("import sys, zlibes_tpu_torch\n"
-            "from zlibes_tpu_torch import ChecksumError, CorruptError\n"
-            "import zlibes_tpu_torch.codec.turbo, "
-            "zlibes_tpu_torch.codec.wide, "
-            "zlibes_tpu_torch.codec.inflate_pipeline, "
-            "zlibes_tpu_torch.ops.adler32, zlibes_tpu_torch.ops.wide_kernel, "
-            "zlibes_tpu_torch.runtime.kernels\n"
-            "from zlibes_tpu_torch import inflate_range, inflate_to_device\n"
-            "assert 'jax' not in sys.modules, sorted("
-            "m for m in sys.modules if m.startswith('jax'))\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
+    return data, comp, index_from_reference(index)
 
 
 @pytest.mark.parametrize("name", ["ZlibError", "HeaderError", "TruncatedError",
                                   "CorruptError", "ChecksumError"])
 def test_port_raises_the_reference_error_types(name):
-    assert getattr(zlibes_tpu_torch, name) is getattr(E, name)
-    assert zlibes_tpu_torch.errors is E
+    """The port's error classes are its own, under the reference's names and
+    with the reference's hierarchy."""
+    own, ref = getattr(zlibes_tpu_torch, name), getattr(JE, name)
+    assert own is getattr(E, name) and own is not ref
+    assert own.__module__ == "zlibes_tpu_torch.spec.errors"
+    assert [c.__name__ for c in own.__mro__] == [c.__name__
+                                                 for c in ref.__mro__]
 
 
 @pytest.mark.parametrize("n", [0, 1, 4095, 4096, 100003])
@@ -109,11 +99,11 @@ def _header_cases():
 @pytest.mark.parametrize("case", sorted(_header_cases()))
 def test_container_errors_typed_as_reference(case):
     bad = _header_cases()[case]
-    with pytest.raises(E.ZlibError) as want:
+    with pytest.raises(JE.ZlibError) as want:
         jip.inflate(bad)
     with pytest.raises(E.ZlibError) as got:
         zlibes_tpu_torch.inflate(bad, device="cpu")
-    assert type(got.value) is type(want.value)
+    assert type(got.value) is getattr(E, type(want.value).__name__)
 
 
 def test_checksum_error(turbo_stream):
@@ -180,6 +170,7 @@ def test_non_turbo_indexes_not_ported():
     ports them."""
     data = _data(20000)
     comp, wide_index = dp.deflate(data, with_index=True, block_size=BS)
+    wide_index = index_from_reference(wide_index)
     generic = StreamIndex(wide_index.blocks, wide_index.anchor_bit,
                           wide_index.anchor_out, wide_index.anchor_block)
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -200,6 +191,7 @@ def test_non_turbo_indexes_not_ported():
 def test_wide_index_decodes():
     data = _data(20000)
     comp, wide_index = dp.deflate(data, with_index=True, block_size=BS)
+    wide_index = index_from_reference(wide_index)
     assert wide_index.wide and not wide_index.turbo
     assert zlibes_tpu_torch.inflate(comp, index=wide_index,
                                     device="cpu") == data

@@ -7,7 +7,9 @@ and through the port's counterpart (plain PyTorch versions on the CPU).
 Every array is an integer array or bytes, so every comparison is exact.
 Hand-assembled fixed-Huffman streams (``test_torch_fixed_streams.py``)
 check the port's repairs of the reference, against CPython zlib and the
-refmodel.
+refmodel.  The JAX package is the reference only: an index it made is
+carried across with ``index_from_reference`` before the port sees it, and
+every error expected from a port call is the port's own class.
 """
 import zlib
 from pathlib import Path
@@ -22,16 +24,17 @@ from zlibes_tpu.codec.deflate_pipeline import deflate_raw_tpu
 from zlibes_tpu.codec.turbo import _from_grid, _to_planes
 from zlibes_tpu.config import CodecConfig
 from zlibes_tpu.ops import wide_kernel as jwk
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec import refmodel
-from zlibes_tpu.spec.errors import ChecksumError, CorruptError
 
 import zlibes_tpu_torch
+from zlibes_tpu_torch import ChecksumError, CorruptError, index_from_reference
+from zlibes_tpu_torch.bench_corpus import bench_data
 from zlibes_tpu_torch.codec import wide as wd
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
+from zlibes_tpu_torch.spec import constants as C
+from zlibes_tpu_torch.spec import refmodel
+from zlibes_tpu_torch.spec.refmodel import block_from_reference
 from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
-from tools.make_bench_fixture import bench_data
 
 torch.set_num_threads(2)
 
@@ -85,7 +88,8 @@ def wide_plan_from_reference(jp) -> wd.WidePlan:
 
     LB = jp.LB
     p = wd.WidePlan()
-    p.coded, p.stored = jp.coded, jp.stored
+    p.coded = [block_from_reference(b) for b in jp.coded]
+    p.stored = [block_from_reference(b) for b in jp.stored]
     p.contiguous, p.total_out = jp.contiguous, jp.total_out
     p.Cb, p.LPB, p.SW, p.T = jp.Cb, jp.LPB, jp.SW, jp.T
     L = p.Cb * p.LPB
@@ -113,6 +117,9 @@ class Ref:
                                                 config=CFG)
         assert self.index.wide
         self.comp, self.cindex = _container(self.body, self.index, data)
+        # the port's own copies of both indexes
+        self.pindex = index_from_reference(self.index)
+        self.pcindex = index_from_reference(self.cindex)
         jp = jwd.WidePlan.build(self.body, self.index)
         self.jplan = jp
         assert jp.coded
@@ -207,10 +214,11 @@ def test_decode_tables_reject_long_codes():
 
 def test_plan_matches_reference(ref):
     jp = ref.jplan
-    built = wd.WidePlan.build(ref.body, ref.index, "cpu")
+    built = wd.WidePlan.build(ref.body, ref.pindex, "cpu")
     assert (built.total_out, built.contiguous) == (jp.total_out,
                                                    jp.contiguous)
-    assert built.coded == jp.coded and built.stored == jp.stored
+    assert built.coded == [block_from_reference(b) for b in jp.coded]
+    assert built.stored == [block_from_reference(b) for b in jp.stored]
     want = ref.plan
     assert (built.LPB, built.SW, built.T) == (want.LPB, want.SW, want.T)
     # the port keeps one row per coded block; the reference pads to 8
@@ -234,7 +242,7 @@ def test_plan_matches_reference(ref):
 
 
 def test_plan_rejects_bad_indexes(ref):
-    idx = ref.index
+    idx = ref.pindex
     short = refmodel.StreamIndex(idx.blocks, idx.anchor_bit[:-1],
                                  idx.anchor_out[:-1], idx.anchor_block[:-1],
                                  wide=True)
@@ -250,7 +258,7 @@ def test_plan_rejects_bad_indexes(ref):
 # device stages, each on the reference's own inputs
 
 def test_lane_windows_match_reference(ref):
-    p = wd.WidePlan.build(ref.body, ref.index, "cpu")
+    p = wd.WidePlan.build(ref.body, ref.pindex, "cpu")
     win = tk.lane_windows(p.words, p.start_w, width=p.SW)
     assert win.shape == (p.Cb * p.LPB, p.SW)
     real = ref.real[: p.Cb * p.LPB]
@@ -299,7 +307,7 @@ def test_run_wide_on_reference_plan(ref):
 def test_run_wide_pads_sub_spans_with_zeros(ref):
     """The port's own plan has one row per coded block, and a row's
     sub-spans past its block's output resolve to zeros."""
-    plan = wd.WidePlan.build(ref.body, ref.index, "cpu")
+    plan = wd.WidePlan.build(ref.body, ref.pindex, "cpu")
     rows = wd.run_wide(plan).numpy()
     assert rows.shape == (len(ref.jplan.coded), plan.LPB * 128)
     for cb, b in enumerate(ref.jplan.coded):
@@ -312,14 +320,14 @@ def test_run_wide_pads_sub_spans_with_zeros(ref):
 # entry points
 
 def test_inflate_matches_reference(ref):
-    out = zlibes_tpu_torch.inflate(ref.comp, index=ref.cindex, device="cpu")
+    out = zlibes_tpu_torch.inflate(ref.comp, index=ref.pcindex, device="cpu")
     assert out == ref.data
     assert out == zlib.decompress(ref.comp)
     assert out == jip.inflate(ref.comp, index=ref.cindex)
 
 
 def test_inflate_to_device_matches_reference(ref):
-    spans = zlibes_tpu_torch.inflate_to_device(ref.comp, ref.cindex,
+    spans = zlibes_tpu_torch.inflate_to_device(ref.comp, ref.pcindex,
                                                device="cpu")
     assert len(spans) == 1
     t, off, n = spans[0]
@@ -334,7 +342,7 @@ def test_inflate_to_device_matches_reference(ref):
 
 def test_wide_launches_nothing_on_cpu(ref):
     tk.LAUNCHES.clear()
-    zlibes_tpu_torch.inflate(ref.comp, index=ref.cindex, device="cpu")
+    zlibes_tpu_torch.inflate(ref.comp, index=ref.pcindex, device="cpu")
     assert sum(tk.LAUNCHES.values()) == 0
 
 
@@ -345,7 +353,7 @@ def test_inflate_range_matches_reference(ref, where):
                      "across": (min(BS - 70, max(0, n - 300)), min(n, 300)),
                      "tail": (n - min(n, 5), min(n, 5))}[where]
     length = min(length, n - start)
-    got = zlibes_tpu_torch.inflate_range(ref.comp, ref.cindex, start, length,
+    got = zlibes_tpu_torch.inflate_range(ref.comp, ref.pcindex, start, length,
                                          device="cpu")
     assert got == ref.data[start : start + length]
     assert got == jip.inflate_range(ref.comp, ref.cindex, start, length)
@@ -404,8 +412,8 @@ def test_committed_fixture_decodes_on_cpu(fixture_stream):
 def test_checksum_error(ref):
     bad = ref.comp[:-1] + bytes([ref.comp[-1] ^ 1])
     with pytest.raises(ChecksumError):
-        zlibes_tpu_torch.inflate(bad, index=ref.cindex, device="cpu")
-    assert zlibes_tpu_torch.inflate(bad, index=ref.cindex, device="cpu",
+        zlibes_tpu_torch.inflate(bad, index=ref.pcindex, device="cpu")
+    assert zlibes_tpu_torch.inflate(bad, index=ref.pcindex, device="cpu",
                                     verify_checksum=False) == ref.data
 
 
@@ -416,7 +424,7 @@ def test_corrupt_lanes_raise_corrupt_error():
     data = b"some repetitive data " * 3000
     body, index = deflate_raw_tpu(data, block_size=BS,
                                   config=CodecConfig.from_level(2))
-    comp, cindex = _container(body, index, data)
+    comp, cindex = _container(body, index_from_reference(index), data)
     rng = np.random.default_rng(5)
     bad = bytearray(comp)
     bits = cindex.anchor_bit

@@ -1,25 +1,29 @@
 """zlibes_tpu_torch — the zlib/DEFLATE codec on PyTorch and CUDA (Hopper).
 
-The port of ``zlibes_tpu``: the same streams, indexes and typed errors,
-encoded (turbo profile, ``deflate(data, config=CodecConfig.turbo())``)
-and decoded (turbo and wide indexed streams) by CUDA kernels written for
-the H100 (``csrc/``) on a card and by their plain PyTorch versions on the
-CPU.  Imports ``torch`` and never ``jax``.
+The port of ``zlibes_tpu``: the same streams, index layout and error
+taxonomy, in classes of its own (``spec/``, ``config.py``), encoded (turbo
+profile, ``deflate(data, config=CodecConfig.turbo())``) and decoded (turbo
+and wide indexed streams) by CUDA kernels written for the H100 (``csrc/``)
+on a card and by their plain PyTorch versions on the CPU.  Imports
+``torch``, never ``jax`` and nothing of ``zlibes_tpu``: an index or a config
+made by that package is carried across with ``index_from_reference`` /
+``config_from_reference``.
 """
-from zlibes_tpu.config import CodecConfig, CodecStats
-from zlibes_tpu.spec import errors
-from zlibes_tpu.spec.errors import (
+from .config import CodecConfig, CodecStats, config_from_reference
+from .spec import errors
+from .spec.errors import (
     ChecksumError,
     CorruptError,
     HeaderError,
     TruncatedError,
     ZlibError,
 )
-from zlibes_tpu.spec.refmodel import StreamIndex
+from .spec.refmodel import StreamIndex, index_from_reference
 
 from .codec.api import deflate, inflate, inflate_range, inflate_to_device
 
 __all__ = ["deflate", "inflate", "inflate_range", "inflate_to_device",
            "StreamIndex", "CodecConfig", "CodecStats",
+           "index_from_reference", "config_from_reference",
            "errors", "ZlibError", "HeaderError", "TruncatedError",
            "CorruptError", "ChecksumError"]

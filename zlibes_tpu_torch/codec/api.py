@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ..spec.refmodel import StreamIndex
+
 
 def _device(device: torch.device | str) -> torch.device:
     dev = torch.device(device)
@@ -13,6 +15,18 @@ def _device(device: torch.device | str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+def _own_index(index):
+    """``index`` if it is the port's own ``StreamIndex`` (or None); an
+    object of any other class, an index of the JAX package included, raises
+    TypeError: convert it first with ``index_from_reference``."""
+    if index is not None and not isinstance(index, StreamIndex):
+        raise TypeError(
+            f"index is a {type(index).__module__}.{type(index).__qualname__},"
+            f" not zlibes_tpu_torch.StreamIndex; convert it with "
+            f"zlibes_tpu_torch.spec.refmodel.index_from_reference")
+    return index
 
 
 def deflate(data: bytes, *, level: int | None = None, config=None,
@@ -27,7 +41,8 @@ def deflate(data: bytes, *, level: int | None = None, config=None,
     ``CodecConfig.turbo(...)`` (shared tables, 512-byte segments, 4 KiB
     window resets, codes of at most 9 bits).  ``level=``, the default
     config and ``dictionary=`` raise NotImplementedError (the general
-    encoder is ROADMAP queue 1 item 7).  ``stats`` (a CodecStats) collects
+    encoder is ROADMAP queue 1 item 7); a config of another class raises
+    TypeError.  ``stats`` (a CodecStats) collects
     per-call observability.  The pipeline's ``deflate(..., with_index=True)``
     also returns the stream's StreamIndex.
     """
@@ -47,14 +62,15 @@ def inflate(data: bytes, *, index=None, verify_checksum: bool = True,
     ``index=`` a turbo-profile or a wide (default-profile, levels 1-9)
     StreamIndex selects the lane-parallel decode on ``device`` (CUDA
     kernels on a card, their plain PyTorch versions on the CPU).  Without
-    an index the stream decodes through the shared native runtime.
+    an index the stream decodes through the port's native runtime (host).
     ``dictionary=`` supplies the preset dictionary for FDICT streams
     (RFC 1950 §2.2).
     """
     from . import inflate_pipeline
 
     return inflate_pipeline.inflate(bytes(data), verify_checksum=verify_checksum,
-                                    index=index, dictionary=dictionary,
+                                    index=_own_index(index),
+                                    dictionary=dictionary,
                                     device=_device(device))
 
 
@@ -68,7 +84,8 @@ def inflate_range(data: bytes, index, start: int, length: int, *,
     """
     from . import inflate_pipeline
 
-    return inflate_pipeline.inflate_range(bytes(data), index, start, length,
+    return inflate_pipeline.inflate_range(bytes(data), _own_index(index),
+                                          start, length,
                                           device=_device(device))
 
 
@@ -83,5 +100,5 @@ def inflate_to_device(data: bytes, index, *,
     """
     from . import inflate_pipeline
 
-    return inflate_pipeline.inflate_to_device(bytes(data), index,
+    return inflate_pipeline.inflate_to_device(bytes(data), _own_index(index),
                                               device=_device(device))

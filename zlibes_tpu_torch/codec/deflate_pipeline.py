@@ -31,10 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zlibes_tpu.config import CodecConfig, CodecStats
-from zlibes_tpu.ops import huffman
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec.refmodel import (
+from ..config import CodecConfig, CodecStats
+from ..ops import huffman
+from ..spec import constants as C
+from ..spec.refmodel import (
     BitWriter,
     BlockInfo,
     StreamIndex,
@@ -65,6 +65,11 @@ def check_turbo_config(cfg: CodecConfig | None) -> CodecConfig:
     segments, a 4 KiB window reset and codes of at most 9 bits."""
     if cfg is None:
         raise _not_ported("the default config")
+    if not isinstance(cfg, CodecConfig):
+        raise TypeError(
+            f"config is a {type(cfg).__module__}.{type(cfg).__qualname__}, "
+            f"not zlibes_tpu_torch.CodecConfig; convert it with "
+            f"zlibes_tpu_torch.config.config_from_reference")
     if not (cfg.shared_tables and cfg.seg_size == 512
             and cfg.chunk_reset == 4096 and cfg.max_code_bits <= 9
             and not cfg.force_stored):
@@ -73,8 +78,7 @@ def check_turbo_config(cfg: CodecConfig | None) -> CodecConfig:
 
 
 # ---------------------------------------------------------------------------
-# host header work (numpy; the reference's module imports jax, so these are
-# carried over rather than imported)
+# host header work (numpy; the port's own copies of the reference's)
 
 def package_merge_np(freqs: np.ndarray, max_len: int) -> np.ndarray:
     """Length-limited Huffman lengths via matrix-form package-merge

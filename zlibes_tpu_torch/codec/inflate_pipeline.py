@@ -5,22 +5,23 @@ framing and header parsing are host work; the payload decode, LZ resolve
 and Adler-32 of a stream with a turbo or a wide (default-profile) index run
 on the requested device, as do the seek (``inflate_range``) and the
 device-resident output (``inflate_to_device``).  A stream without an index
-decodes through the shared native runtime, as the JAX package does when
-that runtime is available.
+decodes on the host through the port's native runtime
+(``runtime/native.py``), as the JAX package does when that runtime is
+available.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec.errors import (
+from ..spec import constants as C
+from ..spec.errors import (
     ChecksumError,
     CorruptError,
     HeaderError,
     TruncatedError,
 )
-from zlibes_tpu.spec.refmodel import (
+from ..spec.refmodel import (
     BitReader,
     BlockInfo,
     StreamIndex,
@@ -47,7 +48,7 @@ def _block_code_lengths(data: bytes, blk: BlockInfo):
 
 def _decode_native(data: bytes, offset: int, dictionary: bytes | None):
     """Whole-stream host decode of a stream without an index."""
-    from zlibes_tpu.runtime import native
+    from ..runtime import native
 
     if not native.available():
         raise NotImplementedError(
@@ -164,7 +165,7 @@ def inflate(data: bytes, *, device: torch.device | str,
             raise HeaderError("stream requires a preset dictionary (FDICT)")
         if len(data) < 10:
             raise TruncatedError("missing DICTID")
-        from zlibes_tpu.spec.refmodel import adler32 as _adler_host
+        from ..spec.refmodel import adler32 as _adler_host
 
         if int.from_bytes(data[2:6], "big") != _adler_host(dictionary):
             raise HeaderError("DICTID does not match supplied dictionary")

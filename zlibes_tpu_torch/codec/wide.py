@@ -14,9 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec.errors import CorruptError
-from zlibes_tpu.spec.refmodel import StreamIndex
+from ..spec import constants as C
+from ..spec.errors import CorruptError
+from ..spec.refmodel import StreamIndex
 
 from ..ops import turbo_kernel as tk
 from ..ops import wide_kernel as wk

@@ -27,42 +27,117 @@ constexpr int kLitlenSyms = 288;
 constexpr int kDistSyms = 32;
 
 // ---------------------------------------------------------------- select
-// One thread per segment lane walks its own cursor to its own end: greedy
-// matching with a one-step lazy defer, in the reference's rule order.  Far
-// matches (dist > 2048) are capped at 130 bytes, as the reference's
-// split_far does for codes of at most 9 bits: the only codes the port
-// encodes.
+// Greedy matching with a one-step lazy defer, in the reference's rule
+// order.  Far matches (dist > 2048) are capped at 130 bytes, as the
+// reference's split_far does for codes of at most 9 bits: the only codes
+// the port encodes.
+//
+// A block of 128 threads owns 8 segment lanes and keeps their rows in 16 KB
+// of shared memory.  (1) It copies the rows in with one 16-byte load per
+// thread and row, neighbouring threads on neighbouring addresses.  (2) The
+// token at a position and the position that follows it depend on that
+// position and the next one alone, so all 512 of a row are computed at
+// once, four a thread, and packed as token | next << 22.  (3) One thread a
+// lane then walks the chain from position 0: one shared-memory load and a
+// shift a step, writing token t in place at slot t <= cursor (every later
+// read is above the cursor, so the slot is dead).  (4) The block stores
+// whole rows, zeros past the count, 16 bytes a thread.  Bound by the
+// latency of the longest lane's chain; global memory sees only full-width
+// loads and stores.
 
-__global__ void select_turbo_kernel(const int32_t* __restrict__ pv,
-                                    const int32_t* __restrict__ seg_len,
-                                    int lanes, int lazy,
-                                    int32_t* __restrict__ toks,
-                                    int32_t* __restrict__ counts) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  const int32_t* p = pv + (int64_t)l * kSeg;
-  int32_t* out = toks + (int64_t)l * kSeg;
-  const int seg_end = seg_len[l];
-  int c = 0;
-  int t = 0;
-  while (t < kSeg && c < seg_end) {
-    int cs = min(c, kSeg - 1);
-    int cur = __ldg(p + cs);
-    int ml = (cur >> kLenShift) & 511;
-    int dist = cur & 0xFFF;
-    int lit = (cur >> kLitShift) & 0xFF;
-    ml = min(ml, seg_end - c);
-    if (ml >= 131 && dist >= 2049) ml = 130;
-    bool use = ml >= kMinMatch;
-    if (lazy && use && ml < kMaxMatch && c + 1 < seg_end) {
-      int ml1 = (__ldg(p + min(cs + 1, kSeg - 1)) >> kLenShift) & 511;
-      if (ml1 > ml) use = false;
-    }
-    out[t++] = use ? (ml | (dist << kDistShift) | kMatchBit) : lit;
-    c += use ? ml : 1;
+constexpr int kSelLanes = 8;                // lanes a block
+constexpr int kSelThreads = kSeg / 4;       // one int4 of a row per thread
+constexpr int kNextShift = 22;              // token: bits 0-21
+constexpr int kTokMask = (1 << kNextShift) - 1;
+
+// token | next << 22 of position c, given its packed value and the next
+// position's
+__device__ __forceinline__ int select_step(int cur, int nxt, int c,
+                                           int seg_end, int lazy) {
+  int ml = (cur >> kLenShift) & 511;
+  const int dist = cur & 0xFFF;
+  const int lit = (cur >> kLitShift) & 0xFF;
+  ml = min(ml, seg_end - c);
+  if (ml >= 131 && dist >= 2049) ml = 130;
+  bool use = ml >= kMinMatch;
+  if (lazy && use && ml < kMaxMatch && c + 1 < seg_end) {
+    const int ml1 = (nxt >> kLenShift) & 511;
+    if (ml1 > ml) use = false;
   }
-  counts[l] = t;
-  for (; t < kSeg; ++t) out[t] = 0;
+  const int tok = use ? (ml | (dist << kDistShift) | kMatchBit) : lit;
+  const int next = c + (use ? ml : 1);
+  return tok | (int)((unsigned)next << kNextShift);
+}
+
+__global__ void __launch_bounds__(kSelThreads)
+select_turbo_kernel(const int32_t* __restrict__ pv,
+                    const int32_t* __restrict__ seg_len, int lanes, int lazy,
+                    int32_t* __restrict__ toks,
+                    int32_t* __restrict__ counts) {
+  __shared__ int4 rows[kSelLanes][kSelThreads];
+  __shared__ int s_end[kSelLanes];
+  __shared__ int s_count[kSelLanes];
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * kSelLanes;
+  const int nl = min(kSelLanes, lanes - lane0);
+  const int4* in = reinterpret_cast<const int4*>(pv) +
+                   (int64_t)lane0 * kSelThreads;
+#pragma unroll
+  for (int r = 0; r < kSelLanes; ++r)
+    if (r < nl) rows[r][tid] = __ldg(in + r * kSelThreads + tid);
+  if (tid < nl) s_end[tid] = min(seg_len[lane0 + tid], kSeg);
+  __syncthreads();
+
+  int4 packed[kSelLanes];
+#pragma unroll
+  for (int r = 0; r < kSelLanes; ++r) {
+    if (r >= nl) continue;
+    const int seg_end = s_end[r];
+    const int4 cur = rows[r][tid];
+    const int c = 4 * tid;
+    // the position after this thread's four; the last position is its own
+    // successor, as in the plain version's clamp
+    const int after = reinterpret_cast<const int32_t*>(rows[r])[min(c + 4,
+                                                                    kSeg - 1)];
+    packed[r].x = select_step(cur.x, cur.y, c, seg_end, lazy);
+    packed[r].y = select_step(cur.y, cur.z, c + 1, seg_end, lazy);
+    packed[r].z = select_step(cur.z, cur.w, c + 2, seg_end, lazy);
+    packed[r].w = select_step(cur.w, after, c + 3, seg_end, lazy);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSelLanes; ++r)
+    if (r < nl) rows[r][tid] = packed[r];
+  __syncthreads();
+
+  if (tid < nl) {
+    int32_t* row = reinterpret_cast<int32_t*>(rows[tid]);
+    const int seg_end = s_end[tid];
+    int c = 0;
+    int t = 0;
+    while (c < seg_end) {
+      const int w = row[c];
+      row[t++] = w & kTokMask;
+      c = (int)((unsigned)w >> kNextShift);
+    }
+    s_count[tid] = t;
+    counts[lane0 + tid] = t;
+  }
+  __syncthreads();
+
+  int4* outp = reinterpret_cast<int4*>(toks) + (int64_t)lane0 * kSelThreads;
+#pragma unroll
+  for (int r = 0; r < kSelLanes; ++r) {
+    if (r >= nl) continue;
+    const int cnt = s_count[r];
+    int4 v = rows[r][tid];
+    const int c = 4 * tid;
+    v.x = c < cnt ? v.x : 0;
+    v.y = c + 1 < cnt ? v.y : 0;
+    v.z = c + 2 < cnt ? v.z : 0;
+    v.w = c + 3 < cnt ? v.w : 0;
+    outp[r * kSelThreads + tid] = v;
+  }
 }
 
 // ---------------------------------------------------------------- fields
@@ -147,9 +222,8 @@ extern "C" {
 
 int zt_select_turbo(const void* pv, const void* seg_len, int lanes, int lazy,
                     void* toks, void* counts, void* stream) {
-  const int threads = 32;
-  unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
-  select_turbo_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  unsigned blocks = (unsigned)((lanes + kSelLanes - 1) / kSelLanes);
+  select_turbo_kernel<<<blocks, kSelThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pv, (const int32_t*)seg_len, lanes, lazy,
       (int32_t*)toks, (int32_t*)counts);
   return (int)cudaGetLastError();

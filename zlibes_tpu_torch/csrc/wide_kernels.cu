@@ -3,8 +3,9 @@
 // One kernel per stage of zlibes_tpu_torch/ops/wide_kernel.py, each with a
 // plain extern "C" launcher that takes device pointers and a CUDA stream,
 // launches on that stream, and returns cudaGetLastError().  The Python
-// wrappers check shapes, types and devices and allocate every output; the
-// plain PyTorch versions beside them define the same results.
+// wrappers check shapes, types and devices and allocate every output and
+// scratch array; the plain PyTorch versions beside them define the same
+// results.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -c -Xcompiler -fPIC -o wide_kernels.o wide_kernels.cu
@@ -29,7 +30,6 @@ constexpr int kMatchBit = 1 << 25;  // TOK_MATCH_BIT
 constexpr int kTokensPad = 256;     // TOKENS_PAD: slots per sub-span
 constexpr int kFlag = 1 << 30;      // resolved-byte flag
 constexpr int kTile = 4096;         // resolve tile (bytes)
-constexpr int kJumpRounds = 12;     // 2^12 >= longest chain in one tile
 
 constexpr int kKindEob = 1, kKindLen = 2, kKindInvalid = 3;
 
@@ -148,69 +148,168 @@ decode_wide_kernel(const int32_t* __restrict__ win, int sw,
 }
 
 // ---------------------------------------------------------------- resolve
-// One block per block row, walking the row in 4 KiB tiles, in order.  A
-// tile's unresolved bytes live in shared memory as local pointers; a
-// source in an earlier tile is read from the row's output, which the
-// barrier closing the previous tile has made visible.
+// Two kernels, launched back to back by zt_resolve_wide.
+//
+// expand: everything that depends on no earlier tile, for all tiles of all
+// rows at once.  A block of 512 threads owns one 4 KiB tile: it has the
+// tile's 32 sub-spans of starts and tokens in flight with eight 16-byte
+// loads per thread, stages four sub-spans at a time in shared memory,
+// binary-searches each byte's covering slot there (the same branch-free
+// search as the plain version, so unsorted starts give the same slot) and
+// keeps the tile's 4,096 states in shared memory: a literal or a self-copy
+// is final (kFlag), a source before the tile is the offset in the row
+// (kFar), a source inside the tile is a pointer to that entry.  The
+// pointers are then jumped inside the block, without a barrier between
+// rounds: a pointer always leads to an earlier entry, which is at any time
+// final, far or a pointer to a byte of the same value, so a racing read is
+// as good as an ordered one, and a warp leaves the loop when none of its
+// entries is a pointer any more.  What goes out, 4 bytes of state per
+// output byte, is final or far.  Bound by memory: all of toks and starts
+// read once.
+//
+// walk: only the copying from earlier tiles is serial.  One block per row
+// takes the row's tiles in order; each thread has the states of its four
+// bytes of the next two tiles in flight in registers, reads a far source
+// as one byte of the row, which stays in shared memory, and writes its
+// four bytes as one word; one barrier a tile makes them visible to the
+// next.  The row leaves shared memory once, 16 bytes a thread.  A row too
+// long for shared memory takes the same kernel with the row's bytes in the
+// output array (kRowInSmem false), far sources read from L2.
 
-constexpr int kResolveThreads = 1024;
-constexpr int kBytesPerThread = kTile / kResolveThreads;
+constexpr int kFar = 1 << 29;       // state: source offset in the row
+constexpr int kExpandThreads = 512;
+constexpr int kSubsPerRound = kExpandThreads / kSub;  // staged together
+// a thread's bytes of the tile: one per staging round
+constexpr int kExpandPerThread = kTile / kExpandThreads;
+constexpr int kWalkThreads = kTile / 4;  // four bytes of a tile per thread
+constexpr int kMaxDynamicSmem = 232448;  // 227 KB a block on sm_90
 
-__global__ void __launch_bounds__(kResolveThreads)
-resolve_wide_kernel(const int32_t* __restrict__ toks,
-                    const int32_t* __restrict__ starts, int nsubb,
-                    uint8_t* out) {
-  __shared__ int32_t state[kTile];
-  const int64_t n = (int64_t)nsubb * kSub;
-  const int64_t row = blockIdx.x;
-  const int32_t* tr = toks + row * nsubb * kTokensPad;
-  const int32_t* sr = starts + row * nsubb * kTokensPad;
-  uint8_t* o = out + row * n;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    for (int k = 0; k < kBytesPerThread; ++k) {
-      const int ql = threadIdx.x + k * kResolveThreads;
-      const int q = t0 + ql;
-      const int m = q / kSub;
-      const int qs = q % kSub;
-      const int32_t* sp = sr + (int64_t)m * kTokensPad;
-      // largest slot with start <= qs (slot 0 when none): branch-free
-      int lo = 0;
-      for (int step = kTokensPad / 2; step; step >>= 1)
-        if (sp[lo + step] <= qs) lo += step;
-      const int tok = tr[(int64_t)m * kTokensPad + lo];
+__global__ void __launch_bounds__(kExpandThreads, 2)
+resolve_wide_expand_kernel(const int32_t* __restrict__ toks,
+                           const int32_t* __restrict__ starts, int nsubb,
+                           int32_t* __restrict__ state) {
+  // four sub-spans' starts (256 int4), then their tokens (256 int4)
+  __shared__ int4 s_stage[kExpandThreads];
+  __shared__ int32_t s_tile[kTile];
+  const int tid = threadIdx.x;
+  const int tiles_per_row = nsubb * kSub / kTile;
+  const int t0 = (blockIdx.x % tiles_per_row) * kTile;  // offset in the row
+  const int n = nsubb * kSub;
+  // the tile's sub-spans lie one after another in toks and starts
+  constexpr int kInt4PerRound = kSubsPerRound * kTokensPad / 4;
+  const int4* in = reinterpret_cast<const int4*>(
+                       tid < kInt4PerRound ? starts : toks) +
+                   (int64_t)blockIdx.x * (kTile / kSub) * (kTokensPad / 4) +
+                   tid % kInt4PerRound;
+  int4 pre[kExpandPerThread];
+#pragma unroll
+  for (int r = 0; r < kExpandPerThread; ++r)
+    pre[r] = __ldg(in + r * kInt4PerRound);
+
+  const int32_t* sp = reinterpret_cast<const int32_t*>(s_stage) +
+                      (tid / kSub) * kTokensPad;
+  const int32_t* tp = sp + kSubsPerRound * kTokensPad;
+  const int qs = tid % kSub;
+#pragma unroll
+  for (int r = 0; r < kExpandPerThread; ++r) {
+    s_stage[tid] = pre[r];
+    __syncthreads();
+    // largest slot with start <= qs (slot 0 when none): branch-free
+    int lo = 0;
+#pragma unroll
+    for (int step = kTokensPad / 2; step; step >>= 1)
+      if (sp[lo + step] <= qs) lo += step;
+    const int tok = tp[lo];
+    const int ql = r * kExpandThreads + tid;  // byte offset in the tile
+    const int q = t0 + ql;
+    int v;
+    if (tok & kMatchBit) {
       const int dist = (tok >> 9) & 0xFFFF;
-      int v;
-      if (tok & kMatchBit) {
-        const int src = (int)min(max((int64_t)q - dist, (int64_t)0), n - 1);
-        v = src < t0 ? (o[src] | kFlag) : src - t0;
-      } else {
-        v = (tok & 255) | kFlag;
-      }
-      state[ql] = v;
+      const int src = min(max(q - dist, 0), n - 1);
+      if (src == q)
+        v = (q & 255) | kFlag;  // a byte copying itself keeps its index
+      else if (src >= t0)
+        v = src - t0;
+      else
+        v = src | kFar;
+    } else {
+      v = (tok & 255) | kFlag;
     }
+    s_tile[ql] = v;
     __syncthreads();
-    // pointer jumping: every unresolved byte points at an earlier one (or
-    // at itself); stop once a round changes nothing
-    for (int r = 0; r < kJumpRounds; ++r) {
-      int next[kBytesPerThread];
-      int changed = 0;
-      for (int k = 0; k < kBytesPerThread; ++k) {
-        const int v = state[threadIdx.x + k * kResolveThreads];
-        next[k] = (v & kFlag) ? v : state[v];
-        changed |= next[k] != v;
-      }
-      __syncthreads();
-      for (int k = 0; k < kBytesPerThread; ++k)
-        state[threadIdx.x + k * kResolveThreads] = next[k];
-      if (!__syncthreads_or(changed)) break;
+  }
+
+  // jump the tile's inner pointers until every entry is final or far
+  volatile int32_t* tile = s_tile;
+  constexpr int kClosed = kFlag | kFar;
+  int v[kExpandPerThread];
+  bool pending = false;
+#pragma unroll
+  for (int k = 0; k < kExpandPerThread; ++k) {
+    v[k] = tile[tid + k * kExpandThreads];
+    pending |= !(v[k] & kClosed);
+  }
+  while (__any_sync(0xFFFFFFFFu, pending)) {
+    // the loads first, all in flight together (a closed entry reads itself)
+    int y[kExpandPerThread];
+#pragma unroll
+    for (int k = 0; k < kExpandPerThread; ++k)
+      y[k] = tile[(v[k] & kClosed) ? tid + k * kExpandThreads : v[k]];
+    pending = false;
+#pragma unroll
+    for (int k = 0; k < kExpandPerThread; ++k) {
+      if (v[k] & kClosed) continue;
+      v[k] = y[k];
+      tile[tid + k * kExpandThreads] = y[k];
+      pending |= !(y[k] & kClosed);
     }
-    for (int k = 0; k < kBytesPerThread; ++k) {
-      const int ql = threadIdx.x + k * kResolveThreads;
-      o[t0 + ql] = (uint8_t)(state[ql] & 255);
-    }
-    // the tile's bytes are visible to the next tile's far reads, and its
-    // state may be overwritten
+  }
+  int32_t* out = state + (int64_t)blockIdx.x * kTile;
+#pragma unroll
+  for (int k = 0; k < kExpandPerThread; ++k)
+    out[tid + k * kExpandThreads] = v[k];
+}
+
+template <bool kRowInSmem>
+__global__ void __launch_bounds__(kWalkThreads)
+resolve_wide_walk_kernel(const int32_t* __restrict__ state, int n,
+                         uint8_t* out) {
+  extern __shared__ int4 smem4[];
+  uint8_t* o = out + (int64_t)blockIdx.x * n;
+  // the row's resolved bytes: shared memory, or the output array itself
+  uint8_t* rowb = kRowInSmem ? reinterpret_cast<uint8_t*>(smem4) : o;
+  const int tid = threadIdx.x;
+  const int ntiles = n / kTile;
+  // this thread's four states of tile i are st[i * kWalkThreads]
+  const int4* st =
+      reinterpret_cast<const int4*>(state + (int64_t)blockIdx.x * n) + tid;
+
+  // a byte of an earlier tile: final since the barrier that opened this one
+  auto byte_of = [&](int x) -> uint32_t {
+    if (x & kFlag) return x & 255;
+    if constexpr (kRowInSmem)
+      return rowb[x & (kFar - 1)];
+    else
+      return __ldcg(rowb + (x & (kFar - 1)));  // from L2, where stores are
+  };
+
+  int4 cur = __ldg(st);
+  int4 nxt = ntiles > 1 ? __ldg(st + kWalkThreads) : cur;
+  for (int i = 0; i < ntiles; ++i) {
+    const int4 ahead =
+        i + 2 < ntiles ? __ldg(st + (int64_t)(i + 2) * kWalkThreads) : cur;
+    if (i) __syncthreads();  // the bytes of tile i - 1 are visible
+    const uint32_t word = byte_of(cur.x) | (byte_of(cur.y) << 8) |
+                          (byte_of(cur.z) << 16) | (byte_of(cur.w) << 24);
+    *reinterpret_cast<uint32_t*>(rowb + i * kTile + 4 * tid) = word;
+    cur = nxt;
+    nxt = ahead;
+  }
+  if (kRowInSmem) {
     __syncthreads();
+    for (int i = tid * 16; i < n; i += kWalkThreads * 16)
+      *reinterpret_cast<int4*>(o + i) =
+          *reinterpret_cast<const int4*>(rowb + i);
   }
 }
 
@@ -230,11 +329,28 @@ int zt_decode_wide(const void* win, int sw, const void* bit0,
   return (int)cudaGetLastError();
 }
 
+// state: scratch of rows * nsubb * 128 int32, allocated by the wrapper
 int zt_resolve_wide(const void* toks, const void* starts, int rows,
-                    int nsubb, void* out, void* stream) {
-  resolve_wide_kernel<<<(unsigned)rows, kResolveThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const int32_t*)toks, (const int32_t*)starts, nsubb, (uint8_t*)out);
+                    int nsubb, void* state, void* out, void* stream) {
+  const int n = nsubb * kSub;
+  const int64_t tiles = (int64_t)rows * (n / kTile);
+  resolve_wide_expand_kernel<<<(unsigned)tiles, kExpandThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const int32_t*)toks, (const int32_t*)starts, nsubb, (int32_t*)state);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (n <= kMaxDynamicSmem) {
+    err = cudaFuncSetAttribute(resolve_wide_walk_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, n);
+    if (err != cudaSuccess) return (int)err;
+    resolve_wide_walk_kernel<true><<<(unsigned)rows, kWalkThreads, n,
+                                     (cudaStream_t)stream>>>(
+        (const int32_t*)state, n, (uint8_t*)out);
+  } else {
+    resolve_wide_walk_kernel<false><<<(unsigned)rows, kWalkThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        (const int32_t*)state, n, (uint8_t*)out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from zlibes_tpu.spec.constants import ADLER_MOD
+from ..spec.constants import ADLER_MOD
 
 _CHUNK = 4096
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from zlibes_tpu.spec import constants as C
+from ..spec import constants as C
 
 from .encode_kernel import encode_fields
 from .symbol_math import dist_symbol, len_symbol

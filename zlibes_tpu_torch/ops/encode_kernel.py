@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from zlibes_tpu.spec import constants as C
+from ..spec import constants as C
 
 from .symbol_math import dist_extra, dist_symbol, len_extra, len_symbol
 from .turbo_kernel import _check, _launch, _ptr, _route

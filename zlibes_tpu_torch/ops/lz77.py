@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from zlibes_tpu.spec import constants as C
+from ..spec import constants as C
 
 
 def _trailing_eq_bytes(x: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,9 @@ from collections import Counter
 import numpy as np
 import torch
 
-from zlibes_tpu.ops import huffman
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec.errors import CorruptError
+from . import huffman
+from ..spec import constants as C
+from ..spec.errors import CorruptError
 
 # table width: turbo streams cap code lengths at 9 bits
 M_BITS = 9
@@ -398,16 +398,20 @@ def resolve_turbo(toks: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
 # Replaces select_turbo (zlibes_tpu/ops/turbo_kernel.py:696, kernel
 # _select_kernel :646).  The TPU kernel walks all lanes in lock step from
 # word-planes, one position or match per iteration, until the last lane
-# ends.  On the card one thread owns one lane and walks its own cursor to
-# its own end (csrc/encode_kernels.cu): per step one load of the packed
-# position (and one of the next, for the lazy rule) from the lane's 2 KB row,
-# which stays in L1.  It is bound by that serial chain of dependent loads,
-# ~segment-length steps per lane, so its speed comes from lanes in flight:
-# 4096 lanes of a dispatch fill 128 blocks of 32 threads.
+# ends.  On the card (csrc/encode_kernels.cu) a block of 128 threads owns 8
+# lanes and keeps their 2 KB rows in shared memory: rows come in and tokens
+# go out with 16-byte loads and stores on neighbouring addresses; the token
+# at a position and the position after it depend on that position and the
+# next alone, so all 512 of a row are computed at once and packed as
+# token | next << 22; one thread a lane then follows the chain from position
+# 0, one shared-memory load a step, writing token t in place at slot t (never
+# above the cursor).  It is bound by the latency of the longest lane's chain;
+# 4096 lanes of a dispatch make 512 blocks.
 #
 # Contract: pv (L, 512) int32 packs each position's best match and byte as
 # dist (12 bits) | len << 12 (9 bits) | literal << 21; seg_len (L,) is the
-# number of valid positions of each lane.  Tokens are ``ml | dist << 9 |
+# number of valid positions of each lane (at most 512; a larger value counts
+# as 512).  Tokens are ``ml | dist << 9 |
 # TOK_MATCH_BIT`` for a match and the literal byte otherwise; slots at or
 # past a lane's count are 0.
 
@@ -422,7 +426,7 @@ def select_turbo_plain(pv: torch.Tensor, seg_len: torch.Tensor,
     L, SEG = pv.shape
     dev = pv.device
     pv = pv.long()
-    seg_end = seg_len.long()
+    seg_end = seg_len.long().clamp(max=SEG)
     toks = torch.zeros((L, SEG), dtype=torch.int32, device=dev)
     c = torch.zeros(L, dtype=torch.long, device=dev)
     active = seg_end > 0

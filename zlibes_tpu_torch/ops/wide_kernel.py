@@ -26,9 +26,9 @@ import ctypes
 import numpy as np
 import torch
 
-from zlibes_tpu.ops import huffman
-from zlibes_tpu.spec import constants as C
-from zlibes_tpu.spec.errors import CorruptError
+from . import huffman
+from ..spec import constants as C
+from ..spec.errors import CorruptError
 
 from .turbo_kernel import (
     _FLAG,
@@ -74,6 +74,9 @@ _SUB_FLAG = 1 << 30
 
 # start offset of an empty token slot: past every in-span position
 START_PAD = 2048
+# longest row (bytes) that the resolve kernel keeps in shared memory: the
+# 227 KB a block may use (kMaxDynamicSmem in csrc/wide_kernels.cu)
+RESOLVE_SMEM_ROW = 227 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -318,14 +321,21 @@ def decode_wide(win: torch.Tensor, bit0: torch.Tensor, endb: torch.Tensor,
 # 128-byte tiles, 16 per grid step: a bisection finds each byte's covering
 # token, far sources come from a word-packed scratch of resolved bytes
 # through a 64-bank gather sweep, and in-tile overlaps resolve by 7
-# pointer-doubling rounds.  On the card one thread block owns one block row
-# and walks it in 4 KiB tiles, in order: each byte binary-searches its
-# sub-span's 256 token starts; a source before the tile is read from the
-# row's output bytes already written (a barrier between tiles makes them
-# visible); sources inside the tile resolve by pointer jumping in 16 KB of
-# shared memory, 12 rounds at most, stopping early once no byte changes.
-# It is bound by the serial walk over a row's tiles: only Cb blocks run, each
-# through LPB*128/4096 tiles.
+# pointer-doubling rounds.  On the card the work is split in two kernels
+# (csrc/wide_kernels.cu).  Everything that depends on no earlier tile is done
+# for all 4 KiB tiles of all rows at once, on all SMs, by an expand kernel:
+# a block per tile stages the tile's starts and tokens in shared memory,
+# binary-searches each byte's covering token there, and resolves the chains
+# that stay inside the tile by pointer jumping without barriers between
+# rounds; it writes one int32 of state per byte, a final byte or the offset
+# of a source in an earlier tile.  Only the copying from earlier tiles is
+# serial: a walk kernel, one thread block per row, takes the row's tiles in
+# order with the next two tiles' states in flight in registers, keeps the
+# row's bytes in shared memory (dynamic, up to 224 KiB of row; a longer row
+# keeps them in the output array and reads far sources from L2), pays one
+# byte read a far source and one barrier a tile, and writes the row out
+# once.  The expand kernel is bound by memory (all of toks and starts read
+# once); the walk by the chain of tiles of one row, Cb blocks wide.
 #
 # Input contract: Cb rows x NSUBB sub-spans x 256 slots; starts are offsets
 # within the sub-span, pad slots carry START_PAD, slot 0 may hold the
@@ -361,12 +371,15 @@ def resolve_wide_plain(toks: torch.Tensor,
 
 def resolve_wide(toks: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """toks, starts (Cb, NSUBB, 256) int32 -> (Cb, NSUBB*128) uint8 block
-    rows; NSUBB*128 must be a multiple of the kernel's 4 KiB tile."""
+    rows; NSUBB*128 must be a multiple of the kernel's 4 KiB tile and less
+    than 2**29."""
     dev = toks.device
     shape = tuple(toks.shape)
-    if len(shape) != 3 or shape[2] != TOKENS_PAD or (shape[1] * SUB) % 4096:
+    if (len(shape) != 3 or shape[2] != TOKENS_PAD or (shape[1] * SUB) % 4096
+            or shape[1] * SUB >= 1 << 29):
         raise ValueError(f"toks has shape {shape}, expected (Cb, NSUBB, "
-                         f"{TOKENS_PAD}) with NSUBB a multiple of 32")
+                         f"{TOKENS_PAD}) with NSUBB a multiple of 32 below "
+                         f"{(1 << 29) // SUB}")
     _check(toks, "toks", torch.int32, shape, dev)
     _check(starts, "starts", torch.int32, shape, dev)
     if not _route(toks):
@@ -374,6 +387,9 @@ def resolve_wide(toks: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     Cb, nsubb, _ = shape
     out = torch.empty((Cb, nsubb * SUB), dtype=torch.uint8, device=dev)
     if out.numel():
+        # the expand kernel's per-byte state, read by the walk kernel
+        state = torch.empty((Cb, nsubb * SUB), dtype=torch.int32, device=dev)
         _launch("resolve_wide", dev, _ptr(toks), _ptr(starts),
-                ctypes.c_int(Cb), ctypes.c_int(nsubb), _ptr(out))
+                ctypes.c_int(Cb), ctypes.c_int(nsubb), _ptr(state),
+                _ptr(out))
     return out

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "zt_resolve_turbo": [_P, _P, _INT, _P, _P],
     "zt_decode_wide": [_P, _INT, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P, _P,
                        _P, _P],
-    "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P],
+    "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P, _P],
     "zt_select_turbo": [_P, _P, _INT, _INT, _P, _P, _P],
     "zt_encode_fields": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
 }
