@@ -23,8 +23,12 @@ times the kernels and the pipeline with CUDA events and torch.profiler,
 and (inflate) probes corrupted streams.  ``resolve_wide`` is also held
 against its plain version on rows of 32 KiB and of 256 KiB (the kernel's
 path for rows too long for shared memory), ``select_turbo`` on the
-corpus' second dispatch (padded lanes) with ``lazy`` on and off.  Any
-failure raises.  The last line of standard output is one JSON object naming
+corpus' second dispatch (padded lanes) with ``lazy`` on and off,
+``decode_turbo`` on 4,096 lanes of random bits and on the fixture with ``T``
+cut to 64, ``resolve_turbo`` on random tokens under unsorted starts with
+self-copies among them and on one chunk row alone.  For ``decode_turbo``,
+which the longest lane bounds, it prints that lane's and the mean lane's
+token count and the device cycles a token.  Any failure raises.  The last line of standard output is one JSON object naming
 the device; the line before it is the card's name and power limit from
 nvidia-smi, and the line before that the per-kernel JSON record
 (``launches`` of ``lane_windows`` sums both inflate paths' runs;
@@ -144,6 +148,18 @@ def profile_pipeline(fn, card: str, runs: int = 5) -> dict[str, float]:
     return {name: us / runs / 1e3 for name, us in per_name.items()}
 
 
+def device_time(ms: dict, name: str, launches_per_call: int = 1) -> float:
+    """Device ms per launch of ``name``'s wrapper, from the profiler's ms per
+    traced call: the sum over the kernels named ``<name>_kernel`` or
+    ``<name>_<part>_kernel`` (resolve_wide has two a launch, ..._expand_kernel
+    and ..._walk_kernel).  A wrapper whose kernels the trace does not hold
+    fails the run."""
+    pat = re.compile(rf"\b{name}_(\w+_)?kernel\b")
+    hits = [v for k, v in ms.items() if pat.search(k)]
+    assert hits, f"the profiler's trace holds no kernel of {name}: {sorted(ms)}"
+    return sum(hits) / launches_per_call
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.numel() == 0:
         return 0
@@ -185,6 +201,89 @@ def resolve_wide_other_rows(toks: torch.Tensor, sts: torch.Tensor,
         print(f"kernel resolve_wide at {name} {list(got.shape)}: exact vs "
               f"plain and the fixture's bytes (max_abs_err {err}), kernel "
               f"{ms:.4f} ms (median of 20) {card}")
+
+
+def sm_clock_mhz() -> tuple[float, str]:
+    """The SM clock as nvidia-smi reads it now (just after a timed run it is
+    the clock the run had), and the name of the query."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0]), "nvidia-smi clocks.sm"
+
+
+def lane_steps(tokens: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Steps ``decode_turbo``'s kernel takes per lane by its pairing rule (a
+    step is one token, or two when both are literals), leaving out its rare
+    one-token cases, so a lower estimate."""
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    T = tokens.shape[0]
+    steps = torch.zeros_like(count)
+    open_lit = torch.zeros_like(count, dtype=torch.bool)
+    for t in range(T):
+        valid = count > t
+        lit = valid & ((tokens[t] & tk.TOK_MATCH_BIT) == 0)
+        second = lit & open_lit
+        steps += (valid & ~second).to(steps.dtype)
+        open_lit = lit & ~second
+    return steps
+
+
+def turbo_other_inputs(plan, win: torch.Tensor, records: dict,
+                       card: str) -> None:
+    """The two turbo inflate kernels against their plain versions on what
+    the fixture does not hold: ``decode_turbo`` on 4,096 lanes of random
+    bits (errors, overruns, reads past the window) and on the fixture's
+    lanes with ``T`` cut to 64 (lanes stopped while active);
+    ``resolve_turbo`` on random tokens under random unsorted starts, a tenth
+    of the tokens copies of themselves, as 32 chunk rows and as one.  Adds
+    the error maxima to ``records``."""
+    from test_torch_cuda import garbage_chunks, garbage_lanes
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    gwin, gbit0, gendb = (t.cuda() for t in garbage_lanes(4096))
+    cases = {
+        "4096 lanes of random bits": (gwin, gbit0, gendb, tk.MAX_TOKENS),
+        "the fixture at T=64": (win, plan.bit0, plan.endb, 64),
+    }
+    for name, (w, b0, eb, T) in cases.items():
+        tokens, meta = tk.decode_turbo(w, b0, eb, plan.lt, plan.dt, T)
+        torch.cuda.synchronize()
+        tokens_p, meta_p = tk.decode_turbo_plain(w, b0, eb, plan.lt, plan.dt,
+                                                 T)
+        emitted = (torch.arange(T, device="cuda")[:, None]
+                   < meta_p[0][None, :])
+        assert torch.equal(meta, meta_p), f"decode_turbo meta != plain ({name})"
+        assert torch.equal(tokens[emitted], tokens_p[emitted]), \
+            f"decode_turbo tokens != plain ({name})"
+        err = max(max_abs_err(meta, meta_p),
+                  max_abs_err(tokens[emitted], tokens_p[emitted]))
+        records["decode_turbo"]["max_abs_err"] = max(
+            records["decode_turbo"]["max_abs_err"], err)
+        print(f"kernel decode_turbo on {name}: exact vs plain (max_abs_err "
+              f"{err}); {int(meta[2].sum())} lanes with an error, "
+              f"{int(meta[3].sum())} still active, {int(meta[0].sum())} "
+              f"tokens {card}")
+    assert int(meta[3].sum()) > 0, "T=64 cut no lane"
+
+    for C_rows in (32, 1):
+        toks, starts = (t.cuda() for t in garbage_chunks(C_rows))
+        match = (toks & tk.TOK_MATCH_BIT) != 0
+        dist = (toks >> tk.TOK_DIST_SHIFT) & tk.TOK_DIST_MASK
+        assert bool((match & (dist == 0)).any()) and bool((starts < 0).any())
+        assert bool((starts[..., 1:] < starts[..., :-1]).any())
+        rows = tk.resolve_turbo(toks, starts)
+        torch.cuda.synchronize()
+        rows_p = tk.resolve_turbo_plain(toks, starts)
+        assert torch.equal(rows, rows_p), \
+            f"resolve_turbo != plain on garbage (C={C_rows})"
+        err = max_abs_err(rows, rows_p)
+        records["resolve_turbo"]["max_abs_err"] = max(
+            records["resolve_turbo"]["max_abs_err"], err)
+        print(f"kernel resolve_turbo on random tokens, unsorted starts and "
+              f"self-copies, C={C_rows}: exact vs plain (max_abs_err {err}) "
+              f"{card}")
 
 
 def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
@@ -676,13 +775,14 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: tk.resolve_turbo_plain(toks16, starts16),
                          runs=10),
         shape=list(rows.shape),
-        # ~80 operations a byte (9 search steps, 12 jump rounds)
+        # ~80 operations a byte (9 search steps, the jump rounds)
         **bound(nbytes(toks16, starts16, rows), 80 * rows.numel()))
     for name, r in records.items():
         print(f"kernel {name}: exact vs plain (max_abs_err {r['max_abs_err']}),"
               f" kernel {r['ms']:.4f} ms (median of 20), plain "
               f"{r['plain_ms']:.4f} ms (median of 10), "
               f"shape {r['shape']} {card}")
+    turbo_other_inputs(plan, win, records, card)
     glue_ms = cuda_ms(lambda: tb._glue_tokens(tokens, meta[0], plan.base,
                                               plan.C_pad))
     flat = rows.reshape(-1)[: plan.total_out]
@@ -723,11 +823,32 @@ def main() -> None:
     print(f"CPython zlib.decompress, one core: {zlib_s * 1e3:.2f} ms -> "
           f"{n / zlib_s / 1e9:.3f} GB/s, median of 5 (host CPU beside {card})")
     device_ms = profile_pipeline(device_pipeline, card)
+    mhz, clock_src = sm_clock_mhz()
     if device_ms:
         busy = sum(device_ms.values())
         print(f"untraced device pipeline: device busy {busy:.4f} of "
               f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
               f"(host launch-bound where high) {card}")
+    # decode_turbo is bound by its longest lane: tokens and steps there,
+    # and the device cycles each costs
+    counts = meta[0].long()
+    steps = lane_steps(tokens, counts)
+    dec_ms = device_time(device_ms, "decode_turbo")
+    cycles = dec_ms * 1e-3 * mhz * 1e6
+    records["decode_turbo"].update(
+        longest_lane_tokens=int(counts.max()),
+        mean_lane_tokens=float(counts.float().mean()),
+        longest_lane_steps=int(steps.max()), sm_mhz=mhz,
+        cycles_per_token=cycles / int(counts.max()),
+        cycles_per_step=cycles / int(steps.max()))
+    r = records["decode_turbo"]
+    print(f"decode_turbo lanes: longest {r['longest_lane_tokens']} tokens, "
+          f"mean {r['mean_lane_tokens']:.2f}, most steps a lane "
+          f"{r['longest_lane_steps']} (two literals a step); device "
+          f"{dec_ms:.4f} ms at {mhz:.0f} MHz ({clock_src}, read after the "
+          f"traced run) = {cycles:.0f} cycles -> "
+          f"{r['cycles_per_token']:.1f} cycles a token of the longest lane, "
+          f"{r['cycles_per_step']:.1f} a step {card}")
 
     # -- 6. corruption probe
     rng = np.random.default_rng(3)
@@ -758,21 +879,13 @@ def main() -> None:
                     if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
     assert not loaded, f"the port pulled in {loaded}"
 
-    def traced(ms: dict, name: str, launches_per_call: int = 1):
-        """Device ms per launch of ``name``'s wrapper, from the profiler's
-        ms per traced call (resolve_wide has two kernels a launch:
-        ..._expand_kernel and ..._walk_kernel)."""
-        pat = re.compile(rf"\b{name}_(\w+_)?kernel\b")
-        hits = [v for k, v in ms.items() if pat.search(k)]
-        return sum(hits) / launches_per_call if hits else None
-
     # the traced deflate() call launches each encode kernel once a dispatch
     per_call = {name: enc_launches[name] for name in
                 ("select_turbo", "encode_fields")}
 
     wide = ("decode_wide", "resolve_wide")
     encode = ("select_turbo", "encode_fields")
-    records["lane_windows"]["wide_device_ms"] = traced(wide_device_ms,
+    records["lane_windows"]["wide_device_ms"] = device_time(wide_device_ms,
                                                        "lane_windows")
     entries = []
     for name, r in records.items():
@@ -786,13 +899,15 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "bytes": r["bytes"], "ops": r["ops"],
-            "device_ms": traced({"wide": wide_device_ms,
+            "device_ms": device_time({"wide": wide_device_ms,
                                  "encode": enc_device_ms}.get(group,
                                                               device_ms),
                                 name, per_call.get(name, 1))})
-        entries[-1].update({k: r[k] for k in ("wide_ms", "wide_plain_ms",
-                                              "wide_device_ms",
-                                              "wide_bound_ms") if k in r})
+        entries[-1].update({k: r[k] for k in (
+            "wide_ms", "wide_plain_ms", "wide_device_ms", "wide_bound_ms",
+            "tokens", "longest_lane_tokens", "mean_lane_tokens",
+            "longest_lane_steps", "sm_mhz", "cycles_per_token",
+            "cycles_per_step") if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Hand-made inputs that pin the contracts of ``resolve_wide`` and
-``select_turbo``, with the bytes and tokens they must give, and tests of
-the port's plain versions against them.
+"""Hand-made inputs that pin the contracts of ``resolve_wide``,
+``select_turbo``, ``resolve_turbo`` and ``decode_turbo``, with the bytes
+and tokens they must give, and tests of the port's plain versions against
+them.
 
 Imports the port only (no JAX, nothing of ``zlibes_tpu``), so the card
 tests use the same cases for kernel versus plain;
@@ -26,6 +27,24 @@ matches are zero except in a few lanes:
     deferred to the longer raw length after it, which the clamp to the
     segment's end then cuts to literals; with ``lazy`` off it is taken;
   * ``empty_lane``     a lane past its block's last byte (``seg_len`` 0).
+
+``resolve_turbo``: one 4 KiB chunk row with one token a byte, seeded
+non-zero literals but for a few matches:
+
+  * ``self_copy``             a match of distance 0 copies itself and ends
+    as its own index, ``q & 255``;
+  * ``chain_into_self_copy``  matches that lead, over several hops, into
+    such a byte end as that byte's ``q & 255`` too;
+  * ``byte0_match``           byte 0 as a match (its source clips to
+    itself) is 0, and so is every byte whose source clips to it.
+
+``decode_turbo``: four lanes under the fixed Huffman tables:
+
+  * ``past_window``  a lane that starts in word 95 reads that word again
+    for every index past it;
+  * ``cut_by_T``     a lane with more tokens than ``T`` stops after ``T``,
+    still active, its position after the T-th token;
+  * ``padded_lane``  ``bit0 == endb == 0``: no token, no error, end bit 0.
 """
 from __future__ import annotations
 
@@ -36,6 +55,8 @@ import torch
 from zlibes_tpu_torch.codec import deflate_pipeline as tdp
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
+from zlibes_tpu_torch.spec import constants as C
+from test_torch_fixed_streams import fixed_lane
 
 torch.set_num_threads(2)
 
@@ -226,3 +247,142 @@ def test_select_turbo_plain_counts_a_long_seg_len_as_512():
     toks, counts = tk.select_turbo(pv[:4], slen[:4])
     toks2, counts2 = tk.select_turbo(pv[:4], slen[:4] + 100)
     assert torch.equal(toks, toks2) and torch.equal(counts, counts2)
+
+
+# ---------------------------------------------------------------------------
+# resolve_turbo
+
+TURBO_RESOLVE_CASES = ("self_copy", "chain_into_self_copy", "byte0_match")
+
+
+def _turbo_matches(case: str) -> tuple[dict[int, int], dict[int, int]]:
+    """({byte: distance} of the row's matches, {byte: expected value})."""
+    if case == "self_copy":
+        return {1000: 0, 4095: 0, 256: 0}, {1000: 232, 4095: 255, 256: 0}
+    if case == "chain_into_self_copy":
+        return ({1000: 0, 1005: 5, 1010: 5, 2000: 990, 4095: 2095},
+                {q: 232 for q in (1000, 1005, 1010, 2000, 4095)})
+    if case == "byte0_match":
+        return ({0: 7, 3: 3, 10: 4095, 300: 297},
+                {0: 0, 3: 0, 10: 0, 300: 0})
+    raise KeyError(case)
+
+
+def turbo_resolve_case(case: str):
+    """(toks, starts (16, 1, 384) int32, the row's bytes (4096,) uint8):
+    slot i of a sub-span holds the token of its byte i."""
+    rng = np.random.default_rng(TURBO_RESOLVE_CASES.index(case) + 60)
+    want = rng.integers(1, 256, 4096).astype(np.uint8)
+    matches, values = _turbo_matches(case)
+    toks = np.zeros((tk.SUBS_PER_CHUNK, 1, tk.TOKENS_PAD), np.int32)
+    starts = np.full(toks.shape, tk.PAD_START, np.int32)
+    toks[:, 0, : tk.SUB] = want.reshape(tk.SUBS_PER_CHUNK, tk.SUB)
+    starts[:, 0, : tk.SUB] = np.arange(tk.SUB)
+    for q, dist in matches.items():
+        toks[q // tk.SUB, 0, q % tk.SUB] = (
+            3 | (dist << tk.TOK_DIST_SHIFT) | tk.TOK_MATCH_BIT)
+        want[q] = values[q]
+    return toks, starts, want
+
+
+@pytest.mark.parametrize("case", TURBO_RESOLVE_CASES)
+def test_resolve_turbo_plain_gives_the_cases_bytes(case):
+    toks, starts, want = turbo_resolve_case(case)
+    got = tk.resolve_turbo(torch.from_numpy(toks), torch.from_numpy(starts))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (1, 4096)
+    assert np.array_equal(got.numpy()[0], want)
+
+
+def test_resolve_turbo_plain_searches_signed_and_unsorted_starts():
+    """Slot 0 with a negative start covers the bytes before slot 1; the
+    bisection's probes decide the slot, not the order of the starts: with
+    slot 256 at 0, every byte takes the upper half, where only the pad
+    remains, so slot 256 covers the whole sub-span."""
+    toks = np.zeros((tk.SUBS_PER_CHUNK, 1, tk.TOKENS_PAD), np.int32)
+    starts = np.full(toks.shape, tk.PAD_START, np.int32)
+    toks[:, 0, 0], starts[:, 0, 0] = 65, -40
+    toks[:, 0, 1], starts[:, 0, 1] = 66, 100
+    toks[1, 0, 256], starts[1, 0, 256] = 67, 0
+    got = tk.resolve_turbo(torch.from_numpy(toks),
+                           torch.from_numpy(starts)).numpy()[0]
+    assert (got[:100] == 65).all() and (got[100:256] == 66).all()
+    assert (got[256:512] == 67).all()
+    assert (got[512:612] == 65).all() and (got[612:768] == 66).all()
+
+
+# ---------------------------------------------------------------------------
+# decode_turbo
+
+TURBO_DECODE_CASES = ("past_window", "cut_by_T", "padded_lane")
+DECODE_LANE = {"past_window": 2, "cut_by_T": 0, "padded_lane": 1}
+_CUT_TOKENS = [104, (4, 2), 105, 106, 107, 108, 109]
+_CUT_T = 3
+# four fixed-Huffman codes of the literal 97 (0x30 + 97, 8 bits, first bit
+# of the code in the lowest bit)
+_WORD_OF_97 = 0x89898989
+_PAST_BIT0 = 95 * 32 + 8
+_PAST_COUNT = 10
+
+
+def turbo_decode_case(case: str):
+    """((win (4, 96), bit0 (4,), endb (4,), lt (512,), dt (512,)) int32
+    arrays, T) of ``case``: its lane is ``DECODE_LANE[case]``, every other
+    lane is padded."""
+    lt, dt = tk.turbo_decode_tables(C.fixed_litlen_code_lengths(),
+                                    C.fixed_dist_code_lengths())
+    win = np.zeros((4, tk.STREAM_WORDS), np.int32)
+    bit0 = np.zeros(4, np.int32)
+    endb = np.zeros(4, np.int32)
+    T = tk.MAX_TOKENS
+    lane = DECODE_LANE[case]
+    if case == "past_window":
+        # word 94 differs, so only the last word can have given the tokens
+        win[lane, 94] = -1
+        win[lane, 95] = np.uint32(_WORD_OF_97).astype(np.int32)
+        bit0[lane] = _PAST_BIT0
+        endb[lane] = _PAST_BIT0 + 8 * _PAST_COUNT
+    elif case == "cut_by_T":
+        w, e = fixed_lane(_CUT_TOKENS, lane, lanes=4, sw=tk.STREAM_WORDS)
+        win, endb = w, e
+        T = _CUT_T
+    elif case != "padded_lane":
+        raise KeyError(case)
+    return (win, bit0, endb, lt, dt), T
+
+
+def check_turbo_decode_case(case: str, tokens: np.ndarray,
+                            meta: np.ndarray) -> None:
+    """Assert that (tokens (T, 4), meta (4, 4)) hold ``case``'s lane as the
+    contract fixes it, and every other lane as a padded one."""
+    lane = DECODE_LANE[case]
+    match = 4 | (2 << tk.TOK_DIST_SHIFT) | tk.TOK_MATCH_BIT
+    want = {
+        # count, end bit, error, still active
+        "past_window": ([_PAST_COUNT, _PAST_BIT0 + 8 * _PAST_COUNT, 0, 0],
+                        [97] * _PAST_COUNT),
+        # 8 bits, 7 + 5 bits (length 4, distance 2: no extra bits), 8 bits
+        "cut_by_T": ([_CUT_T, 8 + 12 + 8, 0, 1], [104, match, 105]),
+        "padded_lane": ([0, 0, 0, 0], []),
+    }[case]
+    assert list(meta[:, lane]) == want[0]
+    assert list(tokens[: len(want[1]), lane]) == want[1]
+    others = np.delete(meta, lane, axis=1)
+    assert not others.any()
+
+
+@pytest.mark.parametrize("case", TURBO_DECODE_CASES)
+def test_decode_turbo_plain_gives_the_cases_tokens(case):
+    args, T = turbo_decode_case(case)
+    tokens, meta = tk.decode_turbo(*(torch.from_numpy(a) for a in args), T)
+    assert tuple(tokens.shape) == (T, 4) and tuple(meta.shape) == (4, 4)
+    check_turbo_decode_case(case, tokens.numpy(), meta.numpy())
+
+
+def test_decode_turbo_plain_uncut_lane_ends_inactive():
+    """The ``cut_by_T`` lane with room for all its tokens: seven tokens,
+    then end-of-block moves the position to the lane's end."""
+    (win, bit0, endb, lt, dt), _ = turbo_decode_case("cut_by_T")
+    tokens, meta = tk.decode_turbo(*(torch.from_numpy(a) for a in
+                                     (win, bit0, endb, lt, dt)))
+    assert list(meta[:, 0].numpy()) == [7, int(endb[0]), 0, 0]
+    assert int(endb[0]) == 8 + 12 + 5 * 8 + 7

@@ -61,10 +61,11 @@ def test_lane_windows_kernel_matches_plain(plans):
                  tk.lane_windows_plain(p.words, tail))
 
 
-def _decode_both(win, bit0, endb, lt, dt):
-    tok_k, meta_k = tk.decode_turbo(win, bit0, endb, lt, dt)
+def _decode_both(win, bit0, endb, lt, dt, T=tk.MAX_TOKENS):
+    tok_k, meta_k = tk.decode_turbo(win, bit0, endb, lt, dt, T)
     torch.cuda.synchronize()
-    tok_p, meta_p = tk.decode_turbo_plain(win, bit0, endb, lt, dt)
+    tok_p, meta_p = tk.decode_turbo_plain(win, bit0, endb, lt, dt, T)
+    assert tuple(tok_k.shape) == (T, win.shape[0])
     assert _same(meta_k, meta_p)
     emitted = (torch.arange(tok_k.shape[0], device=win.device)[:, None]
                < meta_p[0][None, :])
@@ -79,18 +80,61 @@ def test_decode_kernel_matches_plain(plans):
     p.check_meta(meta.cpu().numpy())
 
 
-def test_decode_kernel_matches_plain_on_garbage(plans):
-    """Random windows: error, end-of-block and overrun paths agree too."""
-    _, p = plans
-    g = torch.Generator().manual_seed(0)
-    L = 4096
+def garbage_lanes(L: int, seed: int = 0):
+    """Random windows with random spans: (win (L, 96), bit0, endb) int32 on
+    the CPU."""
+    g = torch.Generator().manual_seed(seed)
     win = torch.randint(-2**31, 2**31 - 1, (L, tk.STREAM_WORDS),
                         generator=g, dtype=torch.int64).int()
     bit0 = torch.randint(0, 32, (L,), generator=g, dtype=torch.int32)
     endb = bit0 + torch.randint(0, 92 * 32 - 31, (L,), generator=g,
                                 dtype=torch.int32)
+    return win, bit0, endb
+
+
+def test_decode_kernel_matches_plain_on_garbage(plans):
+    """Random windows: error, end-of-block and overrun paths agree too."""
+    _, p = plans
+    win, bit0, endb = garbage_lanes(4096)
     meta = _decode_both(win.cuda(), bit0.cuda(), endb.cuda(), p.lt, p.dt)
     assert meta[2].any() and (meta[2] == 0).any()
+
+
+@pytest.mark.parametrize("L", [1, 33, 4097])
+def test_decode_kernel_matches_plain_where_no_block_is_full(plans, L):
+    """Lane counts that fill no whole block of the kernel: the fixture's
+    first lanes, then garbage lanes."""
+    _, p = plans
+    win = tk.lane_windows(p.words, p.start_w)[:L].contiguous()
+    meta = _decode_both(win, p.bit0[:L].contiguous(),
+                        p.endb[:L].contiguous(), p.lt, p.dt)
+    assert not meta[2].any() and not meta[3].any()
+    gwin, bit0, endb = garbage_lanes(L, seed=L)
+    _decode_both(gwin.cuda(), bit0.cuda(), endb.cuda(), p.lt, p.dt)
+
+
+def test_decode_kernel_matches_plain_when_cut_by_T(plans):
+    """T = 64: lanes with more tokens stop there, still active, with their
+    position after the 64th token."""
+    _, p = plans
+    win = tk.lane_windows(p.words, p.start_w)
+    full = tk.decode_turbo_plain(win, p.bit0, p.endb, p.lt, p.dt)[1]
+    meta = _decode_both(win, p.bit0, p.endb, p.lt, p.dt, T=64)
+    cut = full[0] > 64
+    assert cut.any() and not cut.all()
+    assert (meta[3][cut] == 1).all() and (meta[0][cut] == 64).all()
+    assert (meta[3][~cut] == 0).all() and _same(meta[:, ~cut], full[:, ~cut])
+    gwin, bit0, endb = garbage_lanes(4096)
+    _decode_both(gwin.cuda(), bit0.cuda(), endb.cuda(), p.lt, p.dt, T=64)
+
+
+def test_decode_kernel_padded_lanes_are_empty(plans):
+    """A lane with bit0 == endb == 0 gives count 0, end bit 0, no error."""
+    _, p = plans
+    win = torch.zeros((40, tk.STREAM_WORDS), dtype=torch.int32, device="cuda")
+    zero = torch.zeros(40, dtype=torch.int32, device="cuda")
+    meta = _decode_both(win, zero, zero, p.lt, p.dt)
+    assert not meta.any()
 
 
 def test_resolve_kernel_matches_plain(plans):
@@ -101,16 +145,61 @@ def test_resolve_kernel_matches_plain(plans):
     got = tk.resolve_turbo(toks16, starts16)
     torch.cuda.synchronize()
     assert _same(got, tk.resolve_turbo_plain(toks16, starts16))
+    # one chunk row alone
+    one = tk.resolve_turbo(toks16[:, 5:6].contiguous(),
+                           starts16[:, 5:6].contiguous())
+    torch.cuda.synchronize()
+    assert _same(one, got[5:6])
 
 
-def test_resolve_kernel_matches_plain_on_garbage():
-    g = torch.Generator().manual_seed(1)
-    shape = (tk.SUBS_PER_CHUNK, 32, tk.TOKENS_PAD)
+def garbage_chunks(C_rows: int, seed: int = 1):
+    """Random tokens, a tenth of them matches of distance 0 (self-copies),
+    under random unsorted starts, negative ones among them: (toks, starts)
+    (16, C_rows, 384) int32 on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (tk.SUBS_PER_CHUNK, C_rows, tk.TOKENS_PAD)
     toks = torch.randint(0, 1 << 22, shape, generator=g, dtype=torch.int32)
+    self_copy = torch.rand(shape, generator=g) < 0.1
+    keep = ~(tk.TOK_DIST_MASK << tk.TOK_DIST_SHIFT)
+    toks = torch.where(self_copy, (toks & keep) | tk.TOK_MATCH_BIT, toks)
     starts = torch.randint(-300, 2100, shape, generator=g, dtype=torch.int32)
+    return toks, starts
+
+
+@pytest.mark.parametrize("C_rows", [1, 32, 133])
+def test_resolve_kernel_matches_plain_on_garbage(C_rows):
+    toks, starts = garbage_chunks(C_rows)
+    match = (toks & tk.TOK_MATCH_BIT) != 0
+    dist = (toks >> tk.TOK_DIST_SHIFT) & tk.TOK_DIST_MASK
+    assert (match & (dist == 0)).any() and (starts < 0).any()
+    assert (starts[..., 1:] < starts[..., :-1]).any()      # unsorted
     got = tk.resolve_turbo(toks.cuda(), starts.cuda())
     torch.cuda.synchronize()
     assert _same(got, tk.resolve_turbo_plain(toks, starts))
+
+
+@pytest.mark.parametrize("case", ["self_copy", "chain_into_self_copy",
+                                  "byte0_match"])
+def test_resolve_kernel_gives_the_contract_cases(case):
+    from test_torch_contract_cases import turbo_resolve_case
+
+    toks, starts, want = turbo_resolve_case(case)
+    got = tk.resolve_turbo(torch.from_numpy(toks).cuda(),
+                           torch.from_numpy(starts).cuda())
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy()[0], want)
+
+
+@pytest.mark.parametrize("case", ["past_window", "cut_by_T", "padded_lane"])
+def test_decode_kernel_gives_the_contract_cases(case):
+    from test_torch_contract_cases import check_turbo_decode_case, \
+        turbo_decode_case
+
+    args, T = turbo_decode_case(case)
+    tokens, meta = tk.decode_turbo(*(torch.from_numpy(a).cuda()
+                                     for a in args), T)
+    torch.cuda.synchronize()
+    check_turbo_decode_case(case, tokens.cpu().numpy(), meta.cpu().numpy())
 
 
 def test_inflate_on_card_counts_launches(fixture_stream):

@@ -213,13 +213,24 @@ def lane_windows(words: torch.Tensor, start_w: torch.Tensor,
 # Replaces decode_turbo (zlibes_tpu/ops/turbo_kernel.py:472, kernel
 # _decode_kernel :332).  The TPU kernel runs all lanes in lock step, two
 # tokens per iteration, from a 128-bit buffer with a paired 64-bit refill
-# served by select trees over word-planes.  On the card each thread owns one
-# lane and runs until that lane ends: the 9-bit tables sit in shared memory,
-# and every token reads the 64 bits at its bit position from the lane's
-# window (three L1-resident loads).  It is bound by the serial dependency
-# of one token on the previous token's length, so its speed comes from
-# having many lanes in flight; tokens are stored (T, L) so that a warp's
-# stores land on neighbouring addresses.
+# served by select trees over word-planes.  On the card a lane is a serial
+# chain (a token's position follows from the token before it), there are
+# only 470 warps of lanes for 132 SMs, and a warp that runs alone issues one
+# instruction in four to six cycles: what bounds the kernel is not its bytes
+# but the longest lane's steps times the instructions of one step
+# (``chip_smoke.py`` prints the longest and the mean lane and the cycles a
+# token).  The design (csrc/turbo_kernels.cu) cuts both.  A block of 32
+# lanes brings its windows into shared memory once, in full lines, at an odd
+# row pitch that keeps lanes on different banks; a lane holds the 96 stream
+# bits at its position and the window's next words in registers, so the
+# next lookup index is one funnel shift; the tables are repacked in the
+# kernel so that the bits an entry consumes need no mask; a step has no
+# branch but the loop's and one for the rare cases (last token, invalid
+# code, a distance that can pass 4095, 32 bits or more), the distance
+# lookup going out for every token and dropped by a clamped shift; and a
+# step takes two tokens when both are literals, which halves the steps of
+# the longest lanes, the ones made of literals.  Tokens are stored (T, L) so
+# that a warp's stores land on neighbouring addresses.
 #
 # Contract (bit for bit with the TPU kernel on valid streams): a token is
 # bad when its litlen code is invalid (codelen 0, symbol 286/287), when a
@@ -324,13 +335,22 @@ def decode_turbo(win: torch.Tensor, bit0: torch.Tensor, endb: torch.Tensor,
 # _resolve_kernel :536).  The TPU kernel walks each chunk in 128-byte
 # tiles: a windowed bisection finds each byte's covering token, sources in
 # resolved tiles come from banked VMEM gathers and in-tile overlaps from 7
-# pointer-doubling rounds.  On the card one thread block owns one chunk row
-# and keeps it in shared memory (16 KB of int32 state): each byte binary-
-# searches its sub-span's 384 token starts, then all 4096 bytes resolve
-# together by pointer jumping, 12 rounds for any chain within 4 KiB.  It is
-# bound by shared-memory traffic (12 rounds x 4096 reads and writes) and the
-# block-wide barrier of each round; the chunk never leaves the SM until its
-# bytes are final.
+# pointer-doubling rounds.  On the card one block of 256 threads owns one
+# chunk row, thread t byte t of each of its 16 sub-spans.  The row's starts
+# come into shared memory by 16-byte asynchronous copies, in four groups
+# that are searched as they land; each byte runs the bisection below there
+# (the same nine probes, so unsorted starts give the same slot) and reads
+# its token once from global memory; the 4096 states then resolve in shared
+# memory by pointer jumping with no barrier between rounds, each warp for as
+# many rounds as its chains need: every pointer leads backwards, an entry
+# is at any time a value-preserving stand-in for its byte, and a byte that
+# copies itself (distance 0, or byte 0 as a match) is closed as q & 255
+# when the state is built, which is where the fixed 12 rounds leave it and
+# the only cycle there can be.  The row leaves in 16-byte stores.  What
+# bounds it is shared-memory work (nine dependent lookups a byte, then the
+# random reads of the jumps), not its bytes, which the card moves in a
+# third of the kernel's time; neighbouring lanes hold neighbouring bytes so
+# that a copy's reads fall on neighbouring banks.
 #
 # Input contract: 16 sub-spans x 384 slots per chunk; starts are offsets
 # within the sub-span, pad slots carry start 2048, slot 0 of an odd

@@ -344,14 +344,19 @@ int scan_core(BitReader& br, ScanCtx& C, size_t stop_bit, bool speculative,
 // a stored block with a valid LEN/NLEN pair; fixed blocks are not
 // searched for — any bit pattern parses as one, so they carry no signal)
 bool plausible_header(const uint8_t* data, size_t nbits, size_t bit) {
-  if (bit + 3 > nbits) return false;
-  // one unaligned load serves the first 57 bits; candidates die on
-  // btype/HLIT/HDIST within it, so the common case is a single memcpy
   uint64_t w;
-  memcpy(&w, data + (bit >> 3), 8);
-  w >>= bit & 7;
-  uint32_t btype = (uint32_t)(w >> 1) & 3;
-  if (btype == 0) {
+  // a run of zero-length stored blocks is walked in this loop, one header
+  // a turn, however long it is: the answer is that of the first header
+  // after the run
+  for (;;) {
+    if (bit + 3 > nbits) return false;
+    // one unaligned load serves the first 57 bits; candidates die on
+    // btype/HLIT/HDIST within it, so the common case is a single memcpy
+    memcpy(&w, data + (bit >> 3), 8);
+    w >>= bit & 7;
+    uint32_t btype = (uint32_t)(w >> 1) & 3;
+    if (btype == 2) break;
+    if (btype != 0) return false;
     size_t byte = ((bit + 3) + 7) >> 3;
     if ((byte + 4) * 8 > nbits) return false;
     uint32_t len = data[byte] | ((uint32_t)data[byte + 1] << 8);
@@ -364,10 +369,9 @@ bool plausible_header(const uint8_t* data, size_t nbits, size_t bit) {
     // the parallel scan targets.  Their 32 header bits carry
     // no signal, so chain the check: require a plausible FOLLOWING header
     // to keep the false-positive rate down.
-    size_t next_bit = (byte + 4) * 8;
-    return next_bit < nbits && plausible_header(data, nbits, next_bit);
+    bit = (byte + 4) * 8;
+    if (bit >= nbits) return false;
   }
-  if (btype != 2) return false;
   uint32_t hlit = (uint32_t)(w >> 3) & 31;
   uint32_t hdist = (uint32_t)(w >> 8) & 31;
   if (hlit > 29 || hdist > 29) return false;
