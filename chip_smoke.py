@@ -6,11 +6,12 @@ Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
 three paths on the 3.84 MB bench corpus and its committed fixtures:
 
   * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
-    kernels ``lane_windows``, ``decode_turbo``, ``resolve_turbo``;
+    kernels ``decode_turbo`` (which stages its lane windows itself) and
+    ``resolve_turbo``;
   * wide inflate: ``tests/golden/wide_bench.*`` (level 6, zlib's default),
-    kernels ``lane_windows`` (at the plan's width), ``decode_wide``,
-    ``resolve_wide``, plus the seek (``inflate_range``) and the
-    device-resident output (``inflate_to_device``);
+    kernels ``decode_wide`` (likewise) and ``resolve_wide``, plus the seek
+    (``inflate_range``) and the device-resident output
+    (``inflate_to_device``);
   * turbo encode: ``zlibes_tpu_torch.deflate(corpus,
     config=CodecConfig.turbo())``, kernels ``select_turbo`` and
     ``encode_fields``; its output must equal ``turbo_bench.zz`` byte for
@@ -26,16 +27,25 @@ path for rows too long for shared memory), ``select_turbo`` on the
 corpus' second dispatch (padded lanes) with ``lazy`` on and off,
 ``decode_turbo`` on 4,096 lanes of random bits and on the fixture with ``T``
 cut to 64, ``resolve_turbo`` on random tokens under unsorted starts with
-self-copies among them and on one chunk row alone.  For ``decode_turbo``,
-which the longest lane bounds, it prints that lane's and the mean lane's
-token count and the device cycles a token.  Any failure raises.  The last line of standard output is one JSON object naming
-the device; the line before it is the card's name and power limit from
-nvidia-smi, and the line before that the per-kernel JSON record
-(``launches`` of ``lane_windows`` sums both inflate paths' runs;
-``bound_ms`` is the larger of the bytes each kernel's contract moves over
-the card's memory rate and its operations over the card's peak rate;
-``library_ms`` is null: no single PyTorch call computes any of these
-functions).  Imports no JAX and nothing of ``zlibes_tpu``.
+self-copies among them and on one chunk row alone, ``decode_wide`` on
+random bits under the fixture's tables and on the fixture with ``T`` cut to
+16.  Both decoders are held in the form the pipelines call,
+``decode_*((words, start_w), ...)``, against the plain decode of the plain
+windows; the stand-alone ``lane_windows`` kernel, which no path launches any
+more, is still held against its plain version at both widths.  For
+``decode_turbo`` and ``decode_wide``, which their longest lane bounds, it
+prints that lane's and the mean lane's token count, the steps and the
+device cycles a step.  The native phase also inflates a CPython stream
+with the index ``build_index`` makes for it.  Any failure raises.  The last
+line of standard output is one JSON object naming the device; the line
+before it is the card's name and power limit from nvidia-smi, and the line
+before that the per-kernel JSON record (``launches`` is the count of the
+path's run through the public entry point: 0 for ``lane_windows``, whose
+``note`` says where its work went; ``bound_ms`` is the larger of the bytes
+each kernel's contract moves over the card's memory rate and its
+operations over the card's peak rate; ``library_ms`` is null: no single
+PyTorch call computes any of these functions).  Imports no JAX and nothing
+of ``zlibes_tpu``.
 """
 from __future__ import annotations
 
@@ -104,11 +114,12 @@ def wall_s(fn, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile_pipeline(fn, card: str, runs: int = 5) -> dict[str, float]:
+def profile_pipeline(fn, card: str, runs: int = 5,
+                     quiet: bool = False) -> dict[str, float]:
     """Trace ``runs`` calls of ``fn`` with torch.profiler; print device time
-    per kernel and the device's idle share of the traced window.  Returns
-    mean device ms per call by kernel name (empty when the trace holds no
-    device activity)."""
+    per kernel and the device's idle share of the traced window (nothing
+    when ``quiet``).  Returns mean device ms per call by kernel name (empty
+    when the trace holds no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,6 +149,8 @@ def profile_pipeline(fn, card: str, runs: int = 5) -> dict[str, float]:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
+    if quiet:
+        return {name: us / runs / 1e3 for name, us in per_name.items()}
     print(f"profiler ({runs} device-pipeline calls): device busy "
           f"{busy / runs / 1e3:.4f} ms per call, idle share "
           f"{1 - busy / window:.3f} of the {window / runs / 1e3:.4f} ms "
@@ -212,22 +225,80 @@ def sm_clock_mhz() -> tuple[float, str]:
     return float(out.splitlines()[0]), "nvidia-smi clocks.sm"
 
 
-def lane_steps(tokens: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """Steps ``decode_turbo``'s kernel takes per lane by its pairing rule (a
-    step is one token, or two when both are literals), leaving out its rare
+def lane_steps(tokens: torch.Tensor, count: torch.Tensor,
+               match_bit: int) -> torch.Tensor:
+    """Steps a decode kernel takes per lane by its pairing rule (a step is
+    one token, or two when both are literals), leaving out its rare
     one-token cases, so a lower estimate."""
-    from zlibes_tpu_torch.ops import turbo_kernel as tk
-
     T = tokens.shape[0]
     steps = torch.zeros_like(count)
     open_lit = torch.zeros_like(count, dtype=torch.bool)
     for t in range(T):
         valid = count > t
-        lit = valid & ((tokens[t] & tk.TOK_MATCH_BIT) == 0)
+        lit = valid & ((tokens[t] & match_bit) == 0)
         second = lit & open_lit
         steps += (valid & ~second).to(steps.dtype)
         open_lit = lit & ~second
     return steps
+
+
+def lane_report(name: str, record: dict, tokens: torch.Tensor,
+                counts: torch.Tensor, match_bit: int, dec_ms: float,
+                card: str) -> None:
+    """A decode kernel is bound by its longest lane: adds that lane's and
+    the mean lane's tokens and steps and the device cycles each costs to
+    ``record`` and prints them."""
+    mhz, clock_src = sm_clock_mhz()
+    counts = counts.long()
+    steps = lane_steps(tokens, counts, match_bit)
+    cycles = dec_ms * 1e-3 * mhz * 1e6
+    # the longest lane of each warp of 32 lanes, which the warp waits for
+    padded = steps.new_zeros(-(-steps.numel() // 32) * 32)
+    padded[: steps.numel()] = steps
+    warp_steps = padded.reshape(-1, 32).max(dim=1).values.float()
+    record.update(
+        longest_lane_tokens=int(counts.max()),
+        mean_lane_tokens=float(counts.float().mean()),
+        longest_lane_steps=int(steps.max()),
+        mean_lane_steps=float(steps.float().mean()),
+        mean_warp_longest_steps=float(warp_steps.mean()), sm_mhz=mhz,
+        cycles_per_token=cycles / int(counts.max()),
+        cycles_per_step=cycles / int(steps.max()))
+    r = record
+    print(f"{name} lanes: longest {r['longest_lane_tokens']} tokens, "
+          f"mean {r['mean_lane_tokens']:.2f}, most steps a lane "
+          f"{r['longest_lane_steps']} (two literals a step; mean "
+          f"{r['mean_lane_steps']:.2f}, mean over warps of the longest "
+          f"{r['mean_warp_longest_steps']:.2f}); device "
+          f"{dec_ms:.4f} ms at {mhz:.0f} MHz ({clock_src}, read after the "
+          f"traced run) = {cycles:.0f} cycles -> "
+          f"{r['cycles_per_token']:.1f} cycles a token of the longest lane, "
+          f"{r['cycles_per_step']:.1f} a step {card}")
+
+
+def hold_decode(name: str, got: tuple, want: tuple, T: int) -> int:
+    """Assert that a decode kernel's (tokens[, starts], meta) equal the
+    plain version's: meta everywhere, tokens and starts where emitted.
+    Returns the largest absolute difference (0)."""
+    meta, meta_p = got[-1], want[-1]
+    emitted = (torch.arange(T, device=meta.device)[:, None]
+               < meta_p[0][None, :])
+    assert torch.equal(meta, meta_p), f"{name}: meta != plain"
+    err = max_abs_err(meta, meta_p)
+    for part, a, b in zip(("tokens", "starts"), got[:-1], want[:-1]):
+        assert torch.equal(a[emitted], b[emitted]), f"{name}: {part} != plain"
+        err = max(err, max_abs_err(a[emitted], b[emitted]))
+    return err
+
+
+def lane_windows_device_ms(words, start_w, width: int, card: str) -> float:
+    """Device ms of one stand-alone ``lane_windows`` launch (no pipeline
+    launches it, so it is traced on its own)."""
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    ms = profile_pipeline(lambda: tk.lane_windows(words, start_w, width),
+                          card, runs=20, quiet=True)
+    return device_time(ms, "lane_windows")
 
 
 def turbo_other_inputs(plan, win: torch.Tensor, records: dict,
@@ -250,15 +321,8 @@ def turbo_other_inputs(plan, win: torch.Tensor, records: dict,
     for name, (w, b0, eb, T) in cases.items():
         tokens, meta = tk.decode_turbo(w, b0, eb, plan.lt, plan.dt, T)
         torch.cuda.synchronize()
-        tokens_p, meta_p = tk.decode_turbo_plain(w, b0, eb, plan.lt, plan.dt,
-                                                 T)
-        emitted = (torch.arange(T, device="cuda")[:, None]
-                   < meta_p[0][None, :])
-        assert torch.equal(meta, meta_p), f"decode_turbo meta != plain ({name})"
-        assert torch.equal(tokens[emitted], tokens_p[emitted]), \
-            f"decode_turbo tokens != plain ({name})"
-        err = max(max_abs_err(meta, meta_p),
-                  max_abs_err(tokens[emitted], tokens_p[emitted]))
+        want = tk.decode_turbo_plain(w, b0, eb, plan.lt, plan.dt, T)
+        err = hold_decode(f"decode_turbo on {name}", (tokens, meta), want, T)
         records["decode_turbo"]["max_abs_err"] = max(
             records["decode_turbo"]["max_abs_err"], err)
         print(f"kernel decode_turbo on {name}: exact vs plain (max_abs_err "
@@ -284,6 +348,39 @@ def turbo_other_inputs(plan, win: torch.Tensor, records: dict,
         print(f"kernel resolve_turbo on random tokens, unsorted starts and "
               f"self-copies, C={C_rows}: exact vs plain (max_abs_err {err}) "
               f"{card}")
+
+
+def wide_other_inputs(plan, win: torch.Tensor, record: dict,
+                      card: str) -> None:
+    """``decode_wide`` against its plain version on what the fixture does
+    not hold: random bits under the fixture's tables (errors, overruns,
+    codes past the kernel's one-level roots, distances before the block,
+    reads past the window), with room for every token and with ``T`` cut to
+    5, and the fixture's lanes with ``T`` cut to 16 (lanes stopped while
+    active).  Adds the error maxima to ``record``."""
+    from test_torch_cuda import garbage_wide_lanes
+    from zlibes_tpu_torch.ops import wide_kernel as wk
+
+    garbage = tuple(t.cuda() for t in garbage_wide_lanes(plan.Cb))
+    fixture = (win, plan.bit0, plan.endb, plan.base)
+    cases = {
+        f"{plan.Cb * 128} lanes of random bits": (garbage, 128,
+                                                  wk.MAX_TOKENS),
+        "random bits at T=5": (garbage, 128, 5),
+        "the fixture at T=16": (fixture, plan.LPB, 16),
+    }
+    for name, (lanes, LPB, T) in cases.items():
+        got = wk.decode_wide(*lanes, plan.lt, plan.dt, LPB=LPB, T=T)
+        torch.cuda.synchronize()
+        want = wk.decode_wide_plain(*lanes, plan.lt, plan.dt, LPB, T)
+        err = hold_decode(f"decode_wide on {name}", got, want, T)
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        meta = got[-1]
+        print(f"kernel decode_wide on {name}: exact vs plain (max_abs_err "
+              f"{err}); {int(meta[2].sum())} lanes with an error, "
+              f"{int(meta[3].sum())} still active, {int(meta[0].sum())} "
+              f"tokens {card}")
+    assert int(meta[3].sum()) > 0, "T=16 cut no lane"
 
 
 def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
@@ -331,34 +428,36 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
           f"{lw['wide_plain_ms']:.4f} ms (median of 10), shape "
           f"{list(win.shape)} {card}")
 
-    dec_args = (win, plan.bit0, plan.endb, plan.base, plan.lt, plan.dt)
-    tokens, starts, meta = wk.decode_wide(*dec_args, LPB=plan.LPB)
+    # the form the pipeline calls: the kernel stages the windows itself from
+    # the stream's words; held against the plain decode of the plain windows
+    lane_args = (plan.bit0, plan.endb, plan.base, plan.lt, plan.dt)
+    src = (plan.words, plan.start_w)
+
+    def decode(source=src):
+        return wk.decode_wide(source, *lane_args, LPB=plan.LPB, SW=plan.SW)
+
+    tokens, starts, meta = decode()
     torch.cuda.synchronize()
-    tokens_p, starts_p, meta_p = wk.decode_wide_plain(*dec_args, plan.LPB)
-    emitted = (torch.arange(plan.T, device="cuda")[:, None]
-               < meta_p[0][None, :])
-    assert torch.equal(meta, meta_p), "decode_wide meta != plain"
-    assert torch.equal(tokens[emitted], tokens_p[emitted]), \
-        "decode_wide tokens != plain"
-    assert torch.equal(starts[emitted], starts_p[emitted]), \
-        "decode_wide starts != plain"
+    want = wk.decode_wide_plain(win_p, *lane_args, plan.LPB)
+    err = hold_decode("decode_wide((words, start_w))",
+                      (tokens, starts, meta), want, plan.T)
+    # and given the windows (the stand-alone kernel's), as the tests call it
+    err = max(err, hold_decode("decode_wide(win)", decode(win), want, plan.T))
     plan.check_meta(meta[:4].cpu().numpy())
     records["decode_wide"] = dict(
-        replaces=f"{WIDE_SRC}:388",
-        max_abs_err=max(max_abs_err(meta, meta_p),
-                        max_abs_err(tokens[emitted], tokens_p[emitted]),
-                        max_abs_err(starts[emitted], starts_p[emitted])),
-        ms=cuda_ms(lambda: wk.decode_wide(*dec_args, LPB=plan.LPB)),
-        plain_ms=cuda_ms(lambda: wk.decode_wide_plain(*dec_args, plan.LPB),
-                         runs=3, warmup=1),
+        replaces=f"{WIDE_SRC}:388", max_abs_err=err, ms=cuda_ms(decode),
+        plain_ms=cuda_ms(lambda: wk.decode_wide_plain(
+            tk.lane_windows_plain(*src, plan.SW), *lane_args, plan.LPB),
+            runs=3, warmup=1),
         shape=list(tokens.shape), tokens=int(meta[0].sum()),
         plain_runs=3)
-    # written: the emitted tokens and starts and the meta rows; ~80
-    # operations a token (bit fetch, two two-level lookups, the checks)
+    # read: the stream's words, the per-lane arrays and the tables; written:
+    # the emitted tokens and starts and the meta rows; ~80 operations a token
+    # (bit fetch, two table lookups, the checks)
     n_tok = records["decode_wide"]["tokens"]
     records["decode_wide"].update(bound(
-        nbytes(win, plan.bit0, plan.endb, plan.base, plan.lt, plan.dt, meta)
-        + 2 * 4 * n_tok, 80 * n_tok))
+        nbytes(*src, *lane_args, meta) + 2 * 4 * n_tok, 80 * n_tok))
+    wide_other_inputs(plan, win, records["decode_wide"], card)
 
     toks, sts = wd._glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
     rows = wk.resolve_wide(toks, sts)
@@ -394,8 +493,7 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     assert out == corpus, "wide inflate(device='cuda') output != corpus"
     print(f"wide inflate(device='cuda'): {len(out)} B byte-exact, "
           f"Adler-32 verified on the device; launches {launches}")
-    assert launches == {"lane_windows": 1, "decode_wide": 1,
-                        "resolve_wide": 1}, launches
+    assert launches == {"decode_wide": 1, "resolve_wide": 1}, launches
     for start, length in [(0, 100), (131070, 300), (400000, 80000)]:
         got = zlibes_tpu_torch.inflate_range(comp, index, start, length,
                                              device="cuda")
@@ -425,8 +523,8 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     n = len(corpus)
     print(f"wide host: WidePlan.build (tables, lane spans, copies to the "
           f"card) {plan_s * 1e3:.2f} ms, median of 5 {card}")
-    print(f"wide device pipeline (plan prebuilt, stream on device; windows + "
-          f"decode + glue + resolve + adler32): {pipe_ms:.4f} ms -> "
+    print(f"wide device pipeline (plan prebuilt, stream on device; decode "
+          f"with its windows + glue + resolve + adler32): {pipe_ms:.4f} ms -> "
           f"{n / pipe_ms / 1e6:.3f} GB/s of output, median of 20 {card}")
     print(f"wide whole inflate() call, host to host: {call_s * 1e3:.2f} ms -> "
           f"{n / call_s / 1e9:.3f} GB/s, median of 5 {card}")
@@ -441,6 +539,10 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
         print(f"wide untraced device pipeline: device busy {busy:.4f} of "
               f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
               f"{card}")
+    lane_report("decode_wide", records["decode_wide"], tokens, meta[0],
+                wk.TOK_MATCH_BIT, device_time(device_ms, "decode_wide"), card)
+    lw["wide_device_ms"] = lane_windows_device_ms(plan.words, plan.start_w,
+                                                  plan.SW, card)
 
     # -- corruption probe: a flipped byte raises or lands in a bit gap; a
     # distance reaching before its block's start raises CorruptError even
@@ -707,11 +809,29 @@ def main() -> None:
     t0 = time.perf_counter()
     assert native.available(), "the port's native runtime did not build"
     raw = (GOLDEN / "raw.bin").read_bytes()
-    assert zlibes_tpu_torch.inflate(zlib.compress(raw, 6)) == raw
+    foreign = zlib.compress(raw, 6)
+    assert zlibes_tpu_torch.inflate(foreign) == raw
     print(f"native: {time.perf_counter() - t0:.2f} s to build "
           f"zlibes_tpu_torch/runtime/zscan.cc into "
           f"{native.BUILD_DIR.relative_to(ROOT)} and inflate a CPython "
           f"level-6 stream of {len(raw)} B without an index")
+    # and with the index build_index makes for it: chained blocks, which no
+    # kernel takes, so the call decodes on the host and checks the index
+    f_index = zlibes_tpu_torch.build_index(foreign)
+    assert not f_index.self_contained and not f_index.wide
+    tk.LAUNCHES.clear()
+    assert zlibes_tpu_torch.inflate(foreign, index=f_index) == raw
+    assert not tk.LAUNCHES, dict(tk.LAUNCHES)
+    other = zlib.compress(raw[:-1], 6)
+    try:
+        zlibes_tpu_torch.inflate(other, index=f_index)
+    except CorruptError as exc:
+        print(f"native: inflate(index=build_index(stream)) of the same "
+              f"stream ({len(f_index.blocks)} chained blocks, "
+              f"{f_index.anchor_bit.size} anchors) byte-exact on the host; "
+              f"the index on another stream: CorruptError ({exc})")
+    else:
+        raise AssertionError("an index of another stream was accepted")
 
     # -- 3. the committed fixture and the corpus it encodes
     comp = (GOLDEN / "turbo_bench.zz").read_bytes()
@@ -740,28 +860,32 @@ def main() -> None:
         # ~4 operations an output word (index, two compares, select)
         **bound(nbytes(plan.words, plan.start_w, win), 4 * win.numel()))
 
-    dec_args = (win, plan.bit0, plan.endb, plan.lt, plan.dt)
-    tokens, meta = tk.decode_turbo(*dec_args)
+    # the form the pipeline calls: the kernel stages the windows itself from
+    # the stream's words; held against the plain decode of the plain windows
+    lane_args = (plan.bit0, plan.endb, plan.lt, plan.dt)
+    src = (plan.words, plan.start_w)
+    tokens, meta = tk.decode_turbo(src, *lane_args)
     torch.cuda.synchronize()
-    tokens_p, meta_p = tk.decode_turbo_plain(*dec_args)
-    emitted = (torch.arange(plan.T, device="cuda")[:, None]
-               < meta_p[0][None, :])
-    assert torch.equal(meta, meta_p), "decode_turbo meta != plain"
-    assert torch.equal(tokens[emitted], tokens_p[emitted]), \
-        "decode_turbo tokens != plain"
+    tokens_p, meta_p = tk.decode_turbo_plain(win_p, *lane_args)
+    err = hold_decode("decode_turbo((words, start_w))", (tokens, meta),
+                      (tokens_p, meta_p), plan.T)
+    # and given the windows (the stand-alone kernel's), as the tests call it
+    err = max(err, hold_decode("decode_turbo(win)",
+                               tk.decode_turbo(win, *lane_args),
+                               (tokens_p, meta_p), plan.T))
     plan.check_meta(meta.cpu().numpy())
     records["decode_turbo"] = dict(
-        replaces=f"{TURBO_SRC}:496",
-        max_abs_err=max(max_abs_err(meta, meta_p),
-                        max_abs_err(tokens[emitted], tokens_p[emitted])),
-        ms=cuda_ms(lambda: tk.decode_turbo(*dec_args)),
-        plain_ms=cuda_ms(lambda: tk.decode_turbo_plain(*dec_args), runs=10),
+        replaces=f"{TURBO_SRC}:496", max_abs_err=err,
+        ms=cuda_ms(lambda: tk.decode_turbo(src, *lane_args)),
+        plain_ms=cuda_ms(lambda: tk.decode_turbo_plain(
+            tk.lane_windows_plain(*src), *lane_args), runs=10),
         shape=list(tokens.shape), tokens=int(meta[0].sum()))
-    # written: the emitted tokens and the meta rows; ~60 operations a token
-    # (bit fetch, two table lookups, the checks)
+    # read: the stream's words and the per-lane arrays; written: the emitted
+    # tokens and the meta rows; ~60 operations a token (bit fetch, two table
+    # lookups, the checks)
     n_tok = records["decode_turbo"]["tokens"]
     records["decode_turbo"].update(bound(
-        nbytes(*dec_args, meta) + 4 * n_tok, 60 * n_tok))
+        nbytes(*src, *lane_args, meta) + 4 * n_tok, 60 * n_tok))
 
     toks16, starts16 = tb._glue_tokens(tokens, meta[0], plan.base, plan.C_pad)
     rows = tk.resolve_turbo(toks16, starts16)
@@ -797,8 +921,7 @@ def main() -> None:
     assert out == corpus, "inflate(device='cuda') output != corpus"
     print(f"inflate(device='cuda'): {len(out)} B byte-exact, "
           f"Adler-32 verified on the device; launches {launches}")
-    for name in records:
-        assert launches.get(name, 0) >= 1, f"{name} not launched by inflate"
+    assert launches == {"decode_turbo": 1, "resolve_turbo": 1}, launches
 
     trailer = int.from_bytes(comp[-4:], "big")
 
@@ -815,40 +938,24 @@ def main() -> None:
     n = len(corpus)
     print(f"host: TurboPlan.build (tables, lane spans, copies to the card) "
           f"{plan_s * 1e3:.2f} ms, median of 5 {card}")
-    print(f"device pipeline (plan prebuilt, stream on device; windows + "
-          f"decode + glue + resolve + adler32): {pipe_ms:.4f} ms -> "
+    print(f"device pipeline (plan prebuilt, stream on device; decode with "
+          f"its windows + glue + resolve + adler32): {pipe_ms:.4f} ms -> "
           f"{n / pipe_ms / 1e6:.3f} GB/s of output, median of 20 {card}")
     print(f"whole inflate() call, host to host: {call_s * 1e3:.2f} ms -> "
           f"{n / call_s / 1e9:.3f} GB/s, median of 5 {card}")
     print(f"CPython zlib.decompress, one core: {zlib_s * 1e3:.2f} ms -> "
           f"{n / zlib_s / 1e9:.3f} GB/s, median of 5 (host CPU beside {card})")
     device_ms = profile_pipeline(device_pipeline, card)
-    mhz, clock_src = sm_clock_mhz()
     if device_ms:
         busy = sum(device_ms.values())
         print(f"untraced device pipeline: device busy {busy:.4f} of "
               f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
               f"(host launch-bound where high) {card}")
-    # decode_turbo is bound by its longest lane: tokens and steps there,
-    # and the device cycles each costs
-    counts = meta[0].long()
-    steps = lane_steps(tokens, counts)
-    dec_ms = device_time(device_ms, "decode_turbo")
-    cycles = dec_ms * 1e-3 * mhz * 1e6
-    records["decode_turbo"].update(
-        longest_lane_tokens=int(counts.max()),
-        mean_lane_tokens=float(counts.float().mean()),
-        longest_lane_steps=int(steps.max()), sm_mhz=mhz,
-        cycles_per_token=cycles / int(counts.max()),
-        cycles_per_step=cycles / int(steps.max()))
-    r = records["decode_turbo"]
-    print(f"decode_turbo lanes: longest {r['longest_lane_tokens']} tokens, "
-          f"mean {r['mean_lane_tokens']:.2f}, most steps a lane "
-          f"{r['longest_lane_steps']} (two literals a step); device "
-          f"{dec_ms:.4f} ms at {mhz:.0f} MHz ({clock_src}, read after the "
-          f"traced run) = {cycles:.0f} cycles -> "
-          f"{r['cycles_per_token']:.1f} cycles a token of the longest lane, "
-          f"{r['cycles_per_step']:.1f} a step {card}")
+    lane_report("decode_turbo", records["decode_turbo"], tokens, meta[0],
+                tk.TOK_MATCH_BIT, device_time(device_ms, "decode_turbo"),
+                card)
+    records["lane_windows"]["device_ms"] = lane_windows_device_ms(
+        plan.words, plan.start_w, tk.STREAM_WORDS, card)
 
     # -- 6. corruption probe
     rng = np.random.default_rng(3)
@@ -868,6 +975,11 @@ def main() -> None:
             print(f"corruption at byte {pos}: in a bit gap, output unchanged")
     assert raised >= 4, f"only {raised} of 6 corruptions detected"
 
+    records["lane_windows"]["note"] = (
+        "launched by no path: decode_turbo and decode_wide stage the same "
+        "windows in shared memory (stage_windows, "
+        "zlibes_tpu_torch/csrc/lane_decode.cuh); its numbers are the "
+        "stand-alone kernel's at widths 96 and SW")
     wide_launches, wide_device_ms = wide_phase(corpus, card, records)
     for name, n in wide_launches.items():
         launches[name] = launches.get(name, 0) + n
@@ -885,8 +997,6 @@ def main() -> None:
 
     wide = ("decode_wide", "resolve_wide")
     encode = ("select_turbo", "encode_fields")
-    records["lane_windows"]["wide_device_ms"] = device_time(wide_device_ms,
-                                                       "lane_windows")
     entries = []
     for name, r in records.items():
         group = ("wide" if name in wide else
@@ -894,20 +1004,20 @@ def main() -> None:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"zlibes_tpu_torch/csrc/{group}_kernels.cu",
-            "replaces": r["replaces"], "launches": launches[name],
+            "replaces": r["replaces"], "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "bytes": r["bytes"], "ops": r["ops"],
-            "device_ms": device_time({"wide": wide_device_ms,
-                                 "encode": enc_device_ms}.get(group,
-                                                              device_ms),
-                                name, per_call.get(name, 1))})
+            "device_ms": r["device_ms"] if "device_ms" in r else device_time(
+                {"wide": wide_device_ms, "encode": enc_device_ms}.get(
+                    group, device_ms), name, per_call.get(name, 1))})
         entries[-1].update({k: r[k] for k in (
             "wide_ms", "wide_plain_ms", "wide_device_ms", "wide_bound_ms",
             "tokens", "longest_lane_tokens", "mean_lane_tokens",
-            "longest_lane_steps", "sm_mhz", "cycles_per_token",
-            "cycles_per_step") if k in r})
+            "longest_lane_steps", "mean_lane_steps",
+            "mean_warp_longest_steps", "sm_mhz", "cycles_per_token",
+            "cycles_per_step", "note") if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Hand-made inputs that pin the contracts of ``resolve_wide``,
-``select_turbo``, ``resolve_turbo`` and ``decode_turbo``, with the bytes
+``select_turbo``, ``resolve_turbo``, ``decode_turbo`` and ``decode_wide``,
+with the bytes
 and tokens they must give, and tests of the port's plain versions against
 them.
 
@@ -45,6 +46,23 @@ non-zero literals but for a few matches:
   * ``cut_by_T``     a lane with more tokens than ``T`` stops after ``T``,
     still active, its position after the T-th token;
   * ``padded_lane``  ``bit0 == endb == 0``: no token, no error, end bit 0.
+
+``decode_wide``: one block row of 256 lanes under codes of 1 to 15 bits
+(``DEEP_LENGTHS``), one lane a case, the rare paths of a kernel that walks
+two literals a step from one-level tables of fewer than 15 bits:
+
+  * ``code_15_bits``         a literal whose code has 15 bits;
+  * ``token_32_bits``        a length of 15 + 5 bits with a distance of
+    15 + 9 bits: one token of 44 bits;
+  * ``pair_at_last_slots``   two literals in the last two slots of ``T``;
+  * ``pair_cut_by_endb``     two literals of which the second ends past the
+    lane's end: the first is kept, the second is an error that does not
+    move the position;
+  * ``pair_ends_at_endb``    two literals that end exactly at the lane's end;
+  * ``before_block``         a distance before the block's start as the
+    second token, behind a literal;
+  * ``eob_behind_literal``   end-of-block behind a literal, before the
+    lane's end: the position moves past it and the lane stops.
 """
 from __future__ import annotations
 
@@ -386,3 +404,104 @@ def test_decode_turbo_plain_uncut_lane_ends_inactive():
                                      (win, bit0, endb, lt, dt)))
     assert list(meta[:, 0].numpy()) == [7, int(endb[0]), 0, 0]
     assert int(endb[0]) == 8 + 12 + 5 * 8 + 7
+
+
+# ---------------------------------------------------------------------------
+# decode_wide
+
+def _deep_lengths():
+    """Complete codes with lengths 1, 2, ..., 14, 15, 15: litlen over a few
+    literals, end-of-block, length symbols 257 (3, no extra bits) and 284
+    (227-257, five extra bits); distances over symbols 0-14 and 20 (1025-
+    1536, nine extra bits)."""
+    ll = np.zeros(288, np.int64)
+    for i, sym in enumerate([97, 256, 98, 99, 100, 101, 102, 103, 104, 105,
+                             106, 107, 257, 108, 200, 284]):
+        ll[sym] = min(i + 1, 15)
+    dl = np.zeros(30, np.int64)
+    for i, sym in enumerate([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 20,
+                             14]):
+        dl[sym] = min(i + 1, 15)
+    return ll, dl
+
+
+DEEP_LENGTHS = _deep_lengths()
+WIDE_LPB = 256
+WIDE_SW = 8
+_M = wk.TOK_MATCH_BIT
+_SH = wk.TOK_DIST_SHIFT
+# case -> (lane, tokens, end bit of the lane or None for the end of its
+# end-of-block, T, wanted meta column, wanted tokens, wanted starts)
+_WIDE_DECODE = {
+    "code_15_bits": (0, [97, 200, 98], None, wk.MAX_TOKENS,
+                     [3, 1 + 15 + 3 + 2, 0, 0, 98, 2], [97, 200, 98],
+                     [0, 1, 2]),
+    # lane 16 starts 2 KiB into its block: a distance of 1030 is allowed
+    "token_32_bits": (16, [(230, 1030), 97], None, wk.MAX_TOKENS,
+                      [2, 44 + 1 + 2, 0, 0, 97, 230],
+                      [230 | (1030 << _SH) | _M, 97], [0, 230]),
+    # 1 + (13 + 1) + 3 + 4 bits; cut while active
+    "pair_at_last_slots": (1, [97, (3, 1), 98, 99, 100, 101], None, 4,
+                           [4, 22, 0, 1, 99, 5],
+                           [97, 3 | (1 << _SH) | _M, 98, 99], [0, 1, 4, 5]),
+    "pair_cut_by_endb": (2, [98, 99], 3 + 2, wk.MAX_TOKENS,
+                         [1, 3, 1, 0, 98, 0], [98], [0]),
+    "pair_ends_at_endb": (3, [98, 99], 3 + 4, wk.MAX_TOKENS,
+                          [2, 7, 0, 0, 99, 1], [98, 99], [0, 1]),
+    "before_block": (0, [97, (3, 2), 98], None, wk.MAX_TOKENS,
+                     [1, 1, 1, 0, 97, 0], [97], [0]),
+    "eob_behind_literal": (5, [97, 256, 98, 98, 98], None, wk.MAX_TOKENS,
+                           [1, 1 + 2, 0, 0, 97, 0], [97], [0]),
+}
+WIDE_DECODE_CASES = tuple(_WIDE_DECODE)
+
+
+def wide_decode_case(case: str):
+    """((win (256, 8), bit0, endb, base (256,), lt (1, LL_W), dt (1, D_W))
+    int32 arrays, LPB, T) of ``case``: its lane holds the case, every other
+    lane is empty."""
+    lane, tokens, end, T = _WIDE_DECODE[case][:4]
+    win, endb = fixed_lane(tokens, lane, lanes=WIDE_LPB, sw=WIDE_SW,
+                           lengths=DEEP_LENGTHS)
+    if end is not None:
+        endb[lane] = end
+    lt, dt = wk.wide_decode_tables(*DEEP_LENGTHS)
+    zero = np.zeros(WIDE_LPB, np.int32)
+    return (win, zero, endb, zero.copy(), lt[None], dt[None]), WIDE_LPB, T
+
+
+def check_wide_decode_case(case: str, tokens: np.ndarray, starts: np.ndarray,
+                           meta: np.ndarray) -> None:
+    """Assert that (tokens, starts (T, 256), meta (6, 256)) hold ``case``'s
+    lane as the contract fixes it, and every other lane as an empty one."""
+    lane, _, _, _, want_meta, want_tokens, want_starts = _WIDE_DECODE[case]
+    assert list(meta[:, lane]) == want_meta
+    n = len(want_tokens)
+    assert list(tokens[:n, lane]) == want_tokens
+    assert list(starts[:n, lane]) == want_starts
+    assert not np.delete(meta, lane, axis=1).any()
+
+
+@pytest.mark.parametrize("case", WIDE_DECODE_CASES)
+def test_decode_wide_plain_gives_the_cases_tokens(case):
+    args, LPB, T = wide_decode_case(case)
+    tokens, starts, meta = wk.decode_wide(
+        *(torch.from_numpy(a) for a in args), LPB=LPB, T=T)
+    assert tuple(tokens.shape) == tuple(starts.shape) == (T, WIDE_LPB)
+    assert tuple(meta.shape) == (6, WIDE_LPB)
+    check_wide_decode_case(case, tokens.numpy(), starts.numpy(), meta.numpy())
+
+
+def test_wide_decode_cases_hold_their_features():
+    """The deep tables send 10- to 15-bit litlen codes and 7- to 15-bit
+    distance codes through sub-tables, and the 44-bit token is one."""
+    lt, dt = wk.wide_decode_tables(*DEEP_LENGTHS)
+    assert (lt[: wk.LL_ROOT] & wk._SUB_FLAG).any()
+    assert (dt[: wk.D_ROOT] & wk._SUB_FLAG).any()
+    ll, dl = DEEP_LENGTHS
+    assert ll[200] == ll[284] == dl[20] == 15
+    i = int(C.LENGTH_TO_SYMBOL[230]) - 257
+    d = int(C.DIST_TO_SYMBOL[1030])
+    assert (i + 257, d) == (284, 20)
+    assert (int(ll[284]) + int(C.LENGTH_EXTRA_BITS[i]) + int(dl[20])
+            + int(C.DIST_EXTRA_BITS[d])) == 44

@@ -80,6 +80,46 @@ def test_decode_kernel_matches_plain(plans):
     p.check_meta(meta.cpu().numpy())
 
 
+def _stream_tail_lanes(p, width):
+    """Lanes whose windows leave the stream: (start_w, bit0, endb) int32 on
+    the card, first words before the stream's start, around its end and
+    past it."""
+    nw = p.words.numel()
+    start_w = torch.tensor([-5, -width - 3, nw - 3, nw - width + 1, nw,
+                            nw + 7, 0], dtype=torch.int32, device="cuda")
+    bit0 = torch.arange(start_w.numel(), dtype=torch.int32, device="cuda")
+    endb = bit0 + (width - 4) * 32
+    return start_w, bit0, endb
+
+
+def test_decode_kernel_stages_its_windows_from_the_stream(plans):
+    """``decode_turbo((words, start_w), ...)`` equals the plain decode of
+    the plain windows: on the fixture, and on lanes whose windows leave the
+    stream at either end (zeros there)."""
+    _, p = plans
+    tok_k, meta_k = tk.decode_turbo((p.words, p.start_w), p.bit0, p.endb,
+                                    p.lt, p.dt)
+    torch.cuda.synchronize()
+    win = tk.lane_windows_plain(p.words, p.start_w)
+    tok_p, meta_p = tk.decode_turbo_plain(win, p.bit0, p.endb, p.lt, p.dt)
+    assert _same(meta_k, meta_p)
+    emitted = (torch.arange(tok_k.shape[0], device="cuda")[:, None]
+               < meta_p[0][None, :])
+    assert _same(tok_k[emitted], tok_p[emitted])
+    p.check_meta(meta_k.cpu().numpy())
+    start_w, bit0, endb = _stream_tail_lanes(p, tk.STREAM_WORDS)
+    tok_k, meta_k = tk.decode_turbo((p.words, start_w), bit0, endb, p.lt,
+                                    p.dt)
+    torch.cuda.synchronize()
+    win = tk.lane_windows_plain(p.words, start_w)
+    assert not win[4:6].any() and win[0, 5:].any()
+    tok_p, meta_p = tk.decode_turbo_plain(win, bit0, endb, p.lt, p.dt)
+    assert _same(meta_k, meta_p)
+    emitted = (torch.arange(tok_k.shape[0], device="cuda")[:, None]
+               < meta_p[0][None, :])
+    assert _same(tok_k[emitted], tok_p[emitted])
+
+
 def garbage_lanes(L: int, seed: int = 0):
     """Random windows with random spans: (win (L, 96), bit0, endb) int32 on
     the CPU."""
@@ -207,8 +247,7 @@ def test_inflate_on_card_counts_launches(fixture_stream):
     tk.LAUNCHES.clear()
     out = zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
     assert out == zlib.decompress(comp)
-    assert all(tk.LAUNCHES[k] == 1 for k in
-               ("lane_windows", "decode_turbo", "resolve_turbo"))
+    assert dict(tk.LAUNCHES) == {"decode_turbo": 1, "resolve_turbo": 1}
 
 
 def test_wrapper_rejects_mixed_devices(plans):
@@ -256,12 +295,14 @@ def test_lane_windows_kernel_matches_plain_at_wide_width(wide_plan):
     assert _same(got, tk.lane_windows_plain(p.words, p.start_w, p.SW))
 
 
-def _decode_wide_both(win, bit0, endb, base, lt, dt, LPB):
+def _decode_wide_both(win, bit0, endb, base, lt, dt, LPB,
+                      T=wk.MAX_TOKENS):
     tok_k, st_k, meta_k = wk.decode_wide(win, bit0, endb, base, lt, dt,
-                                         LPB=LPB)
+                                         LPB=LPB, T=T)
     torch.cuda.synchronize()
     tok_p, st_p, meta_p = wk.decode_wide_plain(win, bit0, endb, base, lt, dt,
-                                               LPB)
+                                               LPB, T)
+    assert tuple(tok_k.shape) == tuple(st_k.shape) == (T, win.shape[0])
     assert _same(meta_k, meta_p)
     emitted = (torch.arange(tok_k.shape[0], device=win.device)[:, None]
                < meta_p[0][None, :])
@@ -278,22 +319,110 @@ def test_decode_wide_kernel_matches_plain(wide_plan):
     p.check_meta(meta.cpu().numpy())
 
 
-def test_decode_wide_kernel_matches_plain_on_garbage(wide_plan):
-    """Random windows under the fixture's tables: error, end-of-block,
-    distance and overrun paths agree too."""
+def test_decode_wide_kernel_stages_its_windows_from_the_stream(wide_plan):
+    """``decode_wide((words, start_w), ..., SW=)`` equals the plain decode
+    of the plain windows: on the fixture, and on a row of lanes whose
+    windows leave the stream at either end (zeros there)."""
     p = wide_plan
-    g = torch.Generator().manual_seed(0)
-    LPB, SW = 128, 40
-    L = p.Cb * LPB
+    tok_k, st_k, meta_k = wk.decode_wide((p.words, p.start_w), p.bit0,
+                                         p.endb, p.base, p.lt, p.dt,
+                                         LPB=p.LPB, SW=p.SW)
+    torch.cuda.synchronize()
+    win = tk.lane_windows_plain(p.words, p.start_w, p.SW)
+    tok_p, st_p, meta_p = wk.decode_wide_plain(win, p.bit0, p.endb, p.base,
+                                               p.lt, p.dt, p.LPB)
+    assert _same(meta_k, meta_p)
+    emitted = (torch.arange(tok_k.shape[0], device="cuda")[:, None]
+               < meta_p[0][None, :])
+    assert _same(tok_k[emitted], tok_p[emitted])
+    assert _same(st_k[emitted], st_p[emitted])
+    p.check_meta(meta_k.cpu().numpy())
+    some, bit0, endb = _stream_tail_lanes(p, p.SW)
+    start_w = torch.zeros(128, dtype=torch.int32, device="cuda")
+    start_w[: some.numel()] = some
+    zero = torch.zeros_like(start_w)
+    b0, eb = zero.clone(), zero.clone()
+    b0[: some.numel()], eb[: some.numel()] = bit0, endb
+    tok_k, st_k, meta_k = wk.decode_wide((p.words, start_w), b0, eb, zero,
+                                         p.lt[:1], p.dt[:1], LPB=128,
+                                         SW=p.SW)
+    torch.cuda.synchronize()
+    win = tk.lane_windows_plain(p.words, start_w, p.SW)
+    tok_p, st_p, meta_p = wk.decode_wide_plain(win, b0, eb, zero, p.lt[:1],
+                                               p.dt[:1], 128)
+    assert _same(meta_k, meta_p)
+    emitted = (torch.arange(tok_k.shape[0], device="cuda")[:, None]
+               < meta_p[0][None, :])
+    assert _same(tok_k[emitted], tok_p[emitted])
+    assert _same(st_k[emitted], st_p[emitted])
+
+
+def garbage_wide_lanes(Cb: int, LPB: int = 128, SW: int = 40, seed: int = 0):
+    """Random windows with random spans and first offsets: (win (Cb * LPB,
+    SW), bit0, endb, base) int32 on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    L = Cb * LPB
     win = torch.randint(-2**31, 2**31 - 1, (L, SW), generator=g,
                         dtype=torch.int64).int()
     bit0 = torch.randint(0, 32, (L,), generator=g, dtype=torch.int32)
     endb = bit0 + torch.randint(0, (SW - 3) * 32, (L,), generator=g,
                                 dtype=torch.int32)
     base = torch.randint(0, 300, (L,), generator=g, dtype=torch.int32)
-    _, _, meta = _decode_wide_both(win.cuda(), bit0.cuda(), endb.cuda(),
-                                   base.cuda(), p.lt, p.dt, LPB)
+    return win, bit0, endb, base
+
+
+@pytest.mark.parametrize("T", [wk.MAX_TOKENS, 5])
+def test_decode_wide_kernel_matches_plain_on_garbage(wide_plan, T):
+    """Random windows under the fixture's tables: error, end-of-block,
+    distance and overrun paths agree too, with room for every token and
+    with ``T`` cut to 5."""
+    p = wide_plan
+    lanes = garbage_wide_lanes(p.Cb)
+    _, _, meta = _decode_wide_both(*(t.cuda() for t in lanes), p.lt, p.dt,
+                                   128, T)
     assert meta[2].any() and (meta[2] == 0).any()
+    assert T != 5 or meta[3].any()
+
+
+def test_decode_wide_kernel_matches_plain_on_garbage_under_deep_tables():
+    """Random bits under complete codes of 1 to 15 bits: most tokens pass
+    the kernel's one-level roots."""
+    import test_torch_contract_cases as cases
+
+    lt, dt = (torch.from_numpy(x[None]).cuda()
+              for x in wk.wide_decode_tables(*cases.DEEP_LENGTHS))
+    win, bit0, endb, base = garbage_wide_lanes(1, LPB=1024, seed=7)
+    # far into the block, so that long distances are allowed there
+    _, _, meta = _decode_wide_both(win.cuda(), bit0.cuda(), endb.cuda(),
+                                   (base + 400).cuda(), lt, dt, 1024)
+    assert (meta[0] > 8).any()
+
+
+def test_decode_wide_kernel_matches_plain_when_cut_by_T(wide_plan):
+    """The fixture at T = 16: lanes with more tokens stop there, still
+    active."""
+    p = wide_plan
+    win = tk.lane_windows(p.words, p.start_w, width=p.SW)
+    _, _, meta = _decode_wide_both(win, p.bit0, p.endb, p.base, p.lt, p.dt,
+                                   p.LPB, T=16)
+    assert meta[3].any() and not meta[3].all() and not meta[2].any()
+    assert (meta[0][meta[3] == 1] == 16).all()
+
+
+@pytest.mark.parametrize("case", ["code_15_bits", "token_32_bits",
+                                  "pair_at_last_slots", "pair_cut_by_endb",
+                                  "pair_ends_at_endb", "before_block",
+                                  "eob_behind_literal"])
+def test_decode_wide_kernel_gives_the_contract_cases(case):
+    from test_torch_contract_cases import check_wide_decode_case, \
+        wide_decode_case
+
+    args, LPB, T = wide_decode_case(case)
+    tokens, starts, meta = wk.decode_wide(
+        *(torch.from_numpy(a).cuda() for a in args), LPB=LPB, T=T)
+    torch.cuda.synchronize()
+    check_wide_decode_case(case, tokens.cpu().numpy(), starts.cpu().numpy(),
+                           meta.cpu().numpy())
 
 
 @pytest.mark.parametrize("tokens,m,ok", [([(3, 1)], 0, False),
@@ -337,7 +466,8 @@ def test_resolve_wide_kernel_matches_plain_on_garbage():
 
 
 def test_wide_inflate_on_card_counts_launches(wide_stream, monkeypatch):
-    """One launch of each wide kernel, and no plain version runs."""
+    """One launch of each wide kernel, none of the stand-alone window
+    kernel, and no plain version runs."""
     comp, index, data = wide_stream
 
     def plain(*args, **kwargs):
@@ -349,8 +479,7 @@ def test_wide_inflate_on_card_counts_launches(wide_stream, monkeypatch):
     tk.LAUNCHES.clear()
     out = zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
     assert out == data
-    assert dict(tk.LAUNCHES) == {"lane_windows": 1, "decode_wide": 1,
-                                 "resolve_wide": 1}
+    assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}
 
 
 def test_wide_inflate_range_and_to_device_on_card(wide_stream):

@@ -30,33 +30,39 @@ _D_LEN = C.fixed_dist_code_lengths()
 _D_CODE = canonical_codes(_D_LEN)
 
 
-def _sym(bw: BitWriter, sym: int) -> None:
-    bw.write_code(int(_LL_CODE[sym]), int(_LL_LEN[sym]))
+def _sym(bw: BitWriter, sym: int, ll_len=_LL_LEN, ll_code=_LL_CODE) -> None:
+    assert ll_len[sym], f"litlen symbol {sym} has no code"
+    bw.write_code(int(ll_code[sym]), int(ll_len[sym]))
 
 
-def write_tokens(bw: BitWriter, tokens) -> None:
-    """Fixed-Huffman codes of ``tokens`` (no block header, no EOB)."""
+def write_tokens(bw: BitWriter, tokens, lengths=None) -> None:
+    """Huffman codes of ``tokens`` (no block header, no EOB unless the
+    tokens hold the symbol 256): the fixed codes, or the canonical codes of
+    ``lengths`` = (litlen code lengths, distance code lengths)."""
+    ll_len, d_len = lengths if lengths is not None else (_LL_LEN, _D_LEN)
+    ll_code, d_code = ((canonical_codes(ll_len), canonical_codes(d_len))
+                       if lengths is not None else (_LL_CODE, _D_CODE))
     for tok in tokens:
         if isinstance(tok, int):
-            _sym(bw, tok)
+            _sym(bw, tok, ll_len, ll_code)
             continue
         length, dist = tok
-        _sym(bw, int(C.LENGTH_TO_SYMBOL[length]))
+        _sym(bw, int(C.LENGTH_TO_SYMBOL[length]), ll_len, ll_code)
         i = int(C.LENGTH_TO_SYMBOL[length]) - 257
         bw.write_bits(int(C.LENGTH_TO_EXTRA[length]),
                       int(C.LENGTH_EXTRA_BITS[i]))
         d = int(C.DIST_TO_SYMBOL[dist])
-        bw.write_code(int(_D_CODE[d]), int(_D_LEN[d]))
+        assert d_len[d], f"distance symbol {d} has no code"
+        bw.write_code(int(d_code[d]), int(d_len[d]))
         bw.write_bits(int(C.DIST_TO_EXTRA[dist]), int(C.DIST_EXTRA_BITS[d]))
 
 
-def fixed_lane(tokens, m: int, lanes: int = 128, sw: int = 8):
+def fixed_lane(tokens, m: int, lanes: int = 128, sw: int = 8, lengths=None):
     """Lane windows (lanes, sw) int32 and end bits (lanes,) int32 where lane
-    ``m`` holds ``tokens`` and an end-of-block from bit 0, and every other
-    lane is empty."""
+    ``m`` holds ``tokens`` and an end-of-block from bit 0 (in the fixed
+    codes, or those of ``lengths``), and every other lane is empty."""
     bw = BitWriter()
-    write_tokens(bw, tokens)
-    _sym(bw, C.END_OF_BLOCK)
+    write_tokens(bw, list(tokens) + [C.END_OF_BLOCK], lengths)
     nbits = bw.bit_length
     raw = bw.getvalue()
     words = np.frombuffer(raw + bytes(-len(raw) % 4), "<i4")

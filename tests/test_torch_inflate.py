@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import zlibes_tpu
 from zlibes_tpu.codec import deflate_pipeline as dp
 from zlibes_tpu.codec import inflate_pipeline as jip
 from zlibes_tpu.config import CodecConfig
 from zlibes_tpu.ops.adler32 import adler32_device as jax_adler32
+from zlibes_tpu.runtime import native as jnative
 from zlibes_tpu.spec import errors as JE
 
 import zlibes_tpu_torch
@@ -164,28 +166,146 @@ def test_corrupt_lane_raises_corrupt_error(turbo_stream):
         zlib.decompress(bad)
 
 
-def test_non_turbo_indexes_not_ported():
-    """A generic index (neither turbo nor wide anchors), and any non-turbo
-    index on an FDICT stream, still raise, naming the ROADMAP item that
-    ports them."""
+def _generic(index):
+    """``index`` (of either package) without its turbo or wide flag: a
+    generic index of the same class."""
+    return type(index)(index.blocks, index.anchor_bit, index.anchor_out,
+                       index.anchor_block)
+
+
+@pytest.fixture(scope="module")
+def wide_stream():
     data = _data(20000)
-    comp, wide_index = dp.deflate(data, with_index=True, block_size=BS)
-    wide_index = index_from_reference(wide_index)
-    generic = StreamIndex(wide_index.blocks, wide_index.anchor_bit,
-                          wide_index.anchor_out, wide_index.anchor_block)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        zlibes_tpu_torch.inflate(comp, index=generic, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    comp, index = dp.deflate(data, with_index=True, block_size=BS)
+    return data, comp, index
+
+
+def test_non_turbo_indexes_not_ported(wide_stream, monkeypatch):
+    """What is still not ported for a generic index (neither turbo nor wide
+    anchors): the seek and the device-resident output, and, without the
+    native runtime, its whole-stream decode.  The messages say what is
+    missing."""
+    data, comp, index = wide_stream
+    generic = _generic(index_from_reference(index))
+    with pytest.raises(NotImplementedError, match="generic index"):
         zlibes_tpu_torch.inflate_range(comp, generic, 0, 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="generic index"):
         zlibes_tpu_torch.inflate_to_device(comp, generic, device="cpu")
-    zd = b"brown fox lazy dog"
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(NotImplementedError, match="native runtime"):
+        zlibes_tpu_torch.inflate(comp, index=generic, device="cpu")
+    with pytest.raises(RuntimeError, match="native runtime unavailable"):
+        zlibes_tpu_torch.build_index(comp)
+
+
+def _fdict_stream(data: bytes, zd: bytes) -> bytes:
     co = zlib.compressobj(6, zdict=zd)
-    fcomp = co.compress(data) + co.flush()
-    for index in (generic, wide_index):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            zlibes_tpu_torch.inflate(fcomp, index=index, dictionary=zd,
-                                     device="cpu")
+    return co.compress(data) + co.flush()
+
+
+def _indexed_cases():
+    """name -> (data, stream, reference index, dictionary) of the indexed
+    streams that decode on the host: the card's paths take none of them."""
+    data = _data(20000)
+    comp, wide = dp.deflate(data, with_index=True, block_size=BS)
+    generic = _generic(wide)
+    raw = (GOLDEN / "raw.bin").read_bytes()       # several chained blocks
+    foreign = zlib.compress(raw, 6)
+    zd = b"brown fox lazy dog"
+    fcomp = _fdict_stream(data, zd)
+    # an FDICT stream's deflate body starts at byte 6, not 2: its index
+    # comes from a scan at that offset
+    _, _, fgeneric, _, _ = jnative.scan(fcomp, bit_offset=48,
+                                        dict_len=len(zd))
+    fwide = type(fgeneric)(fgeneric.blocks, fgeneric.anchor_bit,
+                           fgeneric.anchor_out, fgeneric.anchor_block,
+                           fgeneric.self_contained, wide=True)
+    return {
+        "generic": (data, comp, generic, None),
+        "foreign_chained": (raw, foreign,
+                            zlibes_tpu.build_index(foreign), None),
+        "fdict_generic": (data, fcomp, fgeneric, zd),
+        "fdict_wide": (data, fcomp, fwide, zd),
+    }
+
+
+@pytest.fixture(scope="module")
+def indexed_cases():
+    return _indexed_cases()
+
+
+@pytest.mark.parametrize("case", ["generic", "foreign_chained",
+                                  "fdict_generic", "fdict_wide"])
+def test_other_indexes_decode_through_native(indexed_cases, case):
+    """A generic index, a chained index of a CPython stream and both index
+    kinds on an FDICT stream decode to the data, as in the JAX package on
+    the same inputs."""
+    data, comp, ref_index, zd = indexed_cases[case]
+    index = index_from_reference(ref_index)
+    if case == "foreign_chained":
+        assert not index.self_contained and len(index.blocks) > 1
+    if case == "fdict_wide":
+        assert index.wide
+    want = zlibes_tpu.inflate(comp, index=ref_index, dictionary=zd)
+    tk.LAUNCHES.clear()
+    got = zlibes_tpu_torch.inflate(comp, index=index, dictionary=zd,
+                                   device="cpu")
+    assert got == want == data
+    assert sum(tk.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("case", ["generic", "foreign_chained",
+                                  "fdict_generic"])
+def test_mismatched_index_raises_corrupt_error(indexed_cases, case):
+    """An index of another stream: the host decode succeeds, the index does
+    not describe it, and the port's own CorruptError says so (the JAX
+    package raises its own on the same inputs)."""
+    data, comp, ref_index, zd = indexed_cases[case]
+    other = zlib.compress(data[:-100] + b"x" * 50, 6) if zd is None \
+        else _fdict_stream(data[:-100], zd)
+    with pytest.raises(JE.CorruptError, match="index does not match"):
+        zlibes_tpu.inflate(other, index=ref_index, dictionary=zd)
+    with pytest.raises(E.CorruptError, match="index does not match"):
+        zlibes_tpu_torch.inflate(other, index=index_from_reference(ref_index),
+                                 dictionary=zd, device="cpu")
+
+
+def test_turbo_index_on_fdict_stream_is_a_header_error(turbo_stream):
+    data, comp, index = turbo_stream
+    zd = b"brown fox lazy dog"
+    with pytest.raises(E.HeaderError, match="never carry FDICT"):
+        zlibes_tpu_torch.inflate(_fdict_stream(data, zd), index=index,
+                                 dictionary=zd, device="cpu")
+
+
+def test_build_index_equals_reference():
+    """``build_index`` at its default gives the reference's index, field by
+    field; ``anchor_every`` is passed on to the scan (the reference accepts
+    it and drops it)."""
+    data = _data(60000, seed=2)
+    comp = zlib.compress(data, 6)
+    want = zlibes_tpu.build_index(comp)
+    got = zlibes_tpu_torch.build_index(comp)
+    assert isinstance(got, StreamIndex)
+    assert got.blocks == index_from_reference(want).blocks
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert (got.self_contained, got.turbo, got.wide, got.total_out) == \
+        (want.self_contained, False, False, len(data))
+    assert zlibes_tpu_torch.inflate(comp, index=got, device="cpu") == data
+    dense = zlibes_tpu_torch.build_index(bytearray(comp), anchor_every=1024)
+    assert dense.anchor_bit.size > 2 * got.anchor_bit.size
+    assert dense.blocks == got.blocks
+    assert zlibes_tpu_torch.inflate(comp, index=dense, device="cpu") == data
+
+
+def test_build_index_and_constants_are_exported():
+    from zlibes_tpu_torch.codec import api
+    from zlibes_tpu_torch.spec import constants
+
+    assert zlibes_tpu_torch.build_index is api.build_index
+    assert zlibes_tpu_torch.constants is constants
+    assert {"build_index", "constants"} <= set(zlibes_tpu_torch.__all__)
 
 
 def test_wide_index_decodes():
@@ -228,7 +348,7 @@ def test_no_index_decodes_through_native():
 
 def test_no_index_without_native_raises(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="native runtime"):
         zlibes_tpu_torch.inflate(zlib.compress(b"abc" * 100), device="cpu")
 
 

@@ -1,4 +1,9 @@
-"""The port's native runtime on a long run of zero-length stored blocks.
+"""The port's native runtime (``zlibes_tpu_torch/runtime/native.py`` and its
+own ``zscan.cc``): the structure scan, the resolver, the speculative-parallel
+scan against the serial one, foreign-stream indexes through the public
+calls, and a long run of zero-length stored blocks.
+
+The run of empty stored blocks.
 
 ``plausible_header`` in ``zlibes_tpu_torch/runtime/zscan.cc`` is the
 candidate filter of the speculative-parallel scan: ``spec_worker`` calls it
@@ -23,12 +28,17 @@ with span starts placed exactly on block headers of the run.
 Imports the port only.
 """
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 import zlibes_tpu_torch
+from zlibes_tpu_torch import StreamIndex, errors
 from zlibes_tpu_torch.runtime import native
+from zlibes_tpu_torch.spec import refmodel as rm
+
+RAW = (Path(__file__).parent / "golden" / "raw.bin").read_bytes()
 
 EMPTY_STORED = b"\x00\x00\x00\xff\xff"    # BFINAL 0, BTYPE 00, LEN 0, NLEN ~0
 N_EMPTY = 300_000
@@ -86,3 +96,124 @@ def test_native_scan_parallel_equals_serial_on_the_run(run_stream):
     assert len(idx1.blocks) == len(idx4.blocks) >= N_EMPTY
     assert np.array_equal(idx1.anchor_bit, idx4.anchor_bit)
     assert native.resolve(tv4, td4, n4).tobytes() == data
+
+
+# ---------------------------------------------------------------------------
+# scan, resolve and the indexes they make
+
+def test_native_runtime_builds_here():
+    assert native.available()
+
+
+def test_scan_resolve_roundtrip():
+    comp = zlib.compress(RAW, 6)
+    tv, td, index, end_bit, out_len = native.scan(comp, bit_offset=16)
+    assert out_len == len(RAW) == index.total_out
+    assert bytes(native.resolve(tv, td, out_len)) == RAW
+    assert (end_bit + 7) // 8 + 4 == len(comp)
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_scan_all_levels_and_block_types(level):
+    data = RAW[:120000]
+    comp = zlib.compress(data, level)
+    tv, td, _, _, out_len = native.scan(comp, 16)
+    assert bytes(native.resolve(tv, td, out_len)) == data
+
+
+def test_scan_detects_cross_block_refs():
+    comp = zlib.compress(RAW, 6)          # several blocks, one shared window
+    _, _, index, _, _ = native.scan(comp, 16)
+    assert len(index.blocks) > 1 and not index.self_contained
+    ours = rm.deflate(RAW[:200000])
+    _, _, scanned, _, _ = native.scan(ours, 16)
+    assert scanned.self_contained        # the encoder's blocks are independent
+
+
+def test_scan_error_taxonomy():
+    with pytest.raises(errors.TruncatedError):
+        native.scan(zlib.compress(RAW[:5000])[:40], 16)
+    bad = bytearray(zlib.compress(RAW[:5000], 9))
+    bad[30] ^= 0x7F
+    with pytest.raises((errors.CorruptError, errors.TruncatedError,
+                        errors.BlockTypeError, errors.StoredBlockError)):
+        tv, td, _, _, out_len = native.scan(bytes(bad), 16)
+        native.resolve(tv, td, out_len)
+
+
+def test_native_adler():
+    assert native.adler32(RAW) == zlib.adler32(RAW)
+
+
+def test_foreign_indexed_chained_decode():
+    """``build_index`` on a foreign stream, then the indexed public call:
+    chained blocks, so the stream decodes on the host and the index is held
+    against what was decoded."""
+    data = RAW * 4
+    comp = zlib.compress(data, 6)
+    index = zlibes_tpu_torch.build_index(comp)
+    assert not index.self_contained
+    assert zlibes_tpu_torch.inflate(comp, index=index, device="cpu") == data
+
+
+def test_index_save_load(tmp_path):
+    data = RAW[:100000]
+    comp, index = rm.deflate(data, with_index=True)
+    path = tmp_path / "stream.idx.npz"
+    index.save(path)
+    loaded = StreamIndex.load(path)
+    assert loaded.blocks == index.blocks
+    assert zlibes_tpu_torch.inflate(comp, index=loaded, device="cpu") == data
+
+
+def _scan_tuple(comp, **kw):
+    tv, td, idx, end_bit, out_len = native.scan(comp, **kw)
+    blocks = [(b.btype, b.bfinal, b.start_bit, b.payload_start_bit,
+               b.end_bit, b.out_start, b.out_len) for b in idx.blocks]
+    return (tv.tobytes(), td.tobytes(), blocks, idx.anchor_bit.tobytes(),
+            idx.anchor_out.tobytes(), idx.anchor_block.tobytes(), end_bit,
+            out_len)
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_parallel_scan_bit_identical(level):
+    """The speculative-parallel scan splices spans bit-identically to the
+    serial scan."""
+    comp = zlib.compress(RAW * 6, level)[2:-4]
+    assert _scan_tuple(comp, threads=1) == \
+        _scan_tuple(comp, threads=2, span_bytes=1 << 17)
+
+
+def test_parallel_scan_misspeculation_fallback():
+    """Spans that land inside one giant block find no (or a wrong) block
+    boundary: the merge rescans those spans serially and still gives the
+    serial result."""
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, 256, 220000, dtype=np.uint8).tobytes()
+    comp = rm.deflate(data, block_size=1 << 20)[2:-4]
+    assert len(comp) > (1 << 16) * 2
+    assert _scan_tuple(comp, threads=1) == \
+        _scan_tuple(comp, threads=2, span_bytes=1 << 16)
+    tv, td, _, _, out_len = native.scan(comp, threads=2, span_bytes=1 << 16)
+    assert native.resolve(tv, td, out_len).tobytes() == data
+
+
+def test_parallel_scan_stored_spans():
+    """Streams of stored blocks (incompressible input) splice through the
+    LEN/NLEN candidate filter."""
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, 1 << 21, dtype=np.uint8).tobytes()
+    comp = zlib.compress(data, 6)[2:-4]
+    assert _scan_tuple(comp, threads=1) == \
+        _scan_tuple(comp, threads=0, span_bytes=1 << 17)
+
+
+def test_parallel_scan_fixed_block_stream_fallback():
+    """A Z_FIXED stream holds fixed-Huffman blocks only, which the candidate
+    filter never matches (every bit pattern parses as one): the whole scan
+    falls back to the serial one and is still exact."""
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 8, zlib.Z_FIXED)
+    comp = (co.compress(RAW * 4) + co.flush())[2:-4]
+    assert len(comp) > (1 << 18)
+    assert _scan_tuple(comp, threads=1) == \
+        _scan_tuple(comp, threads=2, span_bytes=1 << 18)

@@ -171,6 +171,35 @@ def test_decode_matches_reference(ref):
     p.check_meta(meta.numpy())
 
 
+def test_decode_from_stream_words_matches_window_form_and_reference(ref):
+    """``decode_turbo((words, start_w), ...)``, the form the pipeline calls,
+    equals the form that is given the windows, and the JAX decode."""
+    p = ref.plan
+    tk.LAUNCHES.clear()
+    tokens, meta = tk.decode_turbo((p.words, p.start_w), p.bit0, p.endb,
+                                   p.lt, p.dt, T=p.T)
+    tokens_w, meta_w = tk.decode_turbo(_t(ref.windows), p.bit0, p.endb, p.lt,
+                                       p.dt, T=p.T)
+    assert not tk.LAUNCHES
+    assert torch.equal(meta, meta_w) and torch.equal(tokens, tokens_w)
+    assert np.array_equal(meta.numpy(), ref.meta)
+    emitted = np.arange(p.T)[:, None] < ref.meta[0][None, :]
+    assert np.array_equal(tokens.numpy()[emitted], ref.tokens[emitted])
+
+
+def test_decode_wrapper_rejects_bad_sources(ref):
+    p = ref.plan
+    with pytest.raises(ValueError, match="win has shape"):
+        tk.decode_turbo(_t(ref.windows)[:, :64].contiguous(), p.bit0, p.endb,
+                        p.lt, p.dt)
+    with pytest.raises(ValueError, match="start_w has dtype"):
+        tk.decode_turbo((p.words, p.start_w.long()), p.bit0, p.endb, p.lt,
+                        p.dt)
+    with pytest.raises(ValueError, match="bit0 has shape"):
+        tk.decode_turbo((p.words, p.start_w[:-1].contiguous()), p.bit0,
+                        p.endb, p.lt, p.dt)
+
+
 def test_glue_matches_reference(ref):
     p = ref.plan
     toks16, starts16 = tb._glue_tokens(_t(ref.tokens), _t(ref.meta[0]),

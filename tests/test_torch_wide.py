@@ -279,6 +279,42 @@ def test_decode_matches_reference(ref):
     p.check_meta(meta.numpy())
 
 
+def test_decode_from_stream_words_matches_window_form_and_reference(ref):
+    """``decode_wide((words, start_w), ..., SW=)``, the form the pipeline
+    calls, equals the form that is given the windows, and the JAX decode."""
+    p = ref.plan
+    tk.LAUNCHES.clear()
+    tokens, starts, meta = wk.decode_wide((p.words, p.start_w), p.bit0,
+                                          p.endb, p.base, p.lt, p.dt,
+                                          LPB=p.LPB, T=p.T, SW=p.SW)
+    tokens_w, starts_w, meta_w = wk.decode_wide(_t(ref.windows), p.bit0,
+                                                p.endb, p.base, p.lt, p.dt,
+                                                LPB=p.LPB, T=p.T)
+    assert not tk.LAUNCHES
+    assert torch.equal(meta, meta_w)
+    assert torch.equal(tokens, tokens_w) and torch.equal(starts, starts_w)
+    assert np.array_equal(meta.numpy(), ref.meta)
+    emitted = np.arange(p.T)[:, None] < ref.meta[0][None, :]
+    assert np.array_equal(tokens.numpy()[emitted], ref.tokens[emitted])
+    assert np.array_equal(starts.numpy()[emitted], ref.starts[emitted])
+
+
+def test_decode_wrapper_rejects_bad_sources(ref):
+    p = ref.plan
+    args = (p.bit0, p.endb, p.base, p.lt, p.dt)
+    with pytest.raises(ValueError, match="needs the window width"):
+        wk.decode_wide((p.words, p.start_w), *args, LPB=p.LPB)
+    with pytest.raises(ValueError, match="window width"):
+        wk.decode_wide((p.words, p.start_w), *args, LPB=p.LPB,
+                       SW=wk.MAX_WINDOW_WORDS + 1)
+    with pytest.raises(ValueError, match="do not split into rows"):
+        wk.decode_wide((p.words, p.start_w[:-1].contiguous()), *args,
+                       LPB=p.LPB, SW=p.SW)
+    with pytest.raises(ValueError, match="pass 2\\*\\*31"):
+        wk.decode_wide((p.words, p.start_w), *args, LPB=p.LPB, SW=p.SW,
+                       T=1 << 30)
+
+
 def test_glue_matches_reference(ref):
     p = ref.plan
     toks, starts = wd._glue_wide(_t(ref.tokens), _t(ref.starts),

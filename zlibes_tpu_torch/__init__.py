@@ -4,13 +4,16 @@ The port of ``zlibes_tpu``: the same streams, index layout and error
 taxonomy, in classes of its own (``spec/``, ``config.py``), encoded (turbo
 profile, ``deflate(data, config=CodecConfig.turbo())``) and decoded (turbo
 and wide indexed streams) by CUDA kernels written for the H100 (``csrc/``)
-on a card and by their plain PyTorch versions on the CPU.  Imports
+on a card and by their plain PyTorch versions on the CPU; streams without
+an index, or with an index the card cannot use (``build_index`` makes one
+for a foreign stream), decode on the host through the native runtime
+(``runtime/``).  Imports
 ``torch``, never ``jax`` and nothing of ``zlibes_tpu``: an index or a config
 made by that package is carried across with ``index_from_reference`` /
 ``config_from_reference``.
 """
 from .config import CodecConfig, CodecStats, config_from_reference
-from .spec import errors
+from .spec import constants, errors
 from .spec.errors import (
     ChecksumError,
     CorruptError,
@@ -20,10 +23,16 @@ from .spec.errors import (
 )
 from .spec.refmodel import StreamIndex, index_from_reference
 
-from .codec.api import deflate, inflate, inflate_range, inflate_to_device
+from .codec.api import (
+    build_index,
+    deflate,
+    inflate,
+    inflate_range,
+    inflate_to_device,
+)
 
 __all__ = ["deflate", "inflate", "inflate_range", "inflate_to_device",
-           "StreamIndex", "CodecConfig", "CodecStats",
+           "build_index", "StreamIndex", "CodecConfig", "CodecStats",
            "index_from_reference", "config_from_reference",
-           "errors", "ZlibError", "HeaderError", "TruncatedError",
+           "constants", "errors", "ZlibError", "HeaderError", "TruncatedError",
            "CorruptError", "ChecksumError"]

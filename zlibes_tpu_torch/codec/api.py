@@ -41,8 +41,8 @@ def deflate(data: bytes, *, level: int | None = None, config=None,
     ``CodecConfig.turbo(...)`` (shared tables, 512-byte segments, 4 KiB
     window resets, codes of at most 9 bits).  ``level=``, the default
     config and ``dictionary=`` raise NotImplementedError (the general
-    encoder is ROADMAP queue 1 item 7); a config of another class raises
-    TypeError.  ``stats`` (a CodecStats) collects
+    encoder, levels 1-9, is not ported yet); a config of another class
+    raises TypeError.  ``stats`` (a CodecStats) collects
     per-call observability.  The pipeline's ``deflate(..., with_index=True)``
     also returns the stream's StreamIndex.
     """
@@ -61,10 +61,13 @@ def inflate(data: bytes, *, index=None, verify_checksum: bool = True,
 
     ``index=`` a turbo-profile or a wide (default-profile, levels 1-9)
     StreamIndex selects the lane-parallel decode on ``device`` (CUDA
-    kernels on a card, their plain PyTorch versions on the CPU).  Without
-    an index the stream decodes through the port's native runtime (host).
-    ``dictionary=`` supplies the preset dictionary for FDICT streams
-    (RFC 1950 §2.2).
+    kernels on a card, their plain PyTorch versions on the CPU: one decode
+    and one resolve kernel a call).  Without an index, and with any other
+    index (generic 4 KiB anchors, a ``build_index`` index of a foreign
+    stream, a non-turbo index on an FDICT stream), the stream decodes on
+    the host through the port's native runtime, and an index that does not
+    match what was decoded raises CorruptError.  ``dictionary=`` supplies
+    the preset dictionary for FDICT streams (RFC 1950 §2.2).
     """
     from . import inflate_pipeline
 
@@ -102,3 +105,19 @@ def inflate_to_device(data: bytes, index, *,
 
     return inflate_pipeline.inflate_to_device(bytes(data), _own_index(index),
                                               device=_device(device))
+
+
+def build_index(data: bytes, anchor_every: int = 4096) -> StreamIndex:
+    """Scan any conformant zlib stream into a StreamIndex (block layout and
+    one decode anchor about every ``anchor_every`` output bytes), for
+    streams this framework did not write.  ``inflate(data, index=...)``
+    accepts it (host decode, the index checked against the stream).
+    Requires the native runtime scanner; RuntimeError without it.
+    """
+    from ..runtime import native
+
+    if not native.available():
+        raise RuntimeError("native runtime unavailable")
+    _, _, index, _, _ = native.scan(bytes(data), bit_offset=16,
+                                    anchor_every=anchor_every)
+    return index

@@ -4,10 +4,12 @@ Counterpart of ``zlibes_tpu/codec/inflate_pipeline.py``.  Container
 framing and header parsing are host work; the payload decode, LZ resolve
 and Adler-32 of a stream with a turbo or a wide (default-profile) index run
 on the requested device, as do the seek (``inflate_range``) and the
-device-resident output (``inflate_to_device``).  A stream without an index
-decodes on the host through the port's native runtime
+device-resident output (``inflate_to_device``).  A stream without an index,
+and a stream whose index the card cannot use (generic 4 KiB anchors, a
+chained index of a foreign stream, any non-turbo index on a stream with a
+preset dictionary), decodes on the host through the port's native runtime
 (``runtime/native.py``), as the JAX package does when that runtime is
-available.
+available; the index must still match what was decoded.
 """
 from __future__ import annotations
 
@@ -47,21 +49,27 @@ def _block_code_lengths(data: bytes, blk: BlockInfo):
 
 
 def _decode_native(data: bytes, offset: int, dictionary: bytes | None):
-    """Whole-stream host decode of a stream without an index."""
+    """Whole-stream host decode, for a stream without an index or with one
+    the card cannot use: (bytes as a uint8 CPU tensor, end bit, Adler-32)."""
     from ..runtime import native
 
     if not native.available():
         raise NotImplementedError(
-            "decoding a stream without an index needs the native runtime; "
-            "the device decode of such streams is ROADMAP queue 1 item 8")
+            "this stream has no turbo or self-contained wide index, so it "
+            "decodes on the host, which needs the native runtime (g++); the "
+            "device decode of generic and un-indexed streams is not ported "
+            "yet")
     out, _index, end_bit, adler = native.decode(
         data, bit_offset=offset * 8, dictionary=dictionary)
     return torch.from_numpy(out), end_bit, adler
 
 
-def _generic_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "generic indexed inflate is not ported yet (ROADMAP queue 1 item 8)")
+def _on_device(index: StreamIndex, dictionary: bytes | None = None) -> bool:
+    """Whether the card decodes this index: a turbo index, or a wide,
+    self-contained one on a stream without a preset dictionary."""
+    return bool(getattr(index, "turbo", False)
+                or (getattr(index, "wide", False) and dictionary is None
+                    and getattr(index, "self_contained", True)))
 
 
 def _inflate_indexed(data: bytes, index: StreamIndex,
@@ -74,12 +82,15 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
         from .turbo import inflate_raw_turbo
 
         return inflate_raw_turbo(data, index, device, check=check)
-    if getattr(index, "wide", False) and getattr(index, "self_contained",
-                                                 True):
+    if _on_device(index):
         from .wide import inflate_raw_wide
 
         return inflate_raw_wide(data, index, device, check=check)
-    raise _generic_not_ported()
+    raise NotImplementedError(
+        "the device decode of a generic index (4 KiB anchors, neither turbo "
+        "nor wide) is not ported yet: inflate_range and inflate_to_device "
+        "need a turbo or a wide index; inflate() decodes such a stream on "
+        "the host")
 
 
 def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
@@ -148,7 +159,7 @@ def inflate(data: bytes, *, device: torch.device | str,
             verify_checksum: bool = True, index=None,
             dictionary: bytes | None = None) -> bytes:
     """zlib-container inflate; a turbo- or wide-indexed stream decodes on
-    ``device``."""
+    ``device``, any other on the host through the native runtime."""
     data = bytes(data)
     if len(data) < 6:
         raise TruncatedError("zlib stream shorter than minimal frame")
@@ -173,17 +184,19 @@ def inflate(data: bytes, *, device: torch.device | str,
     else:
         dictionary = None
     known_adler = None
-    if index is None:
-        out, end_bit, known_adler = _decode_native(data, offset, dictionary)
-    else:
+    if index is not None and _on_device(index, dictionary):
         if dictionary is not None:
-            if getattr(index, "turbo", False):
-                raise HeaderError("turbo streams never carry FDICT")
-            # the reference decodes other indexed FDICT streams on its
-            # generic path
-            raise _generic_not_ported()
+            raise HeaderError("turbo streams never carry FDICT")
         out = _inflate_indexed(data, index, device)
         end_bit = index.blocks[-1].end_bit
+    else:
+        out, end_bit, known_adler = _decode_native(data, offset, dictionary)
+        # the decode did not need the index, but a caller who passes one
+        # that belongs to another stream must get an error, not the bytes
+        if index is not None and (index.blocks[-1].end_bit != end_bit
+                                  or index.total_out != out.numel()):
+            raise CorruptError("index does not match this stream (block "
+                               "layout / output size disagree)")
     if verify_checksum:
         trailer_pos = (end_bit + 7) >> 3
         if trailer_pos + 4 > len(data):

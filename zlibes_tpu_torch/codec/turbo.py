@@ -1,6 +1,6 @@
-"""Turbo inflate pipeline: lane windows + per-lane decode + chunk-row LZ
-resolve, for streams carrying the turbo profile (shared 9-bit-capped
-tables, 512 B anchor pairs, 4 KiB window reset).
+"""Turbo inflate pipeline: per-lane decode (which stages its lane windows
+itself) + chunk-row LZ resolve, for streams carrying the turbo profile
+(shared 9-bit-capped tables, 512 B anchor pairs, 4 KiB window reset).
 
 Counterpart of ``zlibes_tpu/codec/turbo.py``.  Every per-lane array is in
 lane order and the lanes keep the stream's order: the TPU pipeline's lane
@@ -190,12 +190,12 @@ class TurboPlan:
 
 
 def run_turbo(plan: TurboPlan, check: bool = True) -> torch.Tensor:
-    """Execute the three device stages; returns the (C_pad, 4096) uint8
+    """Execute the device stages (decode, glue, resolve: two kernel
+    launches); returns the (C_pad, 4096) uint8
     chunk rows on the plan's device — output bytes are the rows flattened
     and cut at plan.total_out."""
-    win = tk.lane_windows(plan.words, plan.start_w)
-    tokens, meta = tk.decode_turbo(win, plan.bit0, plan.endb, plan.lt,
-                                   plan.dt, T=plan.T)
+    tokens, meta = tk.decode_turbo((plan.words, plan.start_w), plan.bit0,
+                                   plan.endb, plan.lt, plan.dt, T=plan.T)
     if check:
         plan.check_meta(meta.cpu().numpy())
     toks16, starts16 = _glue_tokens(tokens, meta[0], plan.base, plan.C_pad)

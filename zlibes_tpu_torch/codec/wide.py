@@ -2,8 +2,8 @@
 (per-block 15-bit tables, full 32 KiB window), which is what levels 1-9 of
 the encoder write.
 
-Counterpart of ``zlibes_tpu/codec/wide.py``: lane windows + per-lane
-two-level-table decode + block-row LZ resolve.  Every per-lane array is in
+Counterpart of ``zlibes_tpu/codec/wide.py``: per-lane two-level-table
+decode (which stages its lane windows itself) + block-row LZ resolve.  Every per-lane array is in
 lane order, and lane ``cb * LPB + m`` decodes the tokens that start in
 output sub-span ``[m*128, (m+1)*128)`` of coded block ``cb``.  The TPU
 pipeline's lane grid, word-planes, grouped 256-word fetch, per-grid-step
@@ -18,7 +18,6 @@ from ..spec import constants as C
 from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
 
-from ..ops import turbo_kernel as tk
 from ..ops import wide_kernel as wk
 
 SUB = wk.SUB
@@ -197,13 +196,14 @@ class WidePlan:
 
 
 def run_wide(plan: WidePlan, check: bool = True) -> torch.Tensor:
-    """Execute the device stages; returns the (Cb, LPB*128) uint8 block rows
+    """Execute the device stages (decode, glue, resolve: two kernel
+    launches); returns the (Cb, LPB*128) uint8 block rows
     on the plan's device (row cb holds coded block cb's output up to its
     out_len)."""
-    win = tk.lane_windows(plan.words, plan.start_w, width=plan.SW)
-    tokens, starts, meta = wk.decode_wide(win, plan.bit0, plan.endb,
-                                          plan.base, plan.lt, plan.dt,
-                                          LPB=plan.LPB, T=plan.T)
+    tokens, starts, meta = wk.decode_wide((plan.words, plan.start_w),
+                                          plan.bit0, plan.endb, plan.base,
+                                          plan.lt, plan.dt, LPB=plan.LPB,
+                                          T=plan.T, SW=plan.SW)
     if check:
         plan.check_meta(meta[:4].cpu().numpy())
     toks, sts = _glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)

@@ -1,0 +1,125 @@
+// What the two per-lane Huffman decode kernels share (decode_turbo in
+// turbo_kernels.cu, decode_wide in wide_kernels.cu): asynchronous copies,
+// the staging of a block's lane windows out of the stream, and the packing
+// of table entries for a walk that keeps its stream bits in registers.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lane_decode {
+
+// ------------------------------------------------------------ async copies
+// cp.async: global -> shared without a register in between; a thread's
+// copies are complete after cp_async_wait<N> (all but its N newest groups)
+// and visible to the block after the barrier that follows.
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kNewest>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kNewest) : "memory");
+}
+
+// ---------------------------------------------------------------- windows
+// The window stage of both decoders (what lane_windows_kernel computes into
+// device memory, here straight into shared memory):
+//     s_win[r * pitch + w] = words[start_w[r] + w]   for w < width,
+// 0 for an index outside [0, nwords).  A warp takes whole rows, its lanes
+// neighbouring words of the row, so a warp instruction copies one run of
+// the stream (a full 128-byte line where the row is aligned); the copies
+// are 4 bytes wide because a window starts at any word.  Neighbouring rows
+// overlap in the stream, so most of these reads are served by L1 and L2.
+// Rows have the pitch the caller gives (odd, so that lanes reading their own
+// word i fall on different banks).  Ends with a commit: the caller waits
+// (cp_async_wait<0>) and synchronises the block.
+
+__device__ __forceinline__ void stage_windows(
+    const int32_t* __restrict__ words, int64_t nwords,
+    const int32_t* __restrict__ start_w, int rows, int width, int pitch,
+    int32_t* s_win, int tid, int nthreads) {
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  for (int r = warp; r < rows; r += nwarps) {
+    const int64_t first = __ldg(start_w + r);
+    for (int w = lane; w < width; w += 32) {
+      const int64_t idx = first + w;
+      int32_t* dst = s_win + r * pitch + w;
+      if (idx >= 0 && idx < nwords)
+        cp_async4(dst, words + idx);
+      else
+        *dst = 0;
+    }
+  }
+  cp_async_commit();
+}
+
+// ------------------------------------------------------- repacked entries
+// Table entries as the host builds them (ops/turbo_kernel.py
+// turbo_decode_tables, ops/wide_kernel.py wide_decode_tables):
+//   litlen: codelen(4b) | kind(2b @4) | extra#(3b @6) | base(9b @9)
+//   dist:   codelen(4b) | extra#(4b @4) | base(15b @8)
+// are repacked while they are staged, so that the bits an entry consumes are
+// its low five bits (a funnel shift takes its count modulo 32 and needs no
+// mask) and every other field is one shift away.
+
+constexpr int kKindEob = 1, kKindLen = 2, kKindInvalid = 3;
+
+// repacked litlen entry
+constexpr int kEUsedMask = 31;      // bits 0..4: code + extra bits (<= 22)
+constexpr int kELnShift = 5;        // bits 5..8: code length
+constexpr int kEEbShift = 9;        // bits 9..11: extra bits
+constexpr int kEBaseShift = 12;     // bits 12..20: literal byte / length base
+constexpr int kELen = 1 << 21;      // a length
+constexpr int kEEob = 1 << 22;      // end of block
+constexpr int kEBad = 1 << 23;      // no code, or an invalid symbol
+constexpr int kELitShift = 27;      // bits 27..31: the low field again, for a
+                                    // literal; 0 for any other entry
+// repacked distance entry: the table's 23 bits; bits consumed (<= 30) in
+// bits 26..30; bit 31 when the entry is invalid or its distance can pass
+// the profile's largest, which reads as "32 bits more" in the consumed field
+constexpr int kDtMask = (1 << 23) - 1;
+constexpr int kDUsedShift = 26;
+constexpr int kDSlow = (int)0x80000000u;
+
+__device__ __forceinline__ int repack_lt(int e) {
+  const int ln = e & 15, kind = (e >> 4) & 3, eb = (e >> 6) & 7;
+  const int base = (e >> 9) & 511;
+  const int out = (ln + eb) | (ln << kELnShift) | (eb << kEEbShift) |
+                  (base << kEBaseShift);
+  if (ln == 0 || kind == kKindInvalid) return out | kEBad;
+  if (kind == kKindEob) return out | kEEob;
+  if (kind == kKindLen) return out | kELen;
+  return out | ((ln + eb) << kELitShift);
+}
+
+__device__ __forceinline__ int repack_dt(int d, int max_dist) {
+  d &= kDtMask;
+  const int dln = d & 15, deb = (d >> 4) & 15, base = (d >> 8) & 0x7FFF;
+  const bool maybe_bad = dln == 0 || base + (1 << deb) - 1 > max_dist;
+  return d | ((dln + deb + (maybe_bad ? 32 : 0)) << kDUsedShift);
+}
+
+// the distance of a length token whose distance code starts at y's bit 0
+__device__ __forceinline__ int token_dist(int de, uint32_t y) {
+  const int dln = de & 15, deb = (de >> 4) & 15;
+  return ((de >> 8) & 0x7FFF) + (int)((y >> dln) & ((1u << deb) - 1u));
+}
+
+}  // namespace lane_decode

@@ -13,7 +13,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_decode.cuh"
+
 namespace {
+
+using namespace lane_decode;
 
 constexpr int kStreamWords = 96;   // STREAM_WORDS
 constexpr int kTable = 512;        // TABLE (9-bit codes)
@@ -25,11 +29,11 @@ constexpr int kDistMask = 0xFFF;   // TOK_DIST_MASK
 constexpr int kMatchBit = 1 << 21; // TOK_MATCH_BIT
 constexpr int kFlag = 1 << 30;     // resolved-byte flag
 
-constexpr int kKindEob = 1, kKindLen = 2, kKindInvalid = 3;
-
 // ---------------------------------------------------------------- windows
 // out[l, w] = words[start_w[l] + w] for w < width, 0 past the end of the
-// stream.
+// stream.  Both decode kernels do this themselves, into shared memory
+// (stage_windows in lane_decode.cuh); this kernel is the way to look at the
+// windows they see.
 
 __global__ void lane_windows_kernel(const int32_t* __restrict__ words,
                                     int64_t nwords,
@@ -41,34 +45,6 @@ __global__ void lane_windows_kernel(const int32_t* __restrict__ words,
   int64_t l = i / width;
   int64_t idx = (int64_t)start_w[l] + (i - l * width);
   out[i] = (idx >= 0 && idx < nwords) ? words[idx] : 0;
-}
-
-// ------------------------------------------------------------ async copies
-// cp.async: global -> shared without a register in between; a thread's
-// copies are complete after cp_async_wait<N> (all but its N newest groups)
-// and visible to the block after the barrier that follows.
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kNewest>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kNewest) : "memory");
 }
 
 // ---------------------------------------------------------------- decode
@@ -91,12 +67,14 @@ __device__ __forceinline__ void cp_async_wait() {
 //    every check and set the registers up again.  The distance lookup goes
 //    out for every token and a clamped shift drops it for a token that is
 //    no length; the window's words move through registers by selects;
-//  * the block's 32 windows (12 KB, contiguous in win) come into shared
-//    memory once, by asynchronous copies in which neighbouring threads take
-//    neighbouring words, so every warp instruction moves one full 128-byte
-//    line.  A window row has an odd pitch of 97 words: lanes that read
-//    their own word i fall on different banks, and the copies are 4 bytes
-//    wide because such rows are not 16-byte aligned;
+//  * the block's 32 windows (12 KB) come into shared memory once, straight
+//    from the stream: lane l's window is the 96 words at start_w[l], words
+//    outside the stream 0 (stage_windows in lane_decode.cuh; no window array
+//    in device memory, no launch before this one).  Neighbouring threads
+//    take neighbouring words by asynchronous copies, and neighbouring
+//    lanes' windows overlap, so the stream is read about once, from L2.  A
+//    window row has an odd pitch of 97 words: lanes that read their own
+//    word i fall on different banks;
 //  * a lane keeps the 96 stream bits at its bit position in three registers
 //    (x0, x1, x2) and, behind them, the window's words (r1..r3, p0 and one
 //    read ahead).  The lookup index of the next step is one funnel shift by
@@ -114,49 +92,10 @@ __device__ __forceinline__ void cp_async_wait() {
 constexpr int kDecodeLanes = 32;             // lanes per block
 constexpr int kDecodeThreads = 128;          // all stage, warp 0 walks
 constexpr int kWinPitch = kStreamWords + 1;  // odd: no two lanes on a bank
-// repacked litlen entry
-constexpr int kEUsedMask = 31;      // bits 0..4: code + extra bits (<= 22)
-constexpr int kELnShift = 5;        // bits 5..8: code length
-constexpr int kEEbShift = 9;        // bits 9..11: extra bits
-constexpr int kEBaseShift = 12;     // bits 12..20: literal byte / length base
-constexpr int kELen = 1 << 21;      // a length
-constexpr int kEEob = 1 << 22;      // end of block
-constexpr int kEBad = 1 << 23;      // no code, or an invalid symbol
-constexpr int kELitShift = 27;      // bits 27..31: the low field again, for a
-                                    // literal; 0 for any other entry
-// repacked distance entry: the table's 23 bits; bits consumed (<= 30) in
-// bits 26..30; bit 31 when the entry is invalid or its distance can pass
-// 4095, which reads as "32 bits more" in the consumed field
-constexpr int kDtMask = (1 << 23) - 1;
-constexpr int kDUsedShift = 26;
-
-__device__ __forceinline__ int repack_lt(int e) {
-  const int ln = e & 15, kind = (e >> 4) & 3, eb = (e >> 6) & 7;
-  const int base = (e >> 9) & 511;
-  const int out = (ln + eb) | (ln << kELnShift) | (eb << kEEbShift) |
-                  (base << kEBaseShift);
-  if (ln == 0 || kind == kKindInvalid) return out | kEBad;
-  if (kind == kKindEob) return out | kEEob;
-  if (kind == kKindLen) return out | kELen;
-  return out | ((ln + eb) << kELitShift);
-}
-
-__device__ __forceinline__ int repack_dt(int d) {
-  d &= kDtMask;
-  const int dln = d & 15, deb = (d >> 4) & 15, base = (d >> 8) & 0x7FFF;
-  const bool maybe_bad = dln == 0 || base + (1 << deb) - 1 > kDistMask;
-  return d | ((dln + deb + (maybe_bad ? 32 : 0)) << kDUsedShift);
-}
 
 // word i of a window row; an index past it (or before it) reads word 95
 __device__ __forceinline__ uint32_t window_word(const int32_t* w, int i) {
   return (uint32_t)w[min((unsigned)i, (unsigned)(kStreamWords - 1))];
-}
-
-// the distance of a length token whose distance code starts at y's bit 0
-__device__ __forceinline__ int token_dist(int de, uint32_t y) {
-  const int dln = de & 15, deb = (de >> 4) & 15;
-  return ((de >> 8) & 0x7FFF) + (int)((y >> dln) & ((1u << deb) - 1u));
 }
 
 // the packed token of entry e at the view x (x's bit 0 is the token's
@@ -170,7 +109,8 @@ __device__ __forceinline__ int pack_token(int e, uint32_t x, int de,
 }
 
 __global__ void __launch_bounds__(kDecodeThreads)
-decode_turbo_kernel(const int32_t* __restrict__ win,
+decode_turbo_kernel(const int32_t* __restrict__ words, int64_t nwords,
+                    const int32_t* __restrict__ start_w,
                     const int32_t* __restrict__ bit0,
                     const int32_t* __restrict__ endb,
                     const int32_t* __restrict__ lt_g,
@@ -184,15 +124,11 @@ decode_turbo_kernel(const int32_t* __restrict__ win,
   const int first = blockIdx.x * kDecodeLanes;
   const int here = min(kDecodeLanes, lanes - first);  // lanes of this block
 
-  const int32_t* src = win + (int64_t)first * kStreamWords;
-  for (int i = tid; i < here * kStreamWords; i += kDecodeThreads) {
-    const int row = i / kStreamWords;
-    cp_async4(&s_win[row * kWinPitch + (i - row * kStreamWords)], src + i);
-  }
-  cp_async_commit();
+  stage_windows(words, nwords, start_w + first, here, kStreamWords, kWinPitch,
+                s_win, tid, kDecodeThreads);
   for (int i = tid; i < kTable; i += kDecodeThreads) {
     s_lt[i] = repack_lt(__ldg(lt_g + i));
-    s_dt[i] = repack_dt(__ldg(dt_g + i));
+    s_dt[i] = repack_dt(__ldg(dt_g + i), kDistMask);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -473,14 +409,16 @@ int zt_lane_windows(const void* words, int64_t nwords, const void* start_w,
   return (int)cudaGetLastError();
 }
 
-int zt_decode_turbo(const void* win, const void* bit0, const void* endb,
-                    const void* lt, const void* dt, int lanes, int max_tokens,
-                    void* tokens, void* meta, void* stream) {
+int zt_decode_turbo(const void* words, int64_t nwords, const void* start_w,
+                    const void* bit0, const void* endb, const void* lt,
+                    const void* dt, int lanes, int max_tokens, void* tokens,
+                    void* meta, void* stream) {
   unsigned blocks = (unsigned)((lanes + kDecodeLanes - 1) / kDecodeLanes);
   decode_turbo_kernel<<<blocks, kDecodeThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)win, (const int32_t*)bit0, (const int32_t*)endb,
-      (const int32_t*)lt, (const int32_t*)dt, lanes, max_tokens,
-      (int32_t*)tokens, (int32_t*)meta);
+      (const int32_t*)words, nwords, (const int32_t*)start_w,
+      (const int32_t*)bit0, (const int32_t*)endb, (const int32_t*)lt,
+      (const int32_t*)dt, lanes, max_tokens, (int32_t*)tokens,
+      (int32_t*)meta);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_decode.cuh"
+
 namespace {
+
+using namespace lane_decode;
 
 constexpr int kSub = 128;           // SUB: bytes per lane / sub-span
 constexpr int kLlRootBits = 9;      // LL_ROOT_BITS
@@ -31,16 +35,117 @@ constexpr int kTokensPad = 256;     // TOKENS_PAD: slots per sub-span
 constexpr int kFlag = 1 << 30;      // resolved-byte flag
 constexpr int kTile = 4096;         // resolve tile (bytes)
 
-constexpr int kKindEob = 1, kKindLen = 2, kKindInvalid = 3;
-
 // ---------------------------------------------------------------- decode
-// One thread per lane, running until its own lane ends.  A block's 128
-// lanes lie in one block row, whose tables it keeps in shared memory.
+// One thread per lane, 32 lanes per block, the walk in one warp; a block's
+// lanes lie in one block row (LPB is a multiple of 128), whose tables it
+// stages.
+//
+// A lane is a serial chain, and a warp that runs alone gets one
+// instruction out in four to six cycles: the kernel's time is the longest
+// lane's steps times what a step costs its warp.  The walk is decode_turbo's
+// (turbo_kernels.cu), carried over to tables of 15-bit codes and distances
+// up to 32 KiB:
+//
+//  * the block's 32 windows come into shared memory straight from the
+//    stream (stage_windows in lane_decode.cuh), rows at the odd pitch
+//    sw + 1; their width differs from stream to stream, so the area is
+//    dynamic shared memory;
+//  * the row's two-level tables are staged as they are (7 KB, 16-byte
+//    asynchronous copies) and then flattened into one-level roots that the
+//    fast step indexes with no branch: 11 bits of litlen root (8 KB), 8 bits
+//    of distance root (1 KB).  A root entry that holds a code decides every
+//    index that ends in its bits: it is repacked once and stored for all of
+//    them.  Root entries that point to a sub-table are few but lie scattered
+//    (a warp's 32 roots hold one or two, and a warp pays for a branch that
+//    any of its lanes takes), so the first pass only lists them and a
+//    second pass looks their indices up side by side, one thread an index.
+//    An index whose entry more bits would decide (a code longer than the
+//    root) is marked so and leaves the fast step; on zlib's level-6 output
+//    that is under 0.5% of the tokens and 1.5% of the lengths.  Flattening
+//    index by index, every warp through the pointers' branch, took most of
+//    the staging time, which every one of the row's 32 blocks pays;
+//  * entries are repacked as in decode_turbo: the bits consumed are the low
+//    five, a funnel shift's count; a distance entry that is invalid, slow or
+//    can pass 32768 reads as "32 bits more";
+//  * a lane keeps the 96 stream bits at its position in three registers and
+//    the window's next words behind them; a token can take 48 bits, so a
+//    step of 32 bits or more leaves the fast step (a handful of tokens in a
+//    million) and the view needs no 64-bit arithmetic;
+//  * a step takes two literals when the entry behind a literal is a literal
+//    too and a second slot is free; the second start is the first's + 1;
+//  * the next step's lookup goes out before this step is judged.  The
+//    running output position (starts, the before-the-block check) depends on
+//    the values, not on the next index, so it stays off the lookup chain; a
+//    distance that reaches before the block leaves the fast step before
+//    anything is stored or moved;
+//  * a lane's last token stays in the fast step when it ends at or before
+//    the lane's end: lanes end at different steps, so a rare case there
+//    would be paid in most steps of a warp;
+//  * every rare case (end of block, an invalid or a long code, a suspect
+//    distance, a token that ends past the lane's end, 32 bits or more) takes
+//    one token through the two-level tables with the plain version's checks
+//    in its order, and sets the registers up again.
+//
+// Tokens and starts stay (T, L): a warp's stores land on neighbouring
+// addresses.  The last token and its start (meta rows 4, 5) are read back
+// from the lane's own last slot when the walk is over.
 
-constexpr int kDecodeThreads = 128;
+constexpr int kDecodeLanes = 32;     // lanes per block
+constexpr int kDecodeThreads = 128;  // all stage, warp 0 walks
+constexpr int kLlFastBits = 11;      // one-level litlen root of the fast step
+constexpr int kLlFast = 1 << kLlFastBits;
+constexpr int kDFastBits = 8;        // one-level distance root
+constexpr int kDFast = 1 << kDFastBits;
+
+// bits [pos, pos + len) of x, len < 32: one bit-field extract
+__device__ __forceinline__ uint32_t bits_at(uint32_t x, int pos, int len) {
+  uint32_t out;
+  asm("bfe.u32 %0, %1, %2, %3;" : "=r"(out) : "r"(x), "r"(pos), "r"(len));
+  return out;
+}
+
+// the litlen entry of the plain two-level lookup at the view x
+__device__ __forceinline__ int lookup_ll(const int32_t* lt, uint32_t x) {
+  const int e1 = lt[x & (kLlRoot - 1)];
+  if (!(e1 & kSubFlag)) return e1;
+  const int subw = min(e1 & 15, 6);
+  const int sidx = ((e1 >> 9) & 511) +
+                   (int)((x >> kLlRootBits) & ((1u << subw) - 1u));
+  return lt[kLlRoot + min(sidx, kLlSub - 1)];
+}
+
+// the distance entry of the plain two-level lookup at the view y
+__device__ __forceinline__ int lookup_d(const int32_t* dt, uint32_t y) {
+  const int d1 = dt[y & (kDRoot - 1)];
+  if (!(d1 & kSubFlag)) return d1;
+  const int dsw = min((d1 >> 24) & 15, 9);
+  const int dsidx = ((d1 >> 8) & 1023) +
+                    (int)((y >> kDRootBits) & ((1u << dsw) - 1u));
+  return dt[kDSubOff + min(dsidx, 639)];
+}
+
+// Whether every bit pattern whose low `bits` bits are i finds the same
+// entry in a two-level table (root entry e1 at i's root bits, a pointer to
+// a sub-table of 2^subw entries from index base of sub, indices clipped to
+// cap): then *e is that entry.  With all of the sub-table's index bits in i
+// the entry is simply looked up.  With some missing, the entry found with
+// zeros for them stands for all of them when its code is no longer than
+// `bits`: wide_decode_tables (ops/wide_kernel.py) repeats an entry of code
+// length n every 2^(n - root_bits) sub-table slots.  An empty slot (code
+// length 0) or a longer code leaves the index to the two-level lookup.
+__device__ __forceinline__ bool flat_entry(const int32_t* sub, int e1,
+                                           int subw, int base, int cap, int i,
+                                           int root_bits, int bits, int* e) {
+  const int have = min(subw, bits - root_bits);
+  const int low = base + ((i >> root_bits) & ((1 << have) - 1));
+  *e = sub[min(low, cap)];
+  const int ln = *e & 15;
+  return subw == have || (ln != 0 && ln <= bits);
+}
 
 __global__ void __launch_bounds__(kDecodeThreads)
-decode_wide_kernel(const int32_t* __restrict__ win, int sw,
+decode_wide_kernel(const int32_t* __restrict__ words, int64_t nwords,
+                   const int32_t* __restrict__ start_w, int sw,
                    const int32_t* __restrict__ bit0,
                    const int32_t* __restrict__ endb,
                    const int32_t* __restrict__ base,
@@ -48,20 +153,86 @@ decode_wide_kernel(const int32_t* __restrict__ win, int sw,
                    const int32_t* __restrict__ dt_g, int lanes, int lpb,
                    int max_tokens, int32_t* __restrict__ tokens,
                    int32_t* __restrict__ starts, int32_t* __restrict__ meta) {
-  __shared__ int32_t lt[kLlW];
-  __shared__ int32_t dt[kDW];
-  const int first = blockIdx.x * kDecodeThreads;
+  extern __shared__ int32_t s_win[];  // 32 rows of sw + 1 words
+  __shared__ __align__(16) int32_t s_lt[kLlW];  // the row's two-level tables
+  __shared__ __align__(16) int32_t s_dt[kDW];
+  __shared__ int32_t s_lf[kLlFast];   // their flat, repacked roots
+  __shared__ int32_t s_df[kDFast];
+  __shared__ int16_t s_sub[kLlRoot + kDRoot];  // roots that are pointers
+  __shared__ int s_nsub;
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * kDecodeLanes;
+  const int here = min(kDecodeLanes, lanes - first);  // lanes of this block
+  const int pitch = sw + 1;
   const int64_t row = first / lpb;
-  for (int i = threadIdx.x; i < kLlW; i += kDecodeThreads)
-    lt[i] = lt_g[row * kLlW + i];
-  for (int i = threadIdx.x; i < kDW; i += kDecodeThreads)
-    dt[i] = dt_g[row * kDW + i];
-  __syncthreads();
-  const int l = first + threadIdx.x;
-  if (l >= lanes) return;
+  if (tid == 0) s_nsub = 0;
 
-  const uint32_t* w =
-      reinterpret_cast<const uint32_t*>(win) + (int64_t)l * sw;
+  // the row's tables: 16-byte copies (rows are 4 KB and 3 KB, aligned);
+  // then the windows, which are not needed before the walk
+  for (int i = tid; i < kLlW / 4; i += kDecodeThreads)
+    cp_async16(s_lt + 4 * i, lt_g + row * kLlW + 4 * i);
+  for (int i = tid; i < kDW / 4; i += kDecodeThreads)
+    cp_async16(s_dt + 4 * i, dt_g + row * kDW + 4 * i);
+  cp_async_commit();
+  stage_windows(words, nwords, start_w + first, here, sw, pitch, s_win, tid,
+                kDecodeThreads);
+  cp_async_wait<1>();
+  __syncthreads();
+  // flatten, first pass: a root entry that is no sub-table pointer decides
+  // every index that ends in its root bits, so it is repacked once and
+  // stored for all of them.  Pointers are few and scattered (a warp's 32
+  // roots hold one or two), so they are only listed here
+  for (int r = tid; r < kLlRoot + kDRoot; r += kDecodeThreads) {
+    const bool is_d = r >= kLlRoot;
+    const int e1 = is_d ? s_dt[r - kLlRoot] : s_lt[r];
+    if (e1 & kSubFlag) {
+      s_sub[atomicAdd(&s_nsub, 1)] = (int16_t)r;
+    } else if (is_d) {
+      const int d = repack_dt(e1, kWindow);
+#pragma unroll
+      for (int i = r - kLlRoot; i < kDFast; i += kDRoot) s_df[i] = d;
+    } else {
+      const int e = repack_lt(e1);
+#pragma unroll
+      for (int i = r; i < kLlFast; i += kLlRoot) s_lf[i] = e;
+    }
+  }
+  __syncthreads();
+  // second pass: behind a pointer each index is looked up on its own, one
+  // thread an index, the listed pointers side by side
+  constexpr int kLlRep = kLlFast / kLlRoot, kDRep = kDFast / kDRoot;
+  static_assert(kLlRep == kDRep, "one replica count for both tables");
+  for (int j = tid; j < s_nsub * kLlRep; j += kDecodeThreads) {
+    const int r = s_sub[j / kLlRep], h = j % kLlRep;
+    int sub;
+    if (r >= kLlRoot) {
+      const int i = r - kLlRoot + h * kDRoot;
+      const int d1 = s_dt[r - kLlRoot];
+      s_df[i] =
+          flat_entry(s_dt + kDSubOff, d1, min((d1 >> 24) & 15, 9),
+                     (d1 >> 8) & 1023, 639, i, kDRootBits, kDFastBits, &sub)
+              ? repack_dt(sub, kWindow) : kDSlow;
+    } else {
+      const int i = r + h * kLlRoot;
+      const int e1 = s_lt[r];
+      s_lf[i] =
+          flat_entry(s_lt + kLlRoot, e1, min(e1 & 15, 6), (e1 >> 9) & 511,
+                     kLlSub - 1, i, kLlRootBits, kLlFastBits, &sub)
+              ? repack_lt(sub) : kEBad;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid >= here) return;
+
+  const int l = first + tid;
+  const int32_t* w = s_win + tid * pitch;
+  const unsigned last_w = (unsigned)(sw - 1);
+  // word i of the lane's window; an index past it (or before it) reads its
+  // last word, as the plain version's clamp does
+  auto window_word = [&](int i) -> uint32_t {
+    return (uint32_t)w[min((unsigned)i, last_w)];
+  };
   // the lane's sub-span offset in its block: no distance reaches further
   const int span0 = (l % lpb) * kSub;
   int pos = bit0[l];
@@ -70,81 +241,131 @@ decode_wide_kernel(const int32_t* __restrict__ win, int sw,
   bool active = pos < end;
   int err = 0;
   int count = 0;
-  int last_tok = 0;
-  int last_start = 0;
-  for (int t = 0; t < max_tokens && active; ++t) {
-    // the 64 stream bits starting at bit pos (LSB-first); reads past the
-    // window's last word clamp to it
-    const int wi = pos >> 5;
-    const int s = pos & 31;
-    const uint32_t w0 = w[min(wi, sw - 1)];
-    const uint32_t w1 = w[min(wi + 1, sw - 1)];
-    const uint32_t w2 = w[min(wi + 2, sw - 1)];
-    uint64_t x = ((uint64_t)w0 | ((uint64_t)w1 << 32)) >> s;
-    if (s) x |= (uint64_t)w2 << (64 - s);
-
-    // litlen symbol: 9-bit root, sub-table on long-code prefixes
-    const int e1 = lt[x & (kLlRoot - 1)];
-    int e = e1;
-    if (e1 & kSubFlag) {
-      const int subw = min(e1 & 15, 6);
-      int sidx = ((e1 >> 9) & 511) +
-                 (int)((x >> kLlRootBits) & ((1u << subw) - 1u));
-      e = lt[kLlRoot + min(max(sidx, 0), kLlSub - 1)];
+  if (active && max_tokens > 0) {
+    uint32_t x0, x1, x2;      // the 96 stream bits at pos, LSB-first
+    uint32_t r1, r2, r3, p0;  // window words: x1 = r1:r2 >> s, x2 = r2:r3 >> s
+    int wq;                   // index of the word after p0 (sw - 1 at most)
+    int s;                    // pos & 31
+    int e;                    // the flat entry of the token at pos
+    // the registers of a walk that stands at pos
+    auto stand = [&]() {
+      const int wi = pos >> 5;
+      s = pos & 31;
+      const uint32_t r0 = window_word(wi);
+      r1 = window_word(wi + 1);
+      r2 = window_word(wi + 2);
+      r3 = window_word(wi + 3);
+      p0 = window_word(wi + 4);
+      wq = (int)min((unsigned)(wi + 5), last_w);
+      x0 = __funnelshift_r(r0, r1, s);
+      x1 = __funnelshift_r(r1, r2, s);
+      x2 = __funnelshift_r(r2, r3, s);
+      e = s_lf[x0 & (kLlFast - 1)];
+    };
+    stand();
+    int slot = l;  // of the next token, in tokens and in starts
+    for (;;) {
+      const int k1 = e & kEUsedMask;
+      // the bits behind the first token
+      const uint32_t y0 = __funnelshift_r(x0, x1, e);
+      const uint32_t y1 = __funnelshift_r(x1, x2, e);
+      // both lookups there go out for every token, with no branch: the
+      // distance entry counts behind a length (a clamped shift by 32 leaves
+      // 0), the litlen entry behind a literal when it is a literal too and a
+      // second slot is free
+      const int de = s_df[y0 & (kDFast - 1)];
+      const int e2 = s_lf[y0 & (kLlFast - 1)];
+      const bool is_len = (e & kELen) != 0;
+      const int dshift = is_len ? kDUsedShift : 32;
+      const int lit_mask =
+          ((uint32_t)e >> kELitShift) != 0 && count + 2 <= max_tokens
+              ? kEUsedMask : 0;
+      const int k2 = (int)((uint32_t)e2 >> kELitShift) & lit_mask;
+      const int more = (int)__funnelshift_rc((uint32_t)de, 0u, dshift) | k2;
+      const uint32_t nx0 = __funnelshift_r(y0, y1, more);
+      // the next step's lookup goes out before this step is judged
+      const int e_next = s_lf[nx0 & (kLlFast - 1)];
+      const int used = k1 + more;
+      const int val = ((e >> kEBaseShift) & 511) +
+                      (is_len ? (int)bits_at(x0, (e >> kELnShift) & 15,
+                                             (e >> kEEbShift) & 7)
+                              : 0);
+      const int dist = ((de >> 8) & 0x7FFF) +
+                       (int)bits_at(y0, de & 15, (de >> 4) & 15);
+      if ((e & (kEEob | kEBad)) ||
+          (uint32_t)(used - 1) >= (uint32_t)min(end - pos, 31) ||
+          (is_len && dist > span0 + outpos)) {
+        // rare: one token through the two-level tables, every check
+        const int er = lookup_ll(s_lt, x0);
+        const int ln = er & 15, kind = (er >> 4) & 3, eb = (er >> 6) & 7;
+        const bool rlen = kind == kKindLen;
+        const int rval =
+            ((er >> 9) & 511) + (rlen ? (int)bits_at(x0, ln, eb) : 0);
+        const uint32_t yr = __funnelshift_r(x0, x1, ln + eb);
+        const int dr = lookup_d(s_dt, yr);
+        const int dln = dr & 15, deb = (dr >> 4) & 15;
+        const int rdist = token_dist(dr, yr);
+        const int newpos = pos + ln + eb + (rlen ? dln + deb : 0);
+        if (ln == 0 || kind == kKindInvalid ||
+            (rlen && (dln == 0 || rdist > kWindow ||
+                      rdist > span0 + outpos)) ||
+            newpos > end) {
+          err = 1;
+          active = false;
+          break;
+        }
+        pos = newpos;
+        if (kind == kKindEob) {
+          active = false;
+          break;
+        }
+        tokens[slot] = rlen ? (rval | (rdist << 9) | kMatchBit) : rval;
+        starts[slot] = outpos;
+        slot += lanes;
+        outpos += rlen ? rval : 1;
+        ++count;
+        active = pos < end;
+        if (!active || count >= max_tokens) break;
+        stand();
+        continue;
+      }
+      const int n = k2 ? 2 : 1;  // tokens of this step
+      tokens[slot] = is_len ? (val | (dist << 9) | kMatchBit) : val;
+      starts[slot] = outpos;
+      if (k2) {
+        tokens[slot + lanes] = (e2 >> kEBaseShift) & 511;
+        starts[slot + lanes] = outpos + 1;
+      }
+      slot += n * lanes;
+      count += n;
+      outpos += is_len ? val : n;
+      pos += used;
+      if (count >= max_tokens || pos >= end) {
+        active = pos < end;
+        break;
+      }
+      // the word registers move on, by selects, when pos enters a new word
+      s += used;
+      const uint32_t ahead = (uint32_t)w[wq];
+      const int wnext = (int)min((unsigned)(wq + 1), last_w);
+      if (s >= 32) {
+        r1 = r2; r2 = r3; r3 = p0; p0 = ahead;
+        wq = wnext;
+        s -= 32;
+      }
+      x0 = nx0;
+      x1 = __funnelshift_r(r1, r2, s);
+      x2 = __funnelshift_r(r2, r3, s);
+      e = e_next;
     }
-    const int ln = e & 15;
-    const int kind = (e >> 4) & 3;
-    const int eb = (e >> 6) & 7;
-    const bool is_len = kind == kKindLen;
-    int val = (e >> 9) & 511;
-    if (is_len) val += (int)((x >> ln) & ((1u << eb) - 1u));
-    const int k1 = ln + eb;
-    const uint64_t y = x >> k1;
-
-    // distance symbol: 6-bit root + sub region
-    const int d1 = dt[y & (kDRoot - 1)];
-    int de = d1;
-    if (d1 & kSubFlag) {
-      const int dsw = min((d1 >> 24) & 15, 9);
-      int dsidx = ((d1 >> 8) & 1023) +
-                  (int)((y >> kDRootBits) & ((1u << dsw) - 1u));
-      de = dt[kDSubOff + min(max(dsidx, 0), 639)];
-    }
-    const int dln = de & 15;
-    const int deb = (de >> 4) & 15;
-    const int dist =
-        ((de >> 8) & 0x7FFF) + (int)((y >> dln) & ((1u << deb) - 1u));
-
-    const int newpos = pos + k1 + (is_len ? dln + deb : 0);
-    const bool bad =
-        ln == 0 || kind == kKindInvalid ||
-        (is_len && (dln == 0 || dist > kWindow || dist > span0 + outpos)) ||
-        newpos > end;
-    if (bad) {
-      err = 1;
-      active = false;
-      break;
-    }
-    pos = newpos;
-    if (kind == kKindEob) {
-      active = false;
-      break;
-    }
-    const int tok = is_len ? (val | (dist << 9) | kMatchBit) : val;
-    tokens[(int64_t)t * lanes + l] = tok;
-    starts[(int64_t)t * lanes + l] = outpos;
-    last_tok = tok;
-    last_start = outpos;
-    outpos += is_len ? val : 1;
-    ++count;
-    active = newpos < end;
   }
+  const int64_t last = (int64_t)max(count - 1, 0) * lanes + l;
   meta[l] = count;
   meta[(int64_t)lanes + l] = pos;
   meta[2 * (int64_t)lanes + l] = err;
   meta[3 * (int64_t)lanes + l] = active ? 1 : 0;
-  meta[4 * (int64_t)lanes + l] = last_tok;
-  meta[5 * (int64_t)lanes + l] = last_start;
+  meta[4 * (int64_t)lanes + l] = count ? tokens[last] : 0;
+  meta[5 * (int64_t)lanes + l] = count ? starts[last] : 0;
 }
 
 // ---------------------------------------------------------------- resolve
@@ -317,15 +538,27 @@ resolve_wide_walk_kernel(const int32_t* __restrict__ state, int n,
 
 extern "C" {
 
-int zt_decode_wide(const void* win, int sw, const void* bit0,
-                   const void* endb, const void* base, const void* lt,
-                   const void* dt, int lanes, int lpb, int max_tokens,
-                   void* tokens, void* starts, void* meta, void* stream) {
-  unsigned blocks = (unsigned)((lanes + kDecodeThreads - 1) / kDecodeThreads);
-  decode_wide_kernel<<<blocks, kDecodeThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)win, sw, (const int32_t*)bit0, (const int32_t*)endb,
-      (const int32_t*)base, (const int32_t*)lt, (const int32_t*)dt, lanes,
-      lpb, max_tokens, (int32_t*)tokens, (int32_t*)starts, (int32_t*)meta);
+// sw: window words a lane, at most 255 (the window area and the tables
+// together stay under the 48 KB a block has without opting in to more)
+int zt_decode_wide(const void* words, int64_t nwords, const void* start_w,
+                   int sw, const void* bit0, const void* endb,
+                   const void* base, const void* lt, const void* dt,
+                   int lanes, int lpb, int max_tokens, void* tokens,
+                   void* starts, void* meta, void* stream) {
+  unsigned blocks = (unsigned)((lanes + kDecodeLanes - 1) / kDecodeLanes);
+  const size_t win_bytes = (size_t)kDecodeLanes * (sw + 1) * sizeof(int32_t);
+  if (win_bytes > 32 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)win_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  decode_wide_kernel<<<blocks, kDecodeThreads, win_bytes,
+                       (cudaStream_t)stream>>>(
+      (const int32_t*)words, nwords, (const int32_t*)start_w, sw,
+      (const int32_t*)bit0, (const int32_t*)endb, (const int32_t*)base,
+      (const int32_t*)lt, (const int32_t*)dt, lanes, lpb, max_tokens,
+      (int32_t*)tokens, (int32_t*)starts, (int32_t*)meta);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,11 @@
 Counterpart of ``zlibes_tpu/ops/turbo_kernel.py``.  Three inflate stages
 and one encode stage:
 
-  * ``lane_windows``  each decode lane's 96 stream words (one gather);
-  * ``decode_turbo``  per-lane Huffman decode into packed tokens + meta;
+  * ``lane_windows``  each decode lane's 96 stream words (one gather): the
+    stage both decode kernels now do themselves, in shared memory, kept as
+    the way to look at the windows they see;
+  * ``decode_turbo``  per-lane Huffman decode into packed tokens + meta,
+    from the stream's words and each lane's first word;
   * ``resolve_turbo`` LZ expansion of 4 KiB chunk rows;
   * ``select_turbo``  the encoder's greedy + lazy tokenisation of each
     512-byte segment lane.
@@ -175,6 +178,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 # :292) computes the same at width SW.  On the card this is one gather, one
 # thread per output word: bound by memory traffic (L*width*4 B written, the
 # same read mostly from L2 because neighbouring lanes' windows overlap).
+# The inflate pipelines do not launch it: decode_turbo and decode_wide take
+# (words, start_w) and stage the same windows in shared memory
+# (stage_windows, csrc/lane_decode.cuh), so the windows never reach device
+# memory.  The kernel stays for whoever wants to see them.
 
 def lane_windows_plain(words: torch.Tensor, start_w: torch.Tensor,
                        width: int = STREAM_WORDS) -> torch.Tensor:
@@ -220,8 +227,9 @@ def lane_windows(words: torch.Tensor, start_w: torch.Tensor,
 # but the longest lane's steps times the instructions of one step
 # (``chip_smoke.py`` prints the longest and the mean lane and the cycles a
 # token).  The design (csrc/turbo_kernels.cu) cuts both.  A block of 32
-# lanes brings its windows into shared memory once, in full lines, at an odd
-# row pitch that keeps lanes on different banks; a lane holds the 96 stream
+# lanes brings its windows into shared memory once, straight from the
+# stream's words at each lane's first word (the window stage, folded in), at
+# an odd row pitch that keeps lanes on different banks; a lane holds the 96 stream
 # bits at its position and the window's next words in registers, so the
 # next lookup index is one funnel shift; the tables are repacked in the
 # kernel so that the bits an entry consumes need no mask; a step has no
@@ -304,27 +312,54 @@ def decode_turbo_plain(win, bit0, endb, lt, dt, T: int = MAX_TOKENS):
     return tokens, meta
 
 
-def decode_turbo(win: torch.Tensor, bit0: torch.Tensor, endb: torch.Tensor,
+def _lane_source(src, width: int):
+    """The stream a decode kernel stages its lane windows from, as
+    ``(words, start_w)``.  ``src`` is that pair already (the stream's int32
+    words and each lane's first word), or the ``(L, width)`` lane windows
+    themselves, which are their own stream: lane ``l``'s window starts at
+    word ``l * width``."""
+    if isinstance(src, torch.Tensor):
+        L = src.shape[0] if src.dim() == 2 else -1
+        _check(src, "win", torch.int32, (L, width), src.device)
+        if L * width >= 1 << 31:
+            raise ValueError(f"{L} windows of {width} words pass 2**31 words")
+        return src.reshape(-1), torch.arange(0, L * width, width,
+                                             dtype=torch.int32,
+                                             device=src.device)
+    words, start_w = src
+    dev = words.device
+    _check(words, "words", torch.int32, (words.numel(),), dev)
+    _check(start_w, "start_w", torch.int32, (start_w.numel(),), dev)
+    return words, start_w
+
+
+def decode_turbo(win, bit0: torch.Tensor, endb: torch.Tensor,
                  lt: torch.Tensor, dt: torch.Tensor, T: int = MAX_TOKENS):
-    """win (L, 96) int32 lane windows; bit0, endb (L,) int32 start / end bit
-    within the window; lt, dt (512,) int32 tables.
+    """win: the pair (words (NW,) int32 stream words, start_w (L,) int32
+    first word of each lane's window), from which the kernel stages the
+    windows itself, or the (L, 96) int32 lane windows ``lane_windows``
+    gives; bit0, endb (L,) int32 start / end bit within the window; lt, dt
+    (512,) int32 tables.
 
     Returns (tokens (T, L) int32 packed, valid in [0, count); meta (4, L)
     int32: count, end bit, error flag, still-active flag)."""
-    dev = win.device
-    L = win.shape[0]
-    _check(win, "win", torch.int32, (L, STREAM_WORDS), dev)
+    words, start_w = _lane_source(win, STREAM_WORDS)
+    dev = words.device
+    L = start_w.numel()
     for name, t, n in (("bit0", bit0, L), ("endb", endb, L),
                        ("lt", lt, TABLE), ("dt", dt, TABLE)):
         _check(t, name, torch.int32, (n,), dev)
-    if not _route(win):
+    if not _route(words):
+        if not isinstance(win, torch.Tensor):
+            win = lane_windows_plain(words, start_w)
         return decode_turbo_plain(win, bit0, endb, lt, dt, T)
     tokens = torch.empty((T, L), dtype=torch.int32, device=dev)
     meta = torch.empty((4, L), dtype=torch.int32, device=dev)
     if L:
-        _launch("decode_turbo", dev, _ptr(win), _ptr(bit0), _ptr(endb),
-                _ptr(lt), _ptr(dt), ctypes.c_int(L), ctypes.c_int(T),
-                _ptr(tokens), _ptr(meta))
+        _launch("decode_turbo", dev, _ptr(words),
+                ctypes.c_int64(words.numel()), _ptr(start_w), _ptr(bit0),
+                _ptr(endb), _ptr(lt), _ptr(dt), ctypes.c_int(L),
+                ctypes.c_int(T), _ptr(tokens), _ptr(meta))
     return tokens, meta
 
 

@@ -3,11 +3,13 @@ versions.
 
 Counterpart of ``zlibes_tpu/ops/wide_kernel.py``: the device decode of
 streams with per-block RFC 1951 15-bit Huffman tables and the full 32 KiB
-LZ window, which is what levels 1-9 emit.  Two stages (the lane windows
-come from ``turbo_kernel.lane_windows`` at ``width=SW``):
+LZ window, which is what levels 1-9 emit.  Two stages:
 
   * ``decode_wide``  per-lane two-level-table Huffman decode into packed
-    tokens, their start offsets and meta;
+    tokens, their start offsets and meta, from the stream's words and each
+    lane's first word (the kernel stages the lane windows itself; the
+    windows ``turbo_kernel.lane_windows`` gives at ``width=SW`` are taken
+    too);
   * ``resolve_wide`` LZ expansion of whole block rows (32 KiB reach).
 
 Each wrapper launches its CUDA kernel (``csrc/wide_kernels.cu``) for a CUDA
@@ -35,9 +37,11 @@ from .turbo_kernel import (
     _bits_at,
     _check,
     _covering_slot,
+    _lane_source,
     _launch,
     _ptr,
     _route,
+    lane_windows_plain,
 )
 
 # output bytes per decode lane / resolve sub-span
@@ -183,14 +187,28 @@ def wide_decode_tables(ll_len: np.ndarray, d_len: np.ndarray):
 # _decode_wide_kernel :217).  The TPU kernel runs 1024 lanes of one grid
 # step in lock step, one <=48-bit token per iteration, from a 128-bit buffer
 # with a paired 64-bit refill out of word-planes, and gathers each table
-# entry through banked selects over per-sublane table rows.  On the card one
-# thread owns one lane and runs until that lane ends: a block of 128 lanes
-# lies in one coded block (LPB is a multiple of 128), so it loads that
-# block's two tables (7 KB) into shared memory once, and every token reads
-# the 64 stream bits at its bit position from the lane window.  It is bound
-# by the serial dependency of one token on the previous token's length;
-# tokens and starts are stored (T, L) so that a warp's stores land on
-# neighbouring addresses.
+# entry through banked selects over per-sublane table rows.  On the card a
+# lane is a serial chain and a warp that runs alone gets one instruction out
+# in four to six cycles, so what bounds the kernel is the longest lane's
+# steps times the instructions of a step, not its bytes (``chip_smoke.py``
+# prints the longest and the mean lane and the cycles a step).  The design
+# (csrc/wide_kernels.cu) is decode_turbo's walk carried over to two-level
+# per-row tables.  A block is 32 lanes of one coded block (LPB is a multiple
+# of 128), the walk in one warp.  All threads stage the 32 windows straight
+# from the stream's words (the window stage, folded in) and the row's two
+# tables, which they flatten into one-level roots of 11 litlen and 8
+# distance bits with repacked entries (a root entry that holds a code is
+# repacked once for all its indices; the few that point to a sub-table are
+# listed and looked up side by side); a code longer than its root, like
+# every other rare case (end of block, invalid code, a distance that may be
+# bad, a token past the lane's end, 32 bits or more), leaves the fast step
+# for one token through the two-level tables with the plain version's
+# checks.  A lane
+# keeps the 96 stream bits at its position in registers; a step has no
+# branch but the loop's and the one that leaves it, takes two literals when
+# it can, and sends the next step's lookup out before it is judged; the
+# running output position stays off the lookup chain.  Tokens and starts are
+# stored (T, L) so that a warp's stores land on neighbouring addresses.
 #
 # Contract (bit for bit with the TPU kernel on valid streams): a token is
 # bad when its litlen code is invalid (codelen 0, symbol 286/287), when a
@@ -278,38 +296,59 @@ def decode_wide_plain(win, bit0, endb, base, lt, dt, LPB: int,
     return tokens, starts, meta
 
 
-def decode_wide(win: torch.Tensor, bit0: torch.Tensor, endb: torch.Tensor,
+# the widest lane window the kernel takes: its window area and tables stay
+# under the 48 KB of shared memory a block has without opting in to more
+MAX_WINDOW_WORDS = 255
+
+
+def decode_wide(win, bit0: torch.Tensor, endb: torch.Tensor,
                 base: torch.Tensor, lt: torch.Tensor, dt: torch.Tensor,
-                LPB: int, T: int = MAX_TOKENS):
-    """win (L, SW) int32 lane windows; bit0, endb (L,) int32 start / end
-    bit within the window; base (L,) int32 first token's offset in its
-    128-B sub-span; lt (Cb, LL_W), dt (Cb, D_W) int32 per-block tables;
+                LPB: int, T: int = MAX_TOKENS, SW: int | None = None):
+    """win: the pair (words (NW,) int32 stream words, start_w (L,) int32
+    first word of each lane's window) with the window width ``SW`` in
+    words, from which the kernel stages the windows itself, or the (L, SW)
+    int32 lane windows ``lane_windows`` gives; bit0, endb (L,) int32 start
+    / end bit within the window; base (L,) int32 first token's offset in
+    its 128-B sub-span; lt (Cb, LL_W), dt (Cb, D_W) int32 per-block tables
+    as ``wide_decode_tables`` builds them (the kernel relies on a sub-table
+    entry of code length n being repeated every 2^(n - root bits) slots);
     LPB lanes per block row (L = Cb * LPB, LPB a multiple of 128).
 
     Returns (tokens (T, L) int32 packed and starts (T, L) int32 sub-span
     offsets, both valid in [0, count); meta (6, L) int32: count, end bit,
     error flag, still-active flag, last emitted token, its start)."""
-    dev = win.device
-    L, SW = win.shape if win.dim() == 2 else (-1, -1)
+    if isinstance(win, torch.Tensor):
+        SW = win.shape[1] if win.dim() == 2 else -1
+    elif SW is None:
+        raise ValueError("(words, start_w) needs the window width SW")
+    if not 1 <= SW <= MAX_WINDOW_WORDS:
+        raise ValueError(f"window width {SW} outside [1, {MAX_WINDOW_WORDS}]")
+    words, start_w = _lane_source(win, SW)
+    dev = words.device
+    L = start_w.numel()
     if LPB <= 0 or LPB % 128 or L % LPB:
         raise ValueError(f"{L} lanes do not split into rows of LPB={LPB} "
                          f"(a positive multiple of 128)")
+    if T * L >= 1 << 31:
+        raise ValueError(f"{T} token slots of {L} lanes pass 2**31")
     Cb = L // LPB
-    _check(win, "win", torch.int32, (L, SW), dev)
     for name, t, shape in (("bit0", bit0, (L,)), ("endb", endb, (L,)),
                            ("base", base, (L,)), ("lt", lt, (Cb, LL_W)),
                            ("dt", dt, (Cb, D_W))):
         _check(t, name, torch.int32, shape, dev)
-    if not _route(win):
+    if not _route(words):
+        if not isinstance(win, torch.Tensor):
+            win = lane_windows_plain(words, start_w, SW)
         return decode_wide_plain(win, bit0, endb, base, lt, dt, LPB, T)
     tokens = torch.empty((T, L), dtype=torch.int32, device=dev)
     starts = torch.empty((T, L), dtype=torch.int32, device=dev)
     meta = torch.empty((6, L), dtype=torch.int32, device=dev)
     if L:
-        _launch("decode_wide", dev, _ptr(win), ctypes.c_int(SW), _ptr(bit0),
-                _ptr(endb), _ptr(base), _ptr(lt), _ptr(dt), ctypes.c_int(L),
-                ctypes.c_int(LPB), ctypes.c_int(T), _ptr(tokens),
-                _ptr(starts), _ptr(meta))
+        _launch("decode_wide", dev, _ptr(words),
+                ctypes.c_int64(words.numel()), _ptr(start_w),
+                ctypes.c_int(SW), _ptr(bit0), _ptr(endb), _ptr(base),
+                _ptr(lt), _ptr(dt), ctypes.c_int(L), ctypes.c_int(LPB),
+                ctypes.c_int(T), _ptr(tokens), _ptr(starts), _ptr(meta))
     return tokens, starts, meta
 
 

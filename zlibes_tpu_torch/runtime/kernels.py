@@ -5,7 +5,7 @@ at first use ``nvcc`` compiles each of the package's ``csrc/*.cu`` for
 Hopper (``sm_90a``), all sources at once in parallel processes, and links
 them into one shared library with a plain C interface, under
 ``build/zlibes_tpu_torch/`` beside the package, named by a hash of the
-sources; ``ctypes`` loads it.  A missing ``nvcc`` or a failed build raises.
+sources and the headers (``csrc/*.cuh``) they include; ``ctypes`` loads it.  A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -31,10 +31,10 @@ _INT = ctypes.c_int
 # returns cudaGetLastError()
 _SIGNATURES = {
     "zt_lane_windows": [_P, _I64, _P, _I64, _INT, _P, _P],
-    "zt_decode_turbo": [_P, _P, _P, _P, _P, _INT, _INT, _P, _P, _P],
+    "zt_decode_turbo": [_P, _I64, _P, _P, _P, _P, _P, _INT, _INT, _P, _P, _P],
     "zt_resolve_turbo": [_P, _P, _INT, _P, _P],
-    "zt_decode_wide": [_P, _INT, _P, _P, _P, _P, _P, _INT, _INT, _INT, _P, _P,
-                       _P, _P],
+    "zt_decode_wide": [_P, _I64, _P, _INT, _P, _P, _P, _P, _P, _INT, _INT,
+                       _INT, _P, _P, _P, _P],
     "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P, _P],
     "zt_select_turbo": [_P, _P, _INT, _INT, _P, _P, _P],
     "zt_encode_fields": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
@@ -53,9 +53,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def headers() -> list[Path]:
+    """The ``csrc/*.cuh`` that the sources include."""
+    return sorted(_CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
