@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
-three paths on the 3.84 MB bench corpus and its committed fixtures:
+four paths on the 3.84 MB bench corpus and its committed fixtures:
 
   * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
     kernels ``decode_turbo`` (which stages its lane windows itself) and
@@ -15,7 +15,13 @@ three paths on the 3.84 MB bench corpus and its committed fixtures:
   * turbo encode: ``zlibes_tpu_torch.deflate(corpus,
     config=CodecConfig.turbo())``, kernels ``select_turbo`` and
     ``encode_fields``; its output must equal ``turbo_bench.zz`` byte for
-    byte, its index ``turbo_bench.idx.npz``, and decode back to the corpus.
+    byte, its index ``turbo_bench.idx.npz``, and decode back to the corpus;
+  * general encode: ``zlibes_tpu_torch.deflate(corpus, level=6)``, kernel
+    ``select_tokens``; its output must equal ``wide_bench.zz`` byte for
+    byte, its index ``wide_bench.idx.npz``, and come back through CPython
+    and through the port's wide inflate; levels 0, 1 and 9 and a preset
+    dictionary on ``tests/golden/raw.bin``, ``deflate_indexed`` and
+    ``backend="refmodel"`` once each.
 
 For each path it holds every kernel against its plain PyTorch version at
 the path's shapes, runs the path through its public entry point on the
@@ -29,7 +35,10 @@ corpus' second dispatch (padded lanes) with ``lazy`` on and off,
 cut to 64, ``resolve_turbo`` on random tokens under unsorted starts with
 self-copies among them and on one chunk row alone, ``decode_wide`` on
 random bits under the fixture's tables and on the fixture with ``T`` cut to
-16.  Both decoders are held in the form the pipelines call,
+16, ``select_tokens`` on the corpus' second dispatch (padded blocks, a
+ragged last block) and on random matches with ``lazy`` on and off, segments
+of 4,096 and 1,024 and a context prefix of 0 and 32,768.  Both decoders are
+held in the form the pipelines call,
 ``decode_*((words, start_w), ...)``, against the plain decode of the plain
 windows; the stand-alone ``lane_windows`` kernel, which no path launches any
 more, is still held against its plain version at both widths.  For
@@ -594,7 +603,7 @@ def select_turbo_last_dispatch(corpus: bytes, cfg, record: dict,
     blk = torch.from_numpy(blk_np).cuda()
     nv = torch.from_numpy(nv_np).cuda()
     matches = find_matches(blk, nv, N=N, S=cfg.probe_words, J=cfg.candidates,
-                           reset=cfg.chunk_reset)
+                           reset=cfg.chunk_reset, two_phase=True)
     pv, slen = dp.select_inputs(blk, matches, nv, N)
     padded = int((slen == 0).sum())
     assert padded > 0 and int((slen > 0).sum()) > 0
@@ -652,7 +661,8 @@ def encode_phase(corpus: bytes, card: str,
 
     def match():
         return find_matches(blk, nv, N=N, S=cfg.probe_words,
-                            J=cfg.candidates, reset=cfg.chunk_reset)
+                            J=cfg.candidates, reset=cfg.chunk_reset,
+                            two_phase=True)
 
     matches = match()
     pv, slen = dp.select_inputs(blk, matches, nv, N)
@@ -770,6 +780,268 @@ def encode_phase(corpus: bytes, card: str,
         print(f"encode: device busy {busy:.4f} of {call_s * 1e3:.2f} ms per "
               f"untraced deflate() call -> idle share "
               f"{1 - busy / (call_s * 1e3):.3f} {card}")
+    return launches, device_ms
+
+
+def hold_select_tokens(args: tuple, kw: dict, what: str, card: str):
+    """``select_tokens`` on the card against its plain version (run once:
+    it is ``SEG_SIZE`` eager steps): counts equal, tokens equal in
+    [0, count) and zero past it.  Returns (max_abs_err, kernel outputs, the
+    plain run's ms by CUDA events)."""
+    from zlibes_tpu_torch.ops import lz77
+
+    tv, td, cnt = lz77.select_tokens(*args, **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    tv_p, td_p, cnt_p = lz77.select_tokens_plain(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt_p), f"select_tokens counts != plain ({what})"
+    past = torch.arange(tv.shape[1], device=tv.device)[None, :] >= cnt[:, None]
+    assert torch.equal(tv, tv_p) and torch.equal(td, td_p), \
+        f"select_tokens tokens != plain ({what})"
+    assert not bool(tv[past].any()) and not bool(td[past].any())
+    err = max(max_abs_err(cnt, cnt_p), max_abs_err(tv, tv_p),
+              max_abs_err(td, td_p))
+    print(f"kernel select_tokens on {what}: exact vs plain (max_abs_err "
+          f"{err}), {int(cnt.sum())} tokens in {cnt.numel()} lanes, longest "
+          f"{int(cnt.max())}, {int((cnt == 0).sum())} empty {card}")
+    return err, (tv, td, cnt), start.elapsed_time(end)
+
+
+def general_phase(corpus: bytes, card: str,
+                  records: dict) -> tuple[dict, dict]:
+    """The general encoder (level 6) on the bench corpus: ``select_tokens``
+    against its plain version on real and random matches, per-stage times
+    of one dispatch, the public ``deflate`` with its launch counts, the
+    wide fixture byte for byte and its index field for field, the round
+    trips, other levels and a dictionary on raw.bin, ``deflate_indexed``
+    and ``backend="refmodel"``, whole-call and zlib times and a profiler
+    breakdown.  Adds ``select_tokens`` to ``records``; returns the launch
+    counts of the deflate run and the profiler's device ms by kernel
+    name."""
+    import zlibes_tpu_torch
+    from zlibes_tpu_torch import CodecConfig, CodecStats, StreamIndex
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops import deflate_kernel as dk
+    from zlibes_tpu_torch.ops import lz77
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops import wide_kernel as wk
+
+    gold = (GOLDEN / "wide_bench.zz").read_bytes()
+    gold_index = StreamIndex.load(GOLDEN / "wide_bench.idx.npz")
+    cfg = CodecConfig.from_level(6)
+    N, Bp, SEG = cfg.block_size, cfg.blocks_per_dispatch, cfg.seg_size
+    nseg = N // SEG
+    arr = np.frombuffer(corpus, np.uint8)
+    nblocks = -(-arr.size // N)
+    print(f"general encode: corpus {len(corpus)} B, CodecConfig.from_level(6)"
+          f" (S={cfg.probe_words}, J={cfg.candidates}, {N} B blocks, "
+          f"{nblocks} blocks, {Bp} a dispatch -> {-(-nblocks // Bp)} "
+          f"dispatches of L={Bp * nseg} lanes of {SEG})")
+
+    def dispatch(d0):
+        blk_np, nv_np, _ = dp.general_rows(arr, d0, min(nblocks, d0 + Bp), N,
+                                           Bp, None)
+        blk = torch.from_numpy(blk_np).cuda()
+        nv = torch.from_numpy(nv_np).cuda()
+        return blk, nv, lz77.find_matches(blk, nv, N=N, S=cfg.probe_words,
+                                          J=cfg.candidates)
+
+    # -- select_tokens against its plain version: the second dispatch's real
+    # matches (padded blocks, a ragged last block), then random matches
+    d_last = (nblocks - 1) // Bp * Bp
+    blk, nv, matches = dispatch(d_last)
+    assert int((nv == 0).sum()) > 0 and int(nv.max()) == N
+    assert 0 < int(nv[nblocks - d_last - 1]) < N
+    kw = dict(N=N, SEG_SIZE=SEG, lazy=cfg.lazy, start=0)
+    err, _, _ = hold_select_tokens(
+        (blk, matches, nv), kw, f"the last dispatch ({nblocks - d_last} "
+        f"blocks of {Bp})", card)
+    g = torch.Generator().manual_seed(11)
+    for seg, start, lazy in [(s_, st, lz) for s_ in (4096, 1024)
+                             for st in (0, 32768) for lz in (True, False)]:
+        n_r = start + 32768
+        data_r = torch.randint(0, 256, (3, n_r + 8), generator=g,
+                               dtype=torch.uint8)
+        ml = torch.randint(0, 259, (3, n_r), generator=g)
+        ml = torch.where(torch.rand((3, n_r), generator=g) < 0.5, 0, ml)
+        m_r = ((ml << 16) | torch.randint(1, 32769, (3, n_r),
+                                          generator=g)).int()
+        nv_r = torch.tensor([n_r, start + 20000 + seg // 3, start],
+                            dtype=torch.int32)
+        e, _, _ = hold_select_tokens(
+            (data_r.cuda(), m_r.cuda(), nv_r.cuda()),
+            dict(N=n_r, SEG_SIZE=seg, lazy=lazy, start=start),
+            f"random matches, SEG {seg}, start {start}, lazy={lazy}", card)
+        err = max(err, e)
+
+    # -- the first (full) dispatch, stage by stage, on the card
+    blk, nv, matches = dispatch(0)
+    e, (tv, td, cnt), plain_ms = hold_select_tokens(
+        (blk, matches, nv), kw, "the first dispatch", card)
+    n_tok = int(cnt.sum())
+    records["select_tokens"] = dict(
+        replaces="zlibes_tpu/ops/lz77.py:295",
+        note="the reference's select_tokens is an XLA while_loop of up to "
+             "SEG_SIZE steps, not a pallas_call; its plain PyTorch version "
+             "is SEG_SIZE eager steps (plain_ms is one run)",
+        max_abs_err=max(err, e),
+        ms=cuda_ms(lambda: lz77.select_tokens(blk, matches, nv, **kw)),
+        plain_ms=plain_ms, plain_runs=1, shape=list(tv.shape), tokens=n_tok,
+        longest_lane_tokens=int(cnt.max()),
+        mean_lane_tokens=float(cnt.float().mean()),
+        # read: the matches, the blocks' bytes, the counts; written: both
+        # token rows and the counts; ~20 operations a position (the parallel
+        # token pass), ~4 a token (the walk)
+        **bound(nbytes(matches, nv, tv, td, cnt) + matches.numel(),
+                20 * matches.numel() + 4 * n_tok))
+    r = records["select_tokens"]
+    print(f"kernel select_tokens: exact vs plain (max_abs_err "
+          f"{r['max_abs_err']}), kernel {r['ms']:.4f} ms (median of 20), "
+          f"plain {r['plain_ms']:.1f} ms (one run), shape {r['shape']} {card}")
+
+    lsym, dsym, valid, ll_freq, d_freq = dk.token_symbols(tv, td, cnt,
+                                                          nseg=nseg)
+    plans, tables = dp.dispatch_tables(arr, 0, Bp, N, Bp,
+                                       ll_freq.cpu().numpy(),
+                                       d_freq.cpu().numpy())
+    tables = tuple(t.cuda() for t in tables)
+    W = (15 * N + 4096) // 32
+
+    def pack():
+        return dk.pack_payload(tv, td, lsym, dsym, valid, *tables, nseg=nseg,
+                               W=W, sub_every=wk.SUB)
+
+    words, payload_end, _, _, _ = pack()
+    used = [0 if p.btype == 0 else (int(pe) + p.eob_len + 31) // 32 + 1
+            for pe, p in zip(payload_end.tolist(), plans)]   # 0: stored
+    flat_idx = torch.cat([torch.arange(u) + i * W
+                          for i, u in enumerate(used)]).cuda()
+    stages = {
+        "match": lambda: lz77.find_matches(blk, nv, N=N, S=cfg.probe_words,
+                                           J=cfg.candidates),
+        "select": lambda: lz77.select_tokens(blk, matches, nv, **kw),
+        "symbols": lambda: dk.token_symbols(tv, td, cnt, nseg=nseg),
+        "pack": pack,
+        "gather": lambda: dk.gather_compressed(words.reshape(-1), flat_idx),
+    }
+    stage_ms = {k: cuda_ms(fn, runs=5, warmup=1) for k, fn in stages.items()}
+    t0 = time.perf_counter()
+    dp.dispatch_tables(arr, 0, Bp, N, Bp, ll_freq.cpu().numpy(),
+                       d_freq.cpu().numpy())
+    tables_ms = (time.perf_counter() - t0) * 1e3
+    print(f"general encode stages of one dispatch ({Bp} blocks, {Bp * N} B), "
+          f"CUDA events, median of 5: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+          + f"; host tables of the dispatch {tables_ms:.2f} ms (host clock, "
+          f"one run) {card}")
+
+    # -- end to end through the public entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    tk.LAUNCHES.clear()
+    out = zlibes_tpu_torch.deflate(corpus, level=6, device="cuda")
+    launches = dict(tk.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    assert out == gold, "deflate(level=6) != tests/golden/wide_bench.zz"
+    assert launches == {"select_tokens": -(-nblocks // Bp)}, launches
+    print(f"deflate(level=6, device='cuda'): {len(out)} B (ratio "
+          f"{len(out) / len(corpus):.4f}), byte-exact with the fixture; "
+          f"launches {launches}; peak device memory {peak_mb:.1f} MiB above "
+          f"the {base_mb:.1f} MiB held before the call")
+    stats = CodecStats()
+    out2, index = dp.deflate(corpus, with_index=True, level=6, stats=stats,
+                             device="cuda")
+    assert out2 == gold
+    assert index.blocks == gold_index.blocks, "index blocks != fixture"
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(index, f), getattr(gold_index, f)), f
+    assert (index.wide, index.turbo, index.chunk_reset, index.max_tokens) == \
+        (gold_index.wide, gold_index.turbo, gold_index.chunk_reset,
+         gold_index.max_tokens)
+    assert zlib.decompress(out) == corpus
+    tk.LAUNCHES.clear()
+    back = zlibes_tpu_torch.inflate(out, index=index, device="cuda")
+    assert back == corpus, "inflate(deflate(corpus, level=6)) != corpus"
+    assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}, \
+        dict(tk.LAUNCHES)
+    host_ms = (stats.stage_s["tables"] + stats.stage_s["splice"]) * 1e3
+    print(f"index equals the fixture's ({len(index.blocks)} blocks, "
+          f"{index.anchor_bit.size} anchors); CPython zlib.decompress and "
+          f"inflate(index=, device='cuda') ({dict(tk.LAUNCHES)}) return the "
+          f"corpus; stages (host clock, queued work) "
+          f"{ {k: round(v * 1e3, 2) for k, v in stats.stage_s.items()} } ms; "
+          f"the host's share, tables + splice: {host_ms:.2f} ms {card}")
+
+    # -- the other levels and a preset dictionary, on raw.bin: sizes do not
+    # depend on the hardware
+    raw = (GOLDEN / "raw.bin").read_bytes()
+    sizes = {}
+    for level in (0, 1, 6, 9):
+        comp, idx = dp.deflate(raw, with_index=True, level=level,
+                               device="cuda")
+        assert zlib.decompress(comp) == raw, f"CPython refuses level {level}"
+        assert zlibes_tpu_torch.inflate(comp, index=idx,
+                                        device="cuda") == raw
+        assert idx.wide == (level > 0)
+        sizes[level] = len(comp)
+    assert sizes[0] > len(raw) and (sizes[6], sizes[9]) == (191419, 188386), \
+        sizes
+    zdict = corpus[len(raw) : len(raw) + 32768]
+    comp, idx = dp.deflate(raw, with_index=True, level=6, dictionary=zdict,
+                           device="cuda")
+    assert comp[1] & 0x20 and not idx.wide
+    assert zlib.decompressobj(zdict=zdict).decompress(comp) == raw
+    assert zlibes_tpu_torch.inflate(comp, dictionary=zdict,
+                                    device="cuda") == raw
+    assert zlibes_tpu_torch.inflate(comp, index=idx, dictionary=zdict,
+                                    device="cuda") == raw
+    assert len(comp) < sizes[6], "the dictionary did not help"
+    print(f"raw.bin ({len(raw)} B) on the card, each accepted by CPython and "
+          f"by the port's inflate: level 0 {sizes[0]} B, level 1 {sizes[1]} "
+          f"B, level 6 {sizes[6]} B, level 9 {sizes[9]} B, level 6 with a "
+          f"32 KiB dictionary {len(comp)} B (FDICT)")
+    part = raw[:50000]
+    comp_i, idx_i = zlibes_tpu_torch.deflate_indexed(part, device="cuda")
+    assert idx_i.wide and zlib.decompress(comp_i) == part
+    assert zlibes_tpu_torch.inflate_range(comp_i, idx_i, 40000, 300,
+                                          device="cuda") == part[40000:40300]
+    host = zlibes_tpu_torch.deflate(part, backend="refmodel")
+    assert zlib.decompress(host) == part
+    assert zlibes_tpu_torch.inflate(host, backend="refmodel") == part
+    print(f"deflate_indexed(device='cuda') of {len(part)} B: {len(comp_i)} B "
+          f"with a wide index, a seek byte-exact; backend='refmodel' (host "
+          f"model): {len(host)} B, round trip byte-exact")
+
+    # -- times
+    n = len(corpus)
+    call_s = wall_s(lambda: zlibes_tpu_torch.deflate(corpus, level=6,
+                                                     device="cuda"))
+    z6_s = wall_s(lambda: zlib.compress(corpus, 6))
+    print(f"whole deflate(level=6) call, host to host: {call_s * 1e3:.2f} ms "
+          f"-> {n / call_s / 1e9:.4f} GB/s of input, median of 5 {card}")
+    print(f"CPython zlib.compress(level=6), one core: {z6_s * 1e3:.2f} ms -> "
+          f"{n / z6_s / 1e9:.4f} GB/s ({len(zlib.compress(corpus, 6))} B), "
+          f"median of 5 (host CPU beside {card})")
+    device_ms = profile_pipeline(
+        lambda: zlibes_tpu_torch.deflate(corpus, level=6, device="cuda"),
+        card, runs=2)
+    if device_ms:
+        busy = sum(device_ms.values())
+        print(f"general encode: device busy {busy:.4f} of {call_s * 1e3:.2f} "
+              f"ms per untraced deflate(level=6) call -> idle share "
+              f"{1 - busy / (call_s * 1e3):.3f} {card}")
+    r["device_ms"] = device_time(device_ms, "select_tokens",
+                                 launches["select_tokens"])
+    print(f"select_tokens: device {r['device_ms']:.4f} ms a launch "
+          f"(torch.profiler), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({r['bytes']} B), {launches['select_tokens']} launches a call, "
+          f"longest lane {r['longest_lane_tokens']} tokens (mean "
+          f"{r['mean_lane_tokens']:.1f}), library call: none {card}")
     return launches, device_ms
 
 
@@ -986,6 +1258,8 @@ def main() -> None:
     enc_launches, enc_device_ms = encode_phase(corpus, card, records)
     for name in ("select_turbo", "encode_fields"):
         launches[name] = enc_launches[name]
+    gen_launches, _ = general_phase(corpus, card, records)
+    launches["select_tokens"] = gen_launches["select_tokens"]
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
@@ -996,7 +1270,7 @@ def main() -> None:
                 ("select_turbo", "encode_fields")}
 
     wide = ("decode_wide", "resolve_wide")
-    encode = ("select_turbo", "encode_fields")
+    encode = ("select_turbo", "select_tokens", "encode_fields")
     entries = []
     for name, r in records.items():
         group = ("wide" if name in wide else

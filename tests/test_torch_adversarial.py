@@ -215,16 +215,18 @@ def test_corruption_fuzz_device_pipeline_without_index():
 
 
 def test_determinism_repeat_runs():
-    """Same input, identical bytes across runs: the turbo encoder and the
-    indexed and un-indexed inflate."""
+    """Same input, identical bytes across runs: the default-config and the
+    turbo encoder, and the indexed and un-indexed inflate."""
     rng = np.random.default_rng(3)
     data = (b"determinism " * 400
             + rng.integers(0, 256, 2000, dtype=np.uint8).tobytes())
-    cfg = CodecConfig.turbo(candidates=4, probe_words=4)
-    runs = [dp.deflate(data, with_index=True, config=cfg, block_size=16384,
-                       device="cpu") for _ in range(2)]
-    assert runs[0][0] == runs[1][0]
-    assert np.array_equal(runs[0][1].anchor_bit, runs[1][1].anchor_bit)
+    for cfg in (CodecConfig(blocks_per_dispatch=2),
+                CodecConfig.turbo(candidates=4, probe_words=4)):
+        runs = [dp.deflate(data, with_index=True, config=cfg,
+                           block_size=16384, device="cpu") for _ in range(2)]
+        assert runs[0][0] == runs[1][0]
+        assert np.array_equal(runs[0][1].anchor_bit, runs[1][1].anchor_bit)
+        assert runs[0][1].wide != runs[0][1].turbo
     comp, index = runs[0]
     assert zlib.decompress(comp) == data
     assert {zlibes_tpu_torch.inflate(comp, index=index, device="cpu")

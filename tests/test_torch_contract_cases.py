@@ -1,8 +1,7 @@
 """Hand-made inputs that pin the contracts of ``resolve_wide``,
-``select_turbo``, ``resolve_turbo``, ``decode_turbo`` and ``decode_wide``,
-with the bytes
-and tokens they must give, and tests of the port's plain versions against
-them.
+``select_turbo``, ``select_tokens``, ``resolve_turbo``, ``decode_turbo`` and
+``decode_wide``, with the bytes and tokens they must give, and tests of the
+port's plain versions against them.
 
 Imports the port only (no JAX, nothing of ``zlibes_tpu``), so the card
 tests use the same cases for kernel versus plain;
@@ -28,6 +27,19 @@ matches are zero except in a few lanes:
     deferred to the longer raw length after it, which the clamp to the
     segment's end then cuts to literals; with ``lazy`` off it is taken;
   * ``empty_lane``     a lane past its block's last byte (``seg_len`` 0).
+
+``select_tokens``: one dispatch of 4 blocks of 8 KiB in lanes of 4,096
+(8 lanes) whose matches are zero except in a few lanes:
+
+  * ``far_distance``      a match of 200 at distance 32,768 is taken whole
+    (no far cap outside the turbo profile);
+  * ``max_never_deferred``  a match of 258 is taken although the next
+    position claims a longer one;
+  * ``clamped_at_end``    a match of 100 ten positions before the segment's
+    end is cut to 10;
+  * ``defer_at_end``      as for ``select_turbo``, in a lane that its
+    block's end cuts to 300 positions;
+  * ``empty_lane``        a lane past its block's last byte (``seg_len`` 0).
 
 ``resolve_turbo``: one 4 KiB chunk row with one token a byte, seeded
 non-zero literals but for a few matches:
@@ -71,6 +83,7 @@ import pytest
 import torch
 
 from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+from zlibes_tpu_torch.ops import lz77
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
 from zlibes_tpu_torch.spec import constants as C
@@ -265,6 +278,112 @@ def test_select_turbo_plain_counts_a_long_seg_len_as_512():
     toks, counts = tk.select_turbo(pv[:4], slen[:4])
     toks2, counts2 = tk.select_turbo(pv[:4], slen[:4] + 100)
     assert torch.equal(toks, toks2) and torch.equal(counts, counts2)
+
+
+# ---------------------------------------------------------------------------
+# select_tokens
+
+TOK_N = 8192                      # block size: 2 lanes of 4,096 a block
+TOK_B = 4                         # blocks of the dispatch
+TOK_SEG = 4096
+SELECT_TOKENS_CASES = ("far_distance", "max_never_deferred", "clamped_at_end",
+                       "defer_at_end", "empty_lane")
+# lane of each case in the dispatch's (TOK_B * 2, 4096) lane order
+SELECT_TOKENS_LANE = {"far_distance": 0, "max_never_deferred": 0,
+                      "clamped_at_end": 0, "defer_at_end": 3, "empty_lane": 5}
+_TOK_NV1 = TOK_SEG + 300          # block 1: lane 3 holds 300 bytes
+
+
+def select_tokens_dispatch(start: int = 0):
+    """(blk (TOK_B, start + TOK_N + 8) uint8, matches (TOK_B, start + TOK_N)
+    int32 as ``len << 16 | dist``, nv (TOK_B,) int32, ``start`` counted in)
+    of the crafted dispatch, behind a prefix of ``start`` positions that
+    claim matches of their own and must never become tokens."""
+    rng = np.random.default_rng(78)
+    blk = np.zeros((TOK_B, TOK_N + 8), np.uint8)
+    blk[:, :TOK_N] = rng.integers(0, 256, (TOK_B, TOK_N), dtype=np.uint8)
+    nv = np.array([TOK_N, _TOK_NV1, TOK_SEG, 0], np.int32)
+    for b in range(TOK_B):
+        blk[b, nv[b]:] = 0
+    matches = np.zeros((TOK_B, TOK_N), np.int32)
+    matches[0, 0] = (200 << 16) | 32768
+    matches[0, 200] = (258 << 16) | 5
+    matches[0, 201] = (300 << 16) | 7     # no matcher's length: only looked at
+    matches[0, TOK_SEG - 10] = (100 << 16) | 9
+    end = _TOK_NV1
+    matches[1, end - 3] = (10 << 16) | 7
+    matches[1, end - 2] = (50 << 16) | 9
+    if start:
+        pre = rng.integers(0, 256, (TOK_B, start), dtype=np.uint8)
+        blk = np.concatenate([pre, blk], axis=1)
+        pre_m = ((rng.integers(3, 259, (TOK_B, start)) << 16)
+                 | rng.integers(1, 500, (TOK_B, start))).astype(np.int32)
+        matches = np.concatenate([pre_m, matches], axis=1)
+        nv = nv + start
+    return blk, matches, nv
+
+
+def select_tokens_inputs(start: int = 0):
+    """The crafted dispatch as CPU tensors (data, matches, n_valid)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x))
+                 for x in select_tokens_dispatch(start))
+
+
+def check_select_tokens_case(case: str, lazy: bool, tv: np.ndarray,
+                             td: np.ndarray, counts: np.ndarray) -> None:
+    """Assert that (tv, td (8, 4096), counts (8,)) hold ``case``'s lane as
+    the contract fixes it."""
+    blk, _, _ = select_tokens_dispatch()
+    lane = SELECT_TOKENS_LANE[case]
+    count = int(counts[lane])
+    toks = list(zip(tv[lane].tolist(), td[lane].tolist()))
+    assert not tv[lane, count:].any() and not td[lane, count:].any()
+    if lane == 0:
+        # 200 + 258 + literals up to the clamped match + that match
+        assert count == 2 + (TOK_SEG - 10 - 458) + 1
+        want = {"far_distance": (0, (200, 32768)),
+                "max_never_deferred": (1, (258, 5)),
+                "clamped_at_end": (count - 1, (10, 9))}[case]
+        assert toks[want[0]] == want[1]
+        assert toks[2] == (int(blk[0, 458]), 0)
+    elif case == "defer_at_end":
+        lits = [(int(x), 0) for x in blk[1, TOK_SEG:_TOK_NV1]]
+        if lazy:
+            assert count == 300 and toks[:300] == lits
+        else:
+            assert count == 298 and toks[:298] == lits[:297] + [(3, 7)]
+    else:
+        assert count == 0
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+@pytest.mark.parametrize("start", [0, 4096])
+def test_select_tokens_plain_gives_the_cases_tokens(lazy, start):
+    """Every case of the dispatch, and the same tokens behind a prefix."""
+    data, matches, nv = select_tokens_inputs(start)
+    tv, td, counts = lz77.select_tokens(data, matches, nv, N=start + TOK_N,
+                                        SEG_SIZE=TOK_SEG, lazy=lazy,
+                                        start=start)
+    assert tuple(tv.shape) == (TOK_B * 2, TOK_SEG) and tv.dtype == torch.int32
+    for case in SELECT_TOKENS_CASES:
+        check_select_tokens_case(case, lazy, tv.numpy(), td.numpy(),
+                                 counts.numpy())
+
+
+def test_select_tokens_wrapper_checks_its_inputs():
+    data, matches, nv = select_tokens_inputs()
+    with pytest.raises(ValueError, match="shape"):
+        lz77.select_tokens(data, matches[:, :100].contiguous(), nv, N=TOK_N)
+    with pytest.raises(ValueError, match="dtype"):
+        lz77.select_tokens(data, matches.long(), nv, N=TOK_N)
+    with pytest.raises(ValueError, match="dtype"):
+        lz77.select_tokens(data.int(), matches, nv, N=TOK_N)
+    with pytest.raises(ValueError, match="shape"):
+        lz77.select_tokens(data[:, :100].contiguous(), matches, nv, N=TOK_N)
+    with pytest.raises(ValueError, match="multiple of SEG_SIZE"):
+        lz77.select_tokens(data, matches, nv, N=TOK_N, SEG_SIZE=3000)
+    with pytest.raises(ValueError, match="multiple of SEG_SIZE"):
+        lz77.select_tokens(data, matches, nv, N=TOK_N, start=TOK_N)
 
 
 # ---------------------------------------------------------------------------

@@ -557,7 +557,8 @@ def _first_dispatch(corpus):
                              cfg.blocks_per_dispatch)
     blk, nv = torch.from_numpy(blk).cuda(), torch.from_numpy(nv).cuda()
     matches = find_matches(blk, nv, N=N, S=cfg.probe_words,
-                           J=cfg.candidates, reset=cfg.chunk_reset)
+                           J=cfg.candidates, reset=cfg.chunk_reset,
+                           two_phase=True)
     return cfg, blk, nv, matches
 
 
@@ -730,3 +731,132 @@ def test_select_turbo_kernel_matches_plain_on_ragged_dispatches(lanes):
     slen[::3] = 0
     _, cnt = _select_both(pv.cuda(), slen.cuda(), False)
     assert (cnt[::3] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the general encoder's kernel (select_tokens) and the encoder
+
+def _tokens_both(data, matches, nv, N, SEG, lazy, start):
+    """``select_tokens`` on the card against its plain version on the CPU
+    copies: counts, tokens in [0, count), zeros past it."""
+    from zlibes_tpu_torch.ops import lz77
+
+    tv_k, td_k, cnt_k = lz77.select_tokens(data.cuda(), matches.cuda(),
+                                           nv.cuda(), N=N, SEG_SIZE=SEG,
+                                           lazy=lazy, start=start)
+    torch.cuda.synchronize()
+    tv_p, td_p, cnt_p = lz77.select_tokens_plain(data, matches, nv, N, SEG,
+                                                 lazy, start)
+    assert _same(cnt_k, cnt_p)
+    assert _same(tv_k, tv_p) and _same(td_k, td_p)      # zeros past the count
+    return tv_k.cpu(), td_k.cpu(), cnt_k.cpu()
+
+
+def random_select_tokens_inputs(B: int, N: int, start: int, seed: int):
+    """Random bytes and random matches (lengths 0..258, 40% none; distances
+    1..32768) of B rows, with ragged and empty rows."""
+    g = torch.Generator().manual_seed(seed)
+    data = torch.randint(0, 256, (B, N + 8), generator=g, dtype=torch.uint8)
+    ml = torch.randint(0, 259, (B, N), generator=g)
+    ml = torch.where(torch.rand((B, N), generator=g) < 0.4, 0, ml)
+    dist = torch.randint(1, 32769, (B, N), generator=g)
+    matches = ((ml << 16) | dist).int()
+    nv = torch.randint(start, N + 1, (B,), generator=g, dtype=torch.int32)
+    nv[0] = N
+    nv[-1] = start
+    return data, matches, nv
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+@pytest.mark.parametrize("SEG,start", [(4096, 0), (1024, 0), (4096, 32768),
+                                       (1024, 32768), (16384, 0)])
+def test_select_tokens_kernel_matches_plain_on_random(SEG, start, lazy):
+    N = start + 16384
+    data, matches, nv = random_select_tokens_inputs(5, N, start, SEG + start)
+    _, _, cnt = _tokens_both(data, matches, nv, N, SEG, lazy, start)
+    assert (cnt == 0).any() and int(cnt.max()) > 10
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+@pytest.mark.parametrize("start", [0, 4096])
+def test_select_tokens_kernel_matches_plain_on_contract_cases(lazy, start):
+    import test_torch_contract_cases as cases
+
+    data, matches, nv = cases.select_tokens_inputs(start)
+    tv, td, cnt = _tokens_both(data, matches, nv, start + cases.TOK_N,
+                               cases.TOK_SEG, lazy, start)
+    for case in cases.SELECT_TOKENS_CASES:
+        cases.check_select_tokens_case(case, lazy, tv.numpy(), td.numpy(),
+                                       cnt.numpy())
+
+
+def test_select_tokens_kernel_matches_plain_on_corpus():
+    """Real matches of two 128 KiB blocks of raw.bin at level 6, the second
+    one short."""
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops.lz77 import find_matches
+
+    cfg = zlibes_tpu_torch.CodecConfig.from_level(6)
+    N = cfg.block_size
+    raw = np.frombuffer((GOLDEN / "raw.bin").read_bytes()[: N + 50000],
+                        np.uint8)
+    blk, nv, _ = tdp.general_rows(raw, 0, 2, N, 3, None)
+    blk, nv = torch.from_numpy(blk), torch.from_numpy(nv)
+    matches = find_matches(blk.cuda(), nv.cuda(), N=N, S=cfg.probe_words,
+                           J=cfg.candidates).cpu()
+    _, _, cnt = _tokens_both(blk, matches, nv, N, cfg.seg_size, True, 0)
+    assert int(cnt.sum()) > 10000 and not cnt[-32:].any()
+
+
+def test_select_tokens_wrapper_checks_and_never_takes_plain(monkeypatch):
+    from zlibes_tpu_torch.ops import lz77
+    from zlibes_tpu_torch.runtime import kernels
+
+    data, matches, nv = (t.cuda() for t in
+                         random_select_tokens_inputs(2, 8192, 0, 1))
+    with pytest.raises(ValueError, match="dtype"):
+        lz77.select_tokens(data, matches.long(), nv, N=8192)
+    with pytest.raises(ValueError, match="expected cuda"):
+        lz77.select_tokens(data.cpu(), matches, nv, N=8192)
+    with pytest.raises(ValueError, match="SEG_SIZE up to"):
+        lz77.select_tokens(
+            *(t.cuda() for t in random_select_tokens_inputs(1, 32768, 0, 2)),
+            N=32768, SEG_SIZE=32768)
+
+    def broken():
+        raise RuntimeError("no library")
+
+    monkeypatch.setattr(kernels, "library", broken)
+    with pytest.raises(RuntimeError, match="no library"):
+        lz77.select_tokens(data, matches, nv, N=8192)
+
+
+def test_general_deflate_on_card_equals_cpu(monkeypatch):
+    """raw.bin at level 6 on the card: the CPU run's bytes and index, through
+    the select_tokens kernel and not its plain version; CPython and the
+    port's own inflate give the input back."""
+    import dataclasses
+
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import lz77
+
+    raw = (GOLDEN / "raw.bin").read_bytes()
+    cfg = dataclasses.replace(zlibes_tpu_torch.CodecConfig.from_level(6),
+                              blocks_per_dispatch=2)
+    cpu, cpu_idx = tdp.deflate(raw, with_index=True, config=cfg, device="cpu")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(lz77, "select_tokens_plain", plain)
+    tk.LAUNCHES.clear()
+    out, idx = tdp.deflate(raw, with_index=True, config=cfg, device="cuda")
+    assert tk.LAUNCHES["select_tokens"] == 2
+    assert out == cpu and len(out) == 191419
+    assert idx.blocks == cpu_idx.blocks and idx.wide
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(idx, f), getattr(cpu_idx, f)), f
+    assert zlib.decompress(out) == raw
+    tk.LAUNCHES.clear()
+    assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == raw
+    assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}

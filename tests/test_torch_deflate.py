@@ -124,7 +124,7 @@ def _valid(cnt, T=CFG.seg_size):
 def test_find_matches_matches_reference(disp):
     got = lz77.find_matches(_t(disp.blk), _t(disp.nv), N=BS,
                             S=CFG.probe_words, J=CFG.candidates,
-                            reset=CFG.chunk_reset)
+                            reset=CFG.chunk_reset, two_phase=True)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), disp.matches)
 
@@ -133,7 +133,7 @@ def test_find_matches_takes_dist1_runs_past_probe_cap():
     disp = Dispatch(DISPATCH["rle"]())
     got = lz77.find_matches(_t(disp.blk), _t(disp.nv), N=BS,
                             S=CFG.probe_words, J=CFG.candidates,
-                            reset=CFG.chunk_reset).numpy()
+                            reset=CFG.chunk_reset, two_phase=True).numpy()
     assert np.array_equal(got, disp.matches)
     ml, dist = got >> 16, got & 0xFFFF
     cap = 4 * CFG.probe_words + 3
@@ -419,8 +419,28 @@ def test_recompute_path_is_byte_identical():
     dict(config=dataclasses.replace(CFG, max_code_bits=15)),
     dict(config=CFG, dictionary=b"a preset dictionary")])
 def test_not_ported_raises_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        zlibes_tpu_torch.deflate(b"some bytes", device="cpu", **kwargs)
+    """What the port refused before it had the general encoder now encodes
+    (a level, the default config, a dictionary); what it still refuses, a
+    shared-tables config outside the turbo profile, names what is missing."""
+    data = b"some bytes, and some bytes, and some more bytes"
+    cfg = kwargs.get("config")
+    if cfg is not None and cfg.shared_tables and cfg.max_code_bits > 9:
+        with pytest.raises(NotImplementedError,
+                           match="fields above 32 bits is not ported"):
+            zlibes_tpu_torch.deflate(data, device="cpu", **kwargs)
+        return
+    out = zlibes_tpu_torch.deflate(data, device="cpu", block_size=4096,
+                                   **kwargs)
+    zdict = kwargs.get("dictionary")
+    d = zlib.decompressobj(zdict=zdict) if zdict else zlib.decompressobj()
+    assert d.decompress(out) == data
+    assert zlibes_tpu_torch.inflate(out, dictionary=zdict,
+                                    device="cpu") == data
+    # the turbo profile where the config asks for it and no dictionary
+    # forbids it, per-block tables elsewhere
+    _, index = tdp.deflate(data, with_index=True, device="cpu",
+                           block_size=4096, **kwargs)
+    assert index.turbo == (cfg is CFG and zdict is None)
 
 
 def test_deflate_modules_leave_jax_out():

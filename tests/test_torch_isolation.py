@@ -52,6 +52,26 @@ assert zt.inflate(comp, index=index, device="cpu") == data
 assert zt.inflate_range(comp, index, 4090, 20, device="cpu") == data[4090:4110]
 (out, off, n), = zt.inflate_to_device(comp, index, device="cpu")
 assert out[:n].numpy().tobytes() == data
+for name in ("zlibes_tpu_torch.ops.lz77",
+             "zlibes_tpu_torch.ops.deflate_kernel",
+             "zlibes_tpu_torch.codec.deflate_pipeline",
+             "zlibes_tpu_torch.codec.api"):
+    assert name in names, name
+# the general encoder: a level, the default config with its index, a preset
+# dictionary, level 0, and the host model behind backend=
+wide, windex = zt.deflate_indexed(data, block_size=4096, device="cpu")
+assert windex.wide and zlib.decompress(wide) == data
+assert zt.deflate(data, level=6, block_size=4096, device="cpu") == wide
+assert zt.inflate(wide, index=windex, device="cpu") == data
+assert zt.inflate_range(wide, windex, 4090, 20,
+                        device="cpu") == data[4090:4110]
+assert zlib.decompress(zt.deflate(data, level=0, device="cpu")) == data
+fdict = zt.deflate(data, level=1, dictionary=data[:500], block_size=4096,
+                   device="cpu")
+assert zlib.decompressobj(zdict=data[:500]).decompress(fdict) == data
+host, hindex = zt.deflate_indexed(data, backend="refmodel")
+assert zt.deflate(data, backend="refmodel") == host
+assert zt.inflate(host, backend="refmodel") == data
 from zlibes_tpu_torch.runtime import native
 if native.available():
     assert zt.inflate(zlib.compress(data, 6), device="cpu") == data

@@ -158,7 +158,9 @@ def test_foreign_indexed_chained_decode():
 
 def test_index_save_load(tmp_path):
     data = RAW[:100000]
-    comp, index = rm.deflate(data, with_index=True)
+    comp, index = zlibes_tpu_torch.deflate_indexed(data, backend="refmodel")
+    assert (comp, index.blocks) == (lambda c, i: (c, i.blocks))(
+        *rm.deflate(data, with_index=True))
     path = tmp_path / "stream.idx.npz"
     index.save(path)
     loaded = StreamIndex.load(path)

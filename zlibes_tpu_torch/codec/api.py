@@ -3,7 +3,20 @@ from __future__ import annotations
 
 import torch
 
+from ..spec import refmodel as _rm
 from ..spec.refmodel import StreamIndex
+
+# "device": the pipelines on ``device=`` (CUDA kernels on a card, their plain
+# PyTorch versions on the CPU); "refmodel": the numpy spec model on the host.
+# There is no "auto": the port never gives way from the device to the host
+# model by itself.
+_BACKENDS = ("device", "refmodel")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in _BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}; expected one of {_BACKENDS}")
 
 
 def _device(device: torch.device | str) -> torch.device:
@@ -29,23 +42,34 @@ def _own_index(index):
     return index
 
 
-def deflate(data: bytes, *, level: int | None = None, config=None,
+def deflate(data: bytes, *, backend: str = "device",
+            level: int | None = None, config=None,
             block_size: int | None = None, stats=None,
             dictionary: bytes | None = None,
             device: torch.device | str = "cuda") -> bytes:
-    """Compress ``data`` into a zlib stream (header 0x78 0x9C + Adler-32) on
-    ``device`` (CUDA kernels on a card, their plain PyTorch versions on the
-    CPU).
+    """Compress ``data`` into a zlib stream (header 0x78 0x9C, or the FDICT
+    header with ``dictionary``, + Adler-32) on ``device`` (CUDA kernels on
+    a card, their plain PyTorch versions on the CPU).
 
-    The port encodes the turbo profile: ``config`` must be
-    ``CodecConfig.turbo(...)`` (shared tables, 512-byte segments, 4 KiB
-    window resets, codes of at most 9 bits).  ``level=``, the default
-    config and ``dictionary=`` raise NotImplementedError (the general
-    encoder, levels 1-9, is not ported yet); a config of another class
-    raises TypeError.  ``stats`` (a CodecStats) collects
-    per-call observability.  The pipeline's ``deflate(..., with_index=True)``
-    also returns the stream's StreamIndex.
+    ``level`` 0..9 selects a speed/ratio preset (zlib-style; 0 stores);
+    ``config`` (a ``CodecConfig``) overrides it; with neither the default
+    config (level 6) encodes.  ``CodecConfig.turbo(...)`` selects the turbo
+    profile (shared tables, 512-byte segments, 4 KiB window resets, codes
+    of at most 9 bits); any other shared-tables config raises
+    NotImplementedError, a config of another class TypeError.
+    ``dictionary=`` supplies a preset dictionary (RFC 1950 §2.2).
+    ``stats`` (a ``CodecStats``) collects per-call observability.
+
+    ``backend="device"`` (the default) runs the pipeline on ``device``;
+    ``backend="refmodel"`` runs the numpy spec model on the host with
+    ``block_size`` and ``dictionary`` and ignores the other arguments.
+    There is no "auto": the device path never gives way to the host model
+    by itself, and a failure on the device raises.
     """
+    _check_backend(backend)
+    if backend == "refmodel":
+        kw = {"block_size": block_size} if block_size else {}
+        return _rm.deflate(bytes(data), dictionary=dictionary, **kw)
     from . import deflate_pipeline
 
     dev = _device(device)
@@ -54,8 +78,30 @@ def deflate(data: bytes, *, level: int | None = None, config=None,
                                     dictionary=dictionary, device=dev)
 
 
-def inflate(data: bytes, *, index=None, verify_checksum: bool = True,
-            dictionary: bytes | None = None,
+def deflate_indexed(data: bytes, *, backend: str = "device",
+                    block_size: int | None = None,
+                    device: torch.device | str = "cuda"):
+    """Compress with the default config and return (zlib bytes,
+    StreamIndex).
+
+    The index (block layout and decode anchors) selects the lane-parallel
+    ``inflate(..., index=)`` and the seekable ``inflate_range``; the stream
+    itself is plain conformant zlib.  ``backend`` as for ``deflate``: the
+    device pipeline's index is a wide one (an anchor every 128 output
+    bytes), the host model's a generic one (about every 4 KiB).
+    """
+    _check_backend(backend)
+    if backend == "refmodel":
+        kw = {"block_size": block_size} if block_size else {}
+        return _rm.deflate(bytes(data), with_index=True, **kw)
+    from . import deflate_pipeline
+
+    return deflate_pipeline.deflate(bytes(data), block_size=block_size,
+                                    with_index=True, device=_device(device))
+
+
+def inflate(data: bytes, *, backend: str = "device", index=None,
+            verify_checksum: bool = True, dictionary: bytes | None = None,
             device: torch.device | str = "cuda") -> bytes:
     """Decompress a zlib stream, verifying the Adler-32 trailer.
 
@@ -68,7 +114,15 @@ def inflate(data: bytes, *, index=None, verify_checksum: bool = True,
     the host through the port's native runtime, and an index that does not
     match what was decoded raises CorruptError.  ``dictionary=`` supplies
     the preset dictionary for FDICT streams (RFC 1950 §2.2).
+
+    ``backend="refmodel"`` decodes with the numpy spec model on the host
+    (``verify_checksum`` and ``dictionary`` passed on, ``index`` unused);
+    the default ``"device"`` never gives way to it by itself.
     """
+    _check_backend(backend)
+    if backend == "refmodel":
+        return _rm.inflate(bytes(data), verify_checksum=verify_checksum,
+                           dictionary=dictionary)
     from . import inflate_pipeline
 
     return inflate_pipeline.inflate(bytes(data), verify_checksum=verify_checksum,

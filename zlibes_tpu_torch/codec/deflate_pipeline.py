@@ -1,15 +1,39 @@
-"""Turbo-profile deflate for the PyTorch port.
+"""The deflate pipeline of the PyTorch port: match, select and pack on the
+device, tables and splice on the host.
 
-Counterpart of the shared-table branch of
-``zlibes_tpu/codec/deflate_pipeline.py`` (``_deflate_turbo``, the encoder
-of ``CodecConfig.turbo()``).  The input splits into blocks; per dispatch of
-``cfg.blocks_per_dispatch`` blocks, padded, on the requested device:
+Counterpart of ``zlibes_tpu/codec/deflate_pipeline.py``.  The input splits
+into blocks of ``block_size`` bytes; per dispatch of
+``cfg.blocks_per_dispatch`` blocks, padded, on the requested device.  Two
+encoders, chosen as the reference chooses:
 
-  phase 1  sort-based match finding -> ``select_turbo`` (CUDA kernel) over
-           512-byte segment lanes -> symbols and per-block histograms, and
-           Adler-32 partial sums; after every dispatch, the stream-wide
-           length-limited code lengths (package-merge on the device) ride
-           the same single readback;
+**General** (``_deflate_general``: levels 1-9, the default config, any
+config without shared tables, and every stream with a preset dictionary),
+per dispatch:
+
+  device   sort-based match finding over the full 32 KiB window ->
+           ``select_tokens`` (CUDA kernel) over ``seg_size``-byte segment
+           lanes -> symbols and per-block histograms; one readback;
+  host     per block: length-limited code lengths (package-merge), the
+           dynamic header, and the choice of stored, fixed or dynamic;
+  device   ``pack_payload`` under the per-block tables, with the 128-byte
+           sub-anchors of the wide index; one readback of the metadata, one
+           of the used words;
+  host     splice headers, end-of-block codes, stored blocks, empty stored
+           sync blocks and the anchors into the stream and its StreamIndex
+           (``wide`` unless a dictionary was given).
+
+A preset dictionary's last 32 KiB ride in front of the first block's row as
+a context prefix the matcher may copy from and the selector never
+tokenizes.  Level 0 (``force_stored``) writes stored blocks on the host.
+
+**Turbo** (``_deflate_turbo``: ``CodecConfig.turbo()`` without a
+dictionary):
+
+  phase 1  match finding under a 4 KiB window reset -> ``select_turbo``
+           (CUDA kernel) over 512-byte segment lanes -> symbols and
+           per-block histograms, and Adler-32 partial sums; after every
+           dispatch, the stream-wide length-limited code lengths
+           (package-merge on the device) ride the same single readback;
   host     one dynamic header (identical but for BFINAL) and the shared
            canonical codes;
   phase 2  ``encode_fields`` (CUDA kernel) and the pack into a compacted
@@ -17,21 +41,21 @@ of ``CodecConfig.turbo()``).  The input splits into blocks; per dispatch of
   host     splice headers, EOB codes, empty stored sync blocks and the
            paired 512-byte anchors into the stream and its StreamIndex.
 
-The whole encode reads the device back twice.  Beyond
+The turbo encode reads the device back twice.  Beyond
 ``cfg.phase1_cache_blocks`` blocks phase 2 runs match and select again
 instead of keeping phase 1's tokens; the bytes are the same.  Every stage
 is integer work, so the bytes equal the JAX package's, on any device.
 
-Other configurations, levels and preset dictionaries raise
-NotImplementedError: the general per-block-table encoder is ROADMAP queue 1
-item 7.
+A shared-tables config that is not the turbo profile (another segment
+size or window reset, codes above 9 bits) raises NotImplementedError: the
+shared-table pack is ported for fields of at most 32 bits only.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import CodecConfig, CodecStats
+from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats
 from ..ops import huffman
 from ..spec import constants as C
 from ..spec.refmodel import (
@@ -39,13 +63,21 @@ from ..spec.refmodel import (
     BlockInfo,
     StreamIndex,
     _rle_code_lengths,
+    adler32,
 )
 
 from ..ops import turbo_kernel as tk
-from ..ops.deflate_kernel import pack_payload_turbo_dense, token_symbols
+from ..ops.adler32 import adler32_device
+from ..ops.deflate_kernel import (
+    gather_compressed,
+    pack_payload,
+    pack_payload_turbo_dense,
+    token_symbols,
+)
 from ..ops.encode_kernel import pack_tables
 from ..ops.entropy import limited_lengths_pair
-from ..ops.lz77 import find_matches
+from ..ops.lz77 import find_matches, select_tokens
+from ..ops.wide_kernel import SUB as WIDE_SUB
 
 _RLE_EXTRA_BITS = {16: 2, 17: 3, 18: 7}
 _ADLER_CHUNK = 2048
@@ -53,28 +85,28 @@ _M = C.ADLER_MOD
 _F = 80  # filler slots per block (header + EOB tail words)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the port encodes only the turbo profile "
-        f"(CodecConfig.turbo()); the general encoder is ROADMAP queue 1 "
-        f"item 7")
+_FIXED_LL_LEN = C.fixed_litlen_code_lengths()
+_FIXED_D_LEN = C.fixed_dist_code_lengths()
 
 
-def check_turbo_config(cfg: CodecConfig | None) -> CodecConfig:
-    """The config, if it is one the port encodes: shared tables, 512-byte
-    segments, a 4 KiB window reset and codes of at most 9 bits."""
+def _own_config(cfg: CodecConfig | None) -> CodecConfig:
+    """``cfg``, or the default config for None; an object of another class
+    (the JAX package's config included) raises TypeError."""
     if cfg is None:
-        raise _not_ported("the default config")
+        return DEFAULT_CONFIG
     if not isinstance(cfg, CodecConfig):
         raise TypeError(
             f"config is a {type(cfg).__module__}.{type(cfg).__qualname__}, "
             f"not zlibes_tpu_torch.CodecConfig; convert it with "
             f"zlibes_tpu_torch.config.config_from_reference")
-    if not (cfg.shared_tables and cfg.seg_size == 512
-            and cfg.chunk_reset == 4096 and cfg.max_code_bits <= 9
-            and not cfg.force_stored):
-        raise _not_ported(f"config {cfg}")
     return cfg
+
+
+def _is_turbo(cfg: CodecConfig) -> bool:
+    """Shared tables, 512-byte segments, a 4 KiB window reset and codes of
+    at most 9 bits: what ``_deflate_turbo`` encodes."""
+    return (cfg.shared_tables and cfg.seg_size == 512
+            and cfg.chunk_reset == 4096 and cfg.max_code_bits <= 9)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +284,8 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         ad_a, ad_b = adler_terms(dev_bytes, dev_nv)
         with stats.timer("match"):
             matches = find_matches(dev_bytes, dev_nv, N=N, S=cfg.probe_words,
-                                   J=cfg.candidates, reset=cfg.chunk_reset)
+                                   J=cfg.candidates, reset=cfg.chunk_reset,
+                                   two_phase=True)
         with stats.timer("select"):
             tv, td, cnt = select_glue(dev_bytes, matches, dev_nv, N,
                                       cfg.lazy)
@@ -462,15 +495,326 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     return body, index
 
 
+def _stored_blocks(raw: np.ndarray, bfinal: int, bit: int, out_start: int):
+    """``raw`` (not empty) as stored blocks of at most 65,535 bytes, the
+    first at stream bit ``bit`` (on a byte) and output byte ``out_start``,
+    the last with ``bfinal`` -> [(bytes, BlockInfo)]."""
+    out = []
+    for pos in range(0, raw.size, 65535):
+        chunk = raw[pos : pos + 65535]
+        bf = bfinal if pos + 65535 >= raw.size else 0
+        ln = chunk.size
+        part = bytes([bf]) + ln.to_bytes(2, "little") \
+            + (~ln & 0xFFFF).to_bytes(2, "little") + chunk.tobytes()
+        out.append((part, BlockInfo(C.BTYPE_STORED, bool(bf), bit, bit + 8,
+                                    bit + len(part) * 8, out_start + pos,
+                                    ln)))
+        bit += len(part) * 8
+    return out
+
+
+def _stored_stream(arr: np.ndarray, stats: CodecStats):
+    """Level 0: stored blocks only, no device work."""
+    parts, blocks = zip(*_stored_blocks(arr, 1, 0, 0))
+    body = b"".join(parts)
+    stats.bytes_out += len(body)
+    stats.blocks += len(blocks)
+    return body, StreamIndex(list(blocks), np.zeros(0, np.int64),
+                             np.zeros(0, np.int64), np.zeros(0, np.int32))
+
+
+class _BlockPlan:
+    """How one block is coded: stored (``raw``), or under fixed or dynamic
+    tables with its header bits and end-of-block code."""
+    __slots__ = ("btype", "bfinal", "raw", "hdr_bytes", "hdr_bits", "ll_len",
+                 "d_len", "ll_code", "d_code", "eob_code", "eob_len")
+
+
+def _plan_block(llf: np.ndarray, dfq: np.ndarray, raw: np.ndarray,
+                bfinal: int) -> _BlockPlan:
+    """The cheapest of stored, fixed and dynamic for a block with the
+    litlen and distance histograms ``llf`` (end-of-block counted) and
+    ``dfq`` and the bytes ``raw``, with its tables."""
+    ll_len = package_merge_np(llf, C.MAX_CODELEN_BITS)
+    d_len = package_merge_np(dfq, C.MAX_CODELEN_BITS)
+    if d_len.max(initial=0) == 0:
+        d_len[0] = 1
+    hdr, hdr_nbits = _dynamic_header(ll_len, d_len, bfinal)
+    dyn_bits = hdr_nbits + _payload_bits(llf, dfq, ll_len, d_len) \
+        + int(ll_len[C.END_OF_BLOCK])
+    fix_bits = 3 + _payload_bits(llf, dfq, _FIXED_LL_LEN, _FIXED_D_LEN) \
+        + int(_FIXED_LL_LEN[C.END_OF_BLOCK])
+    nb = raw.size
+    stored_bytes = nb + 5 * (-(-nb // 65535))
+    plan = _BlockPlan()
+    plan.bfinal = bfinal
+    if stored_bytes < min(dyn_bits, fix_bits) // 8:
+        plan.btype = C.BTYPE_STORED
+        plan.raw = raw
+        return plan
+    if fix_bits <= dyn_bits:
+        plan.btype = C.BTYPE_FIXED
+        plan.hdr_bytes = bytes([bfinal | (C.BTYPE_FIXED << 1)])
+        plan.hdr_bits = 3
+        plan.ll_len, plan.d_len = _FIXED_LL_LEN, _FIXED_D_LEN
+    else:
+        plan.btype = C.BTYPE_DYNAMIC
+        plan.hdr_bytes = hdr
+        plan.hdr_bits = hdr_nbits
+        plan.ll_len, plan.d_len = ll_len, d_len
+    plan.ll_code, plan.d_code = _encode_tables(plan.ll_len, plan.d_len)
+    plan.eob_code = int(plan.ll_code[C.END_OF_BLOCK])
+    plan.eob_len = int(plan.ll_len[C.END_OF_BLOCK])
+    return plan
+
+
+def general_rows(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int,
+                 dict_np: np.ndarray | None):
+    """Block rows of one dispatch of the general encoder -> (blk_bytes
+    (Bp, CTX + N + 8) uint8, n_valid (Bp,) int32 bytes per block, ctx_start
+    (Bp,) int32 first real byte of each row or None).  CTX is 32 KiB with a
+    dictionary and 0 without; the dictionary's tail sits just below CTX in
+    block 0's row only, and the padding below it (every other row's whole
+    prefix) is no match source."""
+    CTX = C.WINDOW_SIZE if dict_np is not None else 0
+    blk_bytes = np.zeros((Bp, CTX + N + 8), dtype=np.uint8)
+    n_valid = np.zeros(Bp, dtype=np.int32)
+    for i, bi in enumerate(range(d0, d1)):
+        chunk = arr[bi * N : (bi + 1) * N]
+        blk_bytes[i, CTX : CTX + chunk.size] = chunk
+        n_valid[i] = chunk.size
+    if not CTX:
+        return blk_bytes, n_valid, None
+    ctx_start = np.full(Bp, CTX, np.int32)
+    if d0 == 0:
+        blk_bytes[0, CTX - dict_np.size : CTX] = dict_np
+        ctx_start[0] = CTX - dict_np.size
+    return blk_bytes, n_valid, ctx_start
+
+
+def dispatch_tables(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int,
+                    ll_freq: np.ndarray, d_freq: np.ndarray):
+    """The host's part of one dispatch: from the per-block histograms
+    ll_freq (Bp, 288) and d_freq (Bp, 32) of blocks [d0, d1) of ``arr``,
+    each block's plan and the arguments of ``pack_payload`` as CPU tensors
+    (ll_code, ll_len (Bp, 288), d_code, d_len (Bp, 32), hdr_bits (Bp,),
+    enabled (Bp,) bool; zeros and False for a stored or a padded block)."""
+    nblocks = -(-arr.size // N)
+    plans: list[_BlockPlan] = []
+    ll_code = np.zeros((Bp, C.NUM_LITLEN_SYMBOLS), np.int64)
+    ll_len = np.zeros((Bp, C.NUM_LITLEN_SYMBOLS), np.int64)
+    d_code = np.zeros((Bp, C.NUM_DIST_SYMBOLS), np.int64)
+    d_len = np.zeros((Bp, C.NUM_DIST_SYMBOLS), np.int64)
+    hdr_bits = np.zeros(Bp, np.int64)
+    enabled = np.zeros(Bp, bool)
+    for i, bi in enumerate(range(d0, d1)):
+        llf = ll_freq[i].astype(np.int64)
+        llf[C.END_OF_BLOCK] += 1
+        plan = _plan_block(llf, d_freq[i].astype(np.int64),
+                           arr[bi * N : (bi + 1) * N],
+                           1 if bi == nblocks - 1 else 0)
+        if plan.btype != C.BTYPE_STORED:
+            ll_code[i] = plan.ll_code
+            ll_len[i] = plan.ll_len
+            d_code[i] = plan.d_code
+            d_len[i] = plan.d_len
+            hdr_bits[i] = plan.hdr_bits
+            enabled[i] = True
+        plans.append(plan)
+    return plans, tuple(torch.from_numpy(x) for x in (
+        ll_code, ll_len, d_code, d_len, hdr_bits, enabled))
+
+
+def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
+                     stats: CodecStats, dev: torch.device,
+                     dict_np: np.ndarray | None):
+    """Per-block-table encode: every block gets the cheapest of stored,
+    fixed and dynamic coding under its own length-limited tables."""
+    n = arr.size
+    nblocks = -(-n // N)
+    SEG_SIZE = cfg.seg_size
+    nseg = N // SEG_SIZE
+    Bp = cfg.blocks_per_dispatch
+    CTX = C.WINDOW_SIZE if dict_np is not None else 0
+    W = (15 * N + 4096) // 32           # words of one block's buffer
+    L_ = Bp * nseg
+    nsub_lane = SEG_SIZE // WIDE_SUB
+    nh = C.NUM_LITLEN_SYMBOLS
+    nd = C.NUM_DIST_SYMBOLS
+
+    out_parts: list[bytes] = []
+    blocks: list[BlockInfo] = []
+    anchor_bit: list[int] = []
+    anchor_out: list[int] = []
+    anchor_block: list[int] = []
+    stream_bit = 0      # every block starts on a byte
+
+    for d0 in range(0, nblocks, Bp):
+        d1 = min(nblocks, d0 + Bp)
+        B = d1 - d0
+        stats.dispatches += 1
+        blk_bytes, n_valid, ctx_np = general_rows(arr, d0, d1, N, Bp, dict_np)
+        dev_bytes = torch.from_numpy(blk_bytes).to(dev)
+        dev_nv = torch.from_numpy(n_valid).to(dev) + CTX
+        ctx_dev = torch.from_numpy(ctx_np).to(dev) if CTX else None
+        with stats.timer("match"):
+            if cfg.candidates > 0:
+                matches = find_matches(dev_bytes, dev_nv, N=CTX + N,
+                                       S=cfg.probe_words, J=cfg.candidates,
+                                       reset=cfg.chunk_reset,
+                                       ctx_start=ctx_dev)
+            else:       # literals only
+                matches = torch.zeros((Bp, CTX + N), dtype=torch.int32,
+                                      device=dev)
+        with stats.timer("select"):
+            tv, td, cnt = select_tokens(dev_bytes, matches, dev_nv,
+                                        N=CTX + N, SEG_SIZE=SEG_SIZE,
+                                        lazy=cfg.lazy, start=CTX)
+        with stats.timer("symbols"):
+            lsym, dsym, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
+                                                               nseg=nseg)
+        with stats.timer("readback"):
+            freq_np = torch.cat([ll_freq.reshape(-1),
+                                 d_freq.reshape(-1)]).cpu().numpy()
+        ll_freq_np = freq_np[: Bp * nh].reshape(Bp, nh)
+        d_freq_np = freq_np[Bp * nh :].reshape(Bp, nd)
+
+        # --- host: each block's coding choice and tables
+        with stats.timer("tables"):
+            plans, tables = dispatch_tables(arr, d0, d1, N, Bp, ll_freq_np,
+                                            d_freq_np)
+            t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en = (
+                t.to(dev) for t in tables)
+
+        # --- device: the payload pack, with the wide index's sub-anchors
+        with stats.timer("pack"):
+            words, payload_end, lane_bit0, sub_bit, sub_out = pack_payload(
+                tv, td, lsym, dsym, valid,
+                t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en,
+                nseg=nseg, W=W, sub_every=WIDE_SUB)
+        with stats.timer("readback"):
+            meta_np = torch.cat([payload_end, lane_bit0, sub_bit.reshape(-1),
+                                 sub_out.reshape(-1)]).cpu().numpy()
+        payload_end_np = meta_np[:Bp]
+        sub_bit_np = meta_np[Bp + L_ : Bp + L_ + L_ * nsub_lane].reshape(
+            L_, nsub_lane)
+        sub_out_np = meta_np[Bp + L_ + L_ * nsub_lane :].reshape(
+            L_, nsub_lane)
+
+        # one indexed read of the words the coded blocks used
+        used_words = np.zeros(B, np.int64)
+        for i in range(B):
+            if plans[i].btype != C.BTYPE_STORED:
+                used_words[i] = (int(payload_end_np[i]) + plans[i].eob_len
+                                 + 31) // 32 + 1
+        offs = np.concatenate([[0], np.cumsum(used_words)]).astype(np.int64)
+        if offs[-1]:
+            flat_idx = np.concatenate(
+                [np.arange(used_words[i], dtype=np.int64) + i * W
+                 for i in range(B)])
+            with stats.timer("readback"):
+                dense = gather_compressed(
+                    words.reshape(-1),
+                    torch.from_numpy(flat_idx).to(dev)).cpu().numpy()
+        else:
+            dense = np.zeros(0, np.int32)
+
+        # --- host: splice the blocks
+        with stats.timer("splice"):
+            for i in range(B):
+                bi = d0 + i
+                plan = plans[i]
+                nb = int(n_valid[i])
+                out_start = bi * N
+                if plan.btype == C.BTYPE_STORED:
+                    for part, info in _stored_blocks(plan.raw, plan.bfinal,
+                                                     stream_bit, out_start):
+                        out_parts.append(part)
+                        blocks.append(info)
+                        stream_bit = info.end_bit
+                    continue
+                buf = dense[int(offs[i]) : int(offs[i + 1])].view(
+                    np.uint8).copy()
+                end_bits = int(payload_end_np[i])
+                # the device left the header's bits [0, hdr_bits) free
+                hb = np.frombuffer(plan.hdr_bytes, dtype=np.uint8)
+                buf[: hb.size] |= hb
+                _or_bits(buf, end_bits, plan.eob_code, plan.eob_len)
+                end_bits += plan.eob_len
+                start_bit = stream_bit
+                blocks.append(BlockInfo(
+                    plan.btype, bool(plan.bfinal), start_bit,
+                    start_bit + plan.hdr_bits, start_bit + end_bits,
+                    out_start, nb))
+                # one anchor every 128 output bytes of the block (the wide
+                # decode's lanes).  A boundary with no token starting at or
+                # after it in its own selection lane takes the next
+                # boundary's: the valid (bit, out) pairs do not decrease in
+                # boundary order, so that is a suffix minimum over the
+                # block's flattened arrays with the block's end appended;
+                # repeated anchors mark empty decode lanes.
+                na_b = -(-nb // WIDE_SUB)
+                lanes_i = slice(i * nseg, (i + 1) * nseg)
+                flat_bit = np.concatenate(
+                    [sub_bit_np[lanes_i].reshape(-1)[:na_b],
+                     [end_bits]]).astype(np.int64)
+                flat_out = np.concatenate(
+                    [(np.arange(nseg, dtype=np.int64)[:, None] * SEG_SIZE
+                      + sub_out_np[lanes_i]).reshape(-1)[:na_b],
+                     [nb]])
+                fb = np.minimum.accumulate(flat_bit[::-1])[::-1][:-1]
+                fo = np.minimum.accumulate(flat_out[::-1])[::-1][:-1]
+                anchor_bit.extend(start_bit + fb)
+                anchor_out.extend(out_start + fo)
+                anchor_block.extend([len(blocks) - 1] * na_b)
+                if plan.bfinal:
+                    nbytes = (end_bits + 7) // 8
+                    out_parts.append(buf[:nbytes].tobytes())
+                    stream_bit += nbytes * 8
+                else:
+                    # an empty stored block: the next block starts on a byte
+                    sync_start = end_bits
+                    nbytes = (end_bits + 3 + 7) // 8
+                    part = buf[:nbytes].tobytes() + b"\x00\x00\xff\xff"
+                    out_parts.append(part)
+                    blocks.append(BlockInfo(
+                        C.BTYPE_STORED, False, start_bit + sync_start,
+                        start_bit + nbytes * 8,
+                        stream_bit + len(part) * 8, out_start + nb, 0))
+                    stream_bit += len(part) * 8
+
+    body = b"".join(out_parts)
+    stats.bytes_out += len(body)
+    stats.blocks += len(blocks)
+    index = StreamIndex(
+        blocks,
+        np.asarray(anchor_bit, np.int64),
+        np.asarray(anchor_out, np.int64),
+        np.asarray(anchor_block, np.int32),
+        chunk_reset=cfg.chunk_reset,
+        # a dictionary stream's first block copies from the dictionary,
+        # which the wide resolve kernel does not hold: it keeps the host
+        # decode
+        wide=dict_np is None,
+    )
+    return body, index
+
+
 def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
                 config: CodecConfig | None = None,
                 stats: CodecStats | None = None,
                 dictionary: bytes | None = None, *,
                 device: torch.device | str = "cuda"):
-    """Encode a raw DEFLATE stream on ``device`` -> (bytes, StreamIndex)."""
-    cfg = check_turbo_config(config)
-    if dictionary is not None:
-        raise _not_ported("a preset dictionary")
+    """Encode a raw DEFLATE stream on ``device`` -> (bytes, StreamIndex).
+
+    ``dictionary``: a preset dictionary (RFC 1950 FDICT).  Its last 32 KiB
+    ride as a context prefix on the first block's row: the matcher sees it
+    (``find_matches(ctx_start=)``), the selector never tokenizes it
+    (``select_tokens(start=)``); later blocks are self-contained.  With a
+    dictionary even the turbo profile takes the general path (its 4 KiB
+    window resets could never reach one)."""
+    cfg = _own_config(config)
+    dev = torch.device(device)
     stats = stats if stats is not None else CodecStats()
     # a reused CodecStats must not carry a previous stream's Adler-32
     stats.adler = None
@@ -490,11 +834,23 @@ def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
     N = block_size
     if N % cfg.seg_size:
         raise ValueError("block_size must be a multiple of config.seg_size")
-    if N % _ADLER_CHUNK:
-        raise ValueError(
-            f"shared-tables encode requires block_size to be a multiple of "
-            f"{_ADLER_CHUNK} (fused Adler tiling); got {N}")
-    return _deflate_turbo(arr, N, cfg, stats, torch.device(device))
+    if cfg.force_stored:
+        return _stored_stream(arr, stats)
+    if cfg.shared_tables and not dictionary:
+        if not _is_turbo(cfg):
+            raise NotImplementedError(
+                f"config {cfg}: shared tables are encoded for the turbo "
+                f"profile only (seg_size 512, chunk_reset 4096, "
+                f"max_code_bits <= 9); the shared-table pack of coded "
+                f"fields above 32 bits is not ported")
+        if N % _ADLER_CHUNK:
+            raise ValueError(
+                f"shared-tables encode requires block_size to be a multiple "
+                f"of {_ADLER_CHUNK} (fused Adler tiling); got {N}")
+        return _deflate_turbo(arr, N, cfg, stats, dev)
+    dict_np = (np.frombuffer(bytes(dictionary[-C.WINDOW_SIZE:]), np.uint8)
+               if dictionary else None)
+    return _deflate_general(arr, N, cfg, stats, dev, dict_np)
 
 
 def deflate(data: bytes, block_size: int | None = None,
@@ -503,18 +859,34 @@ def deflate(data: bytes, block_size: int | None = None,
             stats: CodecStats | None = None,
             dictionary: bytes | None = None, *,
             device: torch.device | str = "cuda"):
-    """zlib-container deflate of the turbo profile on ``device``; with
-    ``with_index`` returns (bytes, StreamIndex)."""
-    if level is not None:
-        raise _not_ported(f"level={level}")
+    """zlib-container deflate on ``device``; with ``with_index`` returns
+    (bytes, StreamIndex).
+
+    ``level`` (0..9) selects a ``CodecConfig`` preset; ``config``
+    overrides it; neither gives the default config (level 6).
+    ``dictionary`` emits an FDICT member (RFC 1950 §2.2): the header
+    carries the dictionary's Adler-32 as DICTID."""
+    data = bytes(data)
+    if config is None and level is not None:
+        config = CodecConfig.from_level(level)
     if stats is None:
         stats = CodecStats()
     body, index = deflate_raw(data, block_size or C.BLOCK_MAX_BUFFER_LEN,
                               config=config, stats=stats,
                               dictionary=dictionary, device=device)
-    # the Adler-32 partial sums rode the phase-1 readback
-    trailer = stats.adler.to_bytes(4, "big")
-    header = C.ZLIB_HEADER
+    if stats.adler is not None:
+        # the Adler-32 partial sums rode the encode's dispatches
+        trailer = stats.adler.to_bytes(4, "big")
+    else:
+        arr = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).copy())
+        trailer = int(adler32_device(arr.to(device))).to_bytes(4, "big")
+    if dictionary is not None:
+        flg = 0x20 + (2 << 6)
+        flg += (31 - (0x78 * 256 + flg) % 31) % 31
+        header = bytes([0x78, flg]) + adler32(dictionary).to_bytes(4, "big")
+    else:
+        header = C.ZLIB_HEADER
+    # the container's framing counts toward the emitted bytes
     stats.bytes_out += len(header) + len(trailer)
     out = header + body + trailer
     if with_index:

@@ -1,6 +1,7 @@
-// Turbo-profile encode kernels for Hopper (sm_90a).
+// Encode kernels for Hopper (sm_90a).
 //
-// select_turbo (zlibes_tpu_torch/ops/turbo_kernel.py) and encode_fields
+// select_turbo (zlibes_tpu_torch/ops/turbo_kernel.py), select_tokens
+// (zlibes_tpu_torch/ops/lz77.py) and encode_fields
 // (zlibes_tpu_torch/ops/encode_kernel.py), each with a plain extern "C"
 // launcher that takes device pointers and a CUDA stream, launches on that
 // stream, and returns cudaGetLastError().  The Python wrappers check shapes,
@@ -28,9 +29,30 @@ constexpr int kDistSyms = 32;
 
 // ---------------------------------------------------------------- select
 // Greedy matching with a one-step lazy defer, in the reference's rule
-// order.  Far matches (dist > 2048) are capped at 130 bytes, as the
-// reference's split_far does for codes of at most 9 bits: the only codes
-// the port encodes.
+// order: one rule, select_step, for both select kernels.
+
+// The token at position c and the position that follows it.  ml, dist: the
+// best match at c; lit: the byte at c; ml1(): the length of the best match
+// at c + 1, asked for only where the defer is open (so only where
+// c + 1 < seg_end).  kSplitFar caps far matches (dist > 2048) at 130 bytes,
+// as the reference's split_far does for codes of at most 9 bits.  A match
+// is ml | dist << 9 | kMatchBitT, a literal its byte.
+template <bool kSplitFar, int kMatchBitT, typename NextLen>
+__device__ __forceinline__ void select_step(int ml, int dist, int lit,
+                                            NextLen ml1, int c, int seg_end,
+                                            int lazy, int& tok, int& next) {
+  ml = min(ml, seg_end - c);
+  if (kSplitFar && ml >= 131 && dist >= 2049) ml = 130;
+  bool use = ml >= kMinMatch;
+  if (lazy && use && ml < kMaxMatch && c + 1 < seg_end) {
+    if (ml1() > ml) use = false;
+  }
+  tok = use ? (ml | (dist << kDistShift) | kMatchBitT) : lit;
+  next = c + (use ? ml : 1);
+}
+
+// select_turbo: 512-position lanes, distances of 12 bits, split_far on (the
+// turbo profile's codes have at most 9 bits).
 //
 // A block of 128 threads owns 8 segment lanes and keeps their rows in 16 KB
 // of shared memory.  (1) It copies the rows in with one 16-byte load per
@@ -52,20 +74,12 @@ constexpr int kTokMask = (1 << kNextShift) - 1;
 
 // token | next << 22 of position c, given its packed value and the next
 // position's
-__device__ __forceinline__ int select_step(int cur, int nxt, int c,
-                                           int seg_end, int lazy) {
-  int ml = (cur >> kLenShift) & 511;
-  const int dist = cur & 0xFFF;
-  const int lit = (cur >> kLitShift) & 0xFF;
-  ml = min(ml, seg_end - c);
-  if (ml >= 131 && dist >= 2049) ml = 130;
-  bool use = ml >= kMinMatch;
-  if (lazy && use && ml < kMaxMatch && c + 1 < seg_end) {
-    const int ml1 = (nxt >> kLenShift) & 511;
-    if (ml1 > ml) use = false;
-  }
-  const int tok = use ? (ml | (dist << kDistShift) | kMatchBit) : lit;
-  const int next = c + (use ? ml : 1);
+__device__ __forceinline__ int turbo_step(int cur, int nxt, int c,
+                                          int seg_end, int lazy) {
+  int tok, next;
+  select_step<true, kMatchBit>(
+      (cur >> kLenShift) & 511, cur & 0xFFF, (cur >> kLitShift) & 0xFF,
+      [nxt] { return (nxt >> kLenShift) & 511; }, c, seg_end, lazy, tok, next);
   return tok | (int)((unsigned)next << kNextShift);
 }
 
@@ -99,10 +113,10 @@ select_turbo_kernel(const int32_t* __restrict__ pv,
     // successor, as in the plain version's clamp
     const int after = reinterpret_cast<const int32_t*>(rows[r])[min(c + 4,
                                                                     kSeg - 1)];
-    packed[r].x = select_step(cur.x, cur.y, c, seg_end, lazy);
-    packed[r].y = select_step(cur.y, cur.z, c + 1, seg_end, lazy);
-    packed[r].z = select_step(cur.z, cur.w, c + 2, seg_end, lazy);
-    packed[r].w = select_step(cur.w, after, c + 3, seg_end, lazy);
+    packed[r].x = turbo_step(cur.x, cur.y, c, seg_end, lazy);
+    packed[r].y = turbo_step(cur.y, cur.z, c + 1, seg_end, lazy);
+    packed[r].z = turbo_step(cur.z, cur.w, c + 2, seg_end, lazy);
+    packed[r].w = turbo_step(cur.w, after, c + 3, seg_end, lazy);
   }
   __syncthreads();
 #pragma unroll
@@ -137,6 +151,75 @@ select_turbo_kernel(const int32_t* __restrict__ pv,
     v.z = c + 2 < cnt ? v.z : 0;
     v.w = c + 3 < cnt ? v.w : 0;
     outp[r * kSelThreads + tid] = v;
+  }
+}
+
+// select_tokens: the general encoder's selection (levels 1-9).  Lanes of a
+// run-time length ``seg`` (4,096 by default), distances to 32,768, no
+// split_far, and a row offset ``start`` (the width of a preset dictionary's
+// context prefix, whose positions are match sources and never tokens).
+// Reads the matcher's (len << 16) | dist and the block's bytes as they are.
+//
+// One block a lane, the lane's row in shared memory as (token, next) pairs:
+// a wide token takes 26 bits (val 9 | dist 16 << 9 | match bit 25), so the
+// successor does not fit beside it in one word as in select_turbo.  (1) All
+// threads compute every position's token and successor at once, neighbouring
+// threads on neighbouring positions.  (2) Thread 0 walks the chain from
+// position 0, one 8-byte shared-memory load a step, writing token t in place
+// at slot t <= cursor.  (3) All threads store the two output rows, zeros
+// past the count.  Bound by the latency of the longest lane's chain (at most
+// ``seg`` steps, an all-literal lane); a dispatch of 16 blocks has 512 lanes,
+// all resident at once.
+
+constexpr int kTokThreads = 256;
+constexpr int kWideMatchBit = 1 << 25;
+
+__global__ void __launch_bounds__(kTokThreads)
+select_tokens_kernel(const uint8_t* __restrict__ data, int64_t pitch,
+                     const int32_t* __restrict__ matches,
+                     const int32_t* __restrict__ n_valid, int N, int nseg,
+                     int seg, int start, int lazy, int32_t* __restrict__ tv,
+                     int32_t* __restrict__ td, int32_t* __restrict__ counts) {
+  extern __shared__ int2 tok_row[];  // seg pairs: .x token, .y next position
+  __shared__ int s_tok_count;
+  const int lane = blockIdx.x;
+  const int b = lane / nseg;
+  const int seg0 = start + (lane % nseg) * seg;
+  const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
+  const int32_t* m = matches + (int64_t)b * N + seg0;
+  const uint8_t* d = data + (int64_t)b * pitch + seg0;
+
+  for (int c = threadIdx.x; c < seg_len; c += kTokThreads) {
+    const int cur = m[c];
+    int2 w;
+    select_step<false, kWideMatchBit>(
+        cur >> 16, cur & 0xFFFF, d[c], [m, c] { return m[c + 1] >> 16; }, c,
+        seg_len, lazy, w.x, w.y);
+    tok_row[c] = w;
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {
+    int c = 0;
+    int t = 0;
+    while (c < seg_len) {
+      const int2 w = tok_row[c];
+      tok_row[t++].x = w.x;
+      c = w.y;
+    }
+    s_tok_count = t;
+    counts[lane] = t;
+  }
+  __syncthreads();
+
+  const int cnt = s_tok_count;
+  int32_t* tv_row = tv + (int64_t)lane * seg;
+  int32_t* td_row = td + (int64_t)lane * seg;
+  for (int c = threadIdx.x; c < seg; c += kTokThreads) {
+    // a literal has no bit above its byte, so both fields read as they lie
+    const int w = c < cnt ? tok_row[c].x : 0;
+    tv_row[c] = w & 0x1FF;
+    td_row[c] = (w >> kDistShift) & 0xFFFF;
   }
 }
 
@@ -226,6 +309,25 @@ int zt_select_turbo(const void* pv, const void* seg_len, int lanes, int lazy,
   select_turbo_kernel<<<blocks, kSelThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pv, (const int32_t*)seg_len, lanes, lazy,
       (int32_t*)toks, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
+int zt_select_tokens(const void* data, int64_t pitch, const void* matches,
+                     const void* n_valid, int N, int nseg, int seg, int start,
+                     int lazy, int lanes, void* tv, void* td, void* counts,
+                     void* stream) {
+  const int smem = seg * (int)sizeof(int2);
+  if (smem > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        select_tokens_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  select_tokens_kernel<<<(unsigned)lanes, kTokThreads, smem,
+                         (cudaStream_t)stream>>>(
+      (const uint8_t*)data, pitch, (const int32_t*)matches,
+      (const int32_t*)n_valid, N, nseg, seg, start, lazy, (int32_t*)tv,
+      (int32_t*)td, (int32_t*)counts);
   return (int)cudaGetLastError();
 }
 

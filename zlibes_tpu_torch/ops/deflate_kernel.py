@@ -1,9 +1,12 @@
-"""Device-side encode stages of the turbo profile, as torch ops.
+"""Device-side encode stages, as torch ops.
 
 Counterpart of ``zlibes_tpu/ops/deflate_kernel.py``: symbols and per-block
-histograms of the selected tokens (``token_symbols``), and the payload
-pack straight into a compacted stream image (``pack_payload_turbo_dense``)
-around the ``encode_fields`` kernel.
+histograms of the selected tokens (``token_symbols``); the general
+encoder's payload pack under per-block tables into per-block word buffers
+(``pack_payload``) and the read of their used words
+(``gather_compressed``); and the turbo profile's pack straight into a
+compacted stream image (``pack_payload_turbo_dense``) around the
+``encode_fields`` kernel.
 
 Every array is in lane order: lane ``l`` of a dispatch is row ``l`` of an
 (L, T) array, segment ``l % nseg`` of block ``l // nseg``.  Coded words are
@@ -17,7 +20,11 @@ What replaces the reference's TPU choreography, exactly:
     word's contributions are bit-disjoint, so adding them is OR-ing them;
   * the per-lane sort compacting run-end words, and the global sort
     splicing lane rows into the stream image -> scatters: word indices of
-    run ends, and dense positions of lane words, are unique.
+    run ends, and dense positions of lane words, are unique;
+  * ``pack_payload``'s bf16 one-hot matmul table lookup -> a gather of
+    the block's (code, length) row; its 32 masked minima of the sub-anchors
+    -> one ``searchsorted`` a lane (output offsets do not decrease along a
+    lane's tokens).
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 from ..spec import constants as C
 
 from .encode_kernel import encode_fields
-from .symbol_math import dist_symbol, len_symbol
+from .symbol_math import dist_extra, dist_symbol, len_extra, len_symbol
 from .turbo_kernel import SUB
 
 _MASK32 = (1 << 32) - 1
@@ -72,6 +79,108 @@ def _segmented_sum(v: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
     col = torch.arange(v.shape[1], device=v.device).expand_as(v)
     start = torch.cummax(torch.where(first, col, 0), dim=1).values
     return cs - (cs - v).gather(1, start)
+
+
+def pack_payload(tv, td, lsym, dsym, valid, ll_code, ll_len, d_code, d_len,
+                 hdr_bits, enabled, nseg: int, W: int, sub_every: int = 0):
+    """Every token's coded field placed into per-block word buffers
+    (``pack_payload``, zlibes_tpu/ops/deflate_kernel.py:80).
+
+    tv, td, lsym, dsym (L, T) tokens and their symbols (dsym -1 for a
+    literal), valid (L, T) bool; ll_code, ll_len (B, 288) and d_code, d_len
+    (B, 32) each block's bit-reversed codes and lengths; hdr_bits (B,) bits
+    of each block's header, left free at the front of its buffer; enabled
+    (B,) bool, False for a block that is not coded (stored or padding).
+
+    Returns (words (B, W) int64 holding 32-bit words; payload_end (B,) the
+    bit offset just after the last token, the end-of-block code not
+    included; lane_bit0 (L,) the bit offset of each lane's first token) and,
+    with ``sub_every`` > 0, (sub_bit, sub_out (L, T // sub_every)): for each
+    ``sub_every``-byte output boundary j of the lane, the bit offset within
+    the block and the output offset within the lane of the first token
+    starting at or after byte j * sub_every, 2^30 where the lane has none.
+
+    A field has up to 48 bits (15 + 5 + 15 + 13) and lands in up to three
+    words; contributions to a word are bit-disjoint, so they are added."""
+    L, T = tv.shape
+    B = L // nseg
+    dev = tv.device
+    blk1 = torch.arange(L, device=dev) // nseg
+    blk2 = blk1[:, None]
+    is_match = valid & (td > 0)
+    vs = tv.clamp(0, C.MAX_MATCH)
+    ds = td.clamp(0, C.WINDOW_SIZE)
+
+    ls = lsym.long().clamp(0, C.NUM_LITLEN_SYMBOLS - 1)
+    f1v = ll_code.long()[blk2, ls]
+    f1n = torch.where(valid, ll_len.long()[blk2, ls], 0)
+    dsy = torch.where(is_match, dsym.long(), 0).clamp(
+        0, C.NUM_DIST_SYMBOLS - 1)
+    f3v = torch.where(is_match, d_code.long()[blk2, dsy], 0)
+    f3n = torch.where(is_match, d_len.long()[blk2, dsy], 0)
+    le_n, le_v = len_extra(vs)
+    f2v = torch.where(is_match, le_v, 0)
+    f2n = torch.where(is_match, le_n, 0)
+    de_n, de_v = dist_extra(ds)
+    f4v = torch.where(is_match, de_v, 0)
+    f4n = torch.where(is_match, de_n, 0)
+
+    # the combined field, LSB-first, in one int64 (at most 48 bits)
+    field = torch.zeros_like(f1v)
+    tb = torch.zeros_like(f1n)
+    for v, n in ((f1v, f1n), (f2v, f2n), (f3v, f3n), (f4v, f4n)):
+        field |= (v & ((1 << n) - 1)) << tb
+        tb = tb + n
+
+    lane_tot = tb.sum(1)
+    lane_cum = _exclusive_cumsum(lane_tot, 0)
+    lane_base = lane_cum - lane_cum[blk1 * nseg]       # restarts per block
+    within = _exclusive_cumsum(tb, 1)
+    hdr = hdr_bits.long()
+    lane_bit0 = lane_base + hdr[blk1]
+    tok_off = lane_bit0[:, None] + within
+    payload_end = lane_tot.reshape(B, nseg).sum(1) + hdr
+
+    lo = field & _MASK32
+    hi = field >> 32
+    w = blk2 * W + (tok_off >> 5)
+    sh = tok_off & 31
+    w0v = (lo << sh) & _MASK32
+    w1v = ((lo << sh) >> 32) | ((hi << sh) & _MASK32)
+    w2v = (hi << sh) >> 32
+    use = enabled[blk2] & valid & (tb > 0)
+    OOB = B * W
+    words = torch.zeros(OOB + 1, dtype=torch.long, device=dev)
+    for k, (wv, on) in enumerate(((w0v, use), (w1v, use & (w1v > 0)),
+                                  (w2v, use & (w2v > 0)))):
+        idx = torch.where(on, w + k, OOB).clamp(max=OOB)
+        words.index_add_(0, idx.reshape(-1), wv.reshape(-1))
+    words = words[:OOB].reshape(B, W)
+    if not sub_every:
+        return words, payload_end, lane_bit0
+
+    # sub-anchors: first token at or after every sub_every-byte output
+    # boundary of the lane
+    adv = torch.where(valid, torch.where(td > 0, vs.long(), 1), 0)
+    wout = torch.where(valid, _exclusive_cumsum(adv, 1), _BIGS)
+    bounds = (torch.arange(T // sub_every, device=dev) * sub_every).expand(
+        L, T // sub_every).contiguous()
+    first = torch.searchsorted(wout, bounds)
+    found = first < T
+    first = first.clamp(max=T - 1)
+    sub_out = torch.where(found, wout.gather(1, first), _BIGS)
+    sub_bit = torch.where(sub_out < _BIGS, tok_off.gather(1, first), _BIGS)
+    return words, payload_end, lane_bit0, sub_bit, sub_out
+
+
+def gather_compressed(words_flat: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """The used words of the per-block buffers, as one dense int32 array
+    for the copy to the host (``gather_compressed``,
+    zlibes_tpu/ops/deflate_kernel.py:634): words_flat int64 holding 32-bit
+    words, idx their flat indices."""
+    v = words_flat[idx]
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).int()
 
 
 def pack_rows_turbo(tv, td, valid, lt, dt, hdr_bits, nseg: int, R: int):

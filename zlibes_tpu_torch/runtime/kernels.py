@@ -37,6 +37,8 @@ _SIGNATURES = {
                        _INT, _P, _P, _P, _P],
     "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P, _P],
     "zt_select_turbo": [_P, _P, _INT, _INT, _P, _P, _P],
+    "zt_select_tokens": [_P, _I64, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _P, _P, _P, _P],
     "zt_encode_fields": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
 }
 
