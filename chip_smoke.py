@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
-four paths on the 3.84 MB bench corpus and its committed fixtures:
+five paths on the 3.84 MB bench corpus and its committed fixtures:
 
   * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
     kernels ``decode_turbo`` (which stages its lane windows itself) and
@@ -21,7 +21,15 @@ four paths on the 3.84 MB bench corpus and its committed fixtures:
     byte, its index ``wide_bench.idx.npz``, and come back through CPython
     and through the port's wide inflate; levels 0, 1 and 9 and a preset
     dictionary on ``tests/golden/raw.bin``, ``deflate_indexed`` and
-    ``backend="refmodel"`` once each.
+    ``backend="refmodel"`` once each;
+  * generic inflate: the corpus through CPython zlib at level 6 with a full
+    flush every 32 KiB (self-contained) and without (chained), indexed by
+    ``build_index``, kernels ``decode_tokens`` and ``resolve_global``:
+    ``inflate_to_device`` (the main path: one group, one launch of each),
+    a seek across a block boundary, a stored block between dynamic ones,
+    ``inflate_raw_indexed`` on both indexes, the scan without an index
+    (``inflate_raw_scan(device="cuda")``, one lane a block) and
+    ``inflate()`` with and without the native runtime.
 
 For each path it holds every kernel against its plain PyTorch version at
 the path's shapes, runs the path through its public entry point on the
@@ -37,7 +45,11 @@ self-copies among them and on one chunk row alone, ``decode_wide`` on
 random bits under the fixture's tables and on the fixture with ``T`` cut to
 16, ``select_tokens`` on the corpus' second dispatch (padded blocks, a
 ragged last block) and on random matches with ``lazy`` on and off, segments
-of 4,096 and 1,024 and a context prefix of 0 and 32,768.  Both decoders are
+of 4,096 and 1,024 and a context prefix of 0 and 32,768, ``decode_tokens``
+with ``T`` cut to 512 (lanes resumed call after call), on 4,096 lanes of
+random bits and on the scan's single lane of a 50 KB stream,
+``resolve_global`` behind a 32 KiB prefix and on random lanes reaching
+below byte 0.  Both wide and turbo decoders are
 held in the form the pipelines call,
 ``decode_*((words, start_w), ...)``, against the plain decode of the plain
 windows; the stand-alone ``lane_windows`` kernel, which no path launches any
@@ -1045,6 +1057,394 @@ def general_phase(corpus: bytes, card: str,
     return launches, device_ms
 
 
+def hold_tokens(what: str, got: tuple, want: tuple, T: int,
+                card: str) -> int:
+    """``decode_tokens`` on the card against its plain version
+    (``check_decode_tokens``), printed.  Returns the largest absolute
+    difference (0)."""
+    from test_torch_contract_cases import check_decode_tokens
+
+    err = check_decode_tokens(got, want, T, f"({what})")
+    print(f"kernel decode_tokens on {what}: exact vs plain (max_abs_err "
+          f"{err}); {int(want[2].sum())} tokens in {want[2].numel()} lanes, "
+          f"{int(want[5].sum())} with an error, {int(want[4].sum())} still "
+          f"active {card}")
+    return err
+
+
+def hold_resolve(what: str, args: tuple, card: str,
+                 want_bytes: bytes | None = None) -> tuple[int, bool]:
+    """``resolve_global`` on the card against its plain version on the same
+    inputs: bytes and error flag equal.  Returns (max_abs_err, err)."""
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    out, err = ik.resolve_global(*args)
+    torch.cuda.synchronize()
+    out_p, err_p = ik.resolve_global_plain(*args)
+    assert torch.equal(out, out_p), f"resolve_global != plain ({what})"
+    assert bool(err) == bool(err_p), f"resolve_global err != plain ({what})"
+    if want_bytes is not None:
+        assert out.cpu().numpy().tobytes() == want_bytes, what
+    e = max_abs_err(out, out_p)
+    print(f"kernel resolve_global on {what}: exact vs plain (max_abs_err "
+          f"{e}), err {bool(err)}, {out.numel()} B {card}")
+    return e, bool(err)
+
+
+def generic_phase(corpus: bytes, card: str,
+                  records: dict) -> tuple[dict, dict]:
+    """The generic indexed decode and the un-indexed device decode on two
+    CPython streams of the corpus: level 6 with a full flush every 32 KiB
+    (self-contained, ``build_index``) and ``zlib.compress(corpus, 6)``
+    (chained).  Both kernels against their plain versions (the flushed
+    stream's group, ``T`` cut so that lanes resume, random bits, a resolve
+    behind a 32 KiB prefix and one reaching below 0, the scan's single lane
+    on a 50 KB stream), the entry points with their launch counts, the
+    stored block between dynamic ones, a corruption probe, times and a
+    profiler breakdown.  Adds both kernels to ``records``; returns the
+    launch counts of the ``inflate_to_device`` run and the profiler's
+    device ms by kernel name."""
+    import zlibes_tpu_torch
+    from test_torch_contract_cases import (garbage_generic_lanes,
+                                           random_generic_tokens,
+                                           zlib_flushed)
+    from zlibes_tpu_torch import ChecksumError, CorruptError
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops.adler32 import adler32_device
+    from zlibes_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    flush = zlib_flushed(corpus, 32768)
+    chained = zlib.compress(corpus, 6)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_index = zlibes_tpu_torch.build_index(flush)
+    c_index = zlibes_tpu_torch.build_index(chained)
+    index_s = time.perf_counter() - t0
+    assert f_index.self_contained and not c_index.self_contained
+    for name, comp, idx in (("32 KiB flushes", flush, f_index),
+                            ("no flush", chained, c_index)):
+        print(f"generic fixture ({name}): {len(comp)} B, "
+              f"{len(idx.blocks)} blocks, {idx.anchor_bit.size} anchors, "
+              f"self_contained={idx.self_contained}")
+    print(f"generic fixtures: both streams made by CPython zlib in "
+          f"{make_s:.2f} s, both indexes by build_index in {index_s:.3f} s "
+          f"(host clock)")
+
+    # -- decode_tokens against its plain version on the flushed stream's
+    # one group
+    plans = ip.plan_groups(flush, f_index, "cuda")
+    assert len(plans) == 1
+    p = plans[0]
+    stream = ip._Stream(flush, "cuda")
+    lanes = (stream.words, p.lt, p.dt, p.rows, p.bit0, p.endb, p.active)
+
+    def decode(T=p.T):
+        return ik.decode_tokens(*lanes, T=T)
+
+    got = decode()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = ik.decode_tokens_plain(*lanes, p.T)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = hold_tokens(f"the 32 KiB-flush group (B={p.B}, T={p.T})", got,
+                      want, p.T, card)
+    count = got[2]
+    assert not bool(got[5].any()) and not bool(got[4].any())
+    assert np.array_equal(got[3].cpu().numpy(), p.lane_end)
+    # T cut to 512: lanes stop while active and resume, call after call
+    bit0, active, calls = p.bit0, p.active, 0
+    while bool(active.any()):
+        cut = ik.decode_tokens(*lanes[:4], bit0, p.endb, active, T=512)
+        torch.cuda.synchronize()
+        cut_p = ik.decode_tokens_plain(*lanes[:4], bit0, p.endb, active, 512)
+        err = max(err, hold_tokens(f"the group at T=512, call {calls + 1}",
+                                   cut, cut_p, 512, card))
+        bit0, active = cut[3], cut[4]
+        calls += 1
+    assert calls > 1 and np.array_equal(bit0.cpu().numpy(), p.lane_end)
+    g_lanes = tuple(t.cuda() for t in garbage_generic_lanes(4096, seed=5))
+    g_got = ik.decode_tokens(*g_lanes, T=64)
+    torch.cuda.synchronize()
+    g_want = ik.decode_tokens_plain(*g_lanes, 64)
+    err = max(err, hold_tokens("4096 lanes of random bits", g_got, g_want,
+                               64, card))
+    assert bool(g_want[5].any()) and not bool(g_want[5].all())
+    n_tok = int(count.sum())
+    records["decode_tokens"] = dict(
+        replaces="zlibes_tpu/ops/inflate_kernel.py:62",
+        note="the reference's decode_tokens is an XLA while_loop, not a "
+             "pallas_call; its plain PyTorch version is one eager step a "
+             "token of the longest lane (plain_ms is one run)",
+        max_abs_err=err, ms=cuda_ms(decode), plain_ms=plain_ms, plain_runs=1,
+        shape=list(got[0].shape), tokens=n_tok,
+        longest_lane_tokens=int(count.max()),
+        mean_lane_tokens=float(count.float().mean()),
+        # read: the stream's words, the tables, the per-lane arrays;
+        # written: the emitted tokens and starts, the per-lane results;
+        # ~40 operations a token (bit fetch, two table lookups, the checks)
+        **bound(nbytes(*lanes, *got[2:]) + 2 * 4 * n_tok, 40 * n_tok))
+
+    # -- resolve_global against its plain version: the group from byte 0
+    # at the shape the main path gives it (run_group(check=False), as
+    # inflate_to_device calls it, passes the decoder's whole (T, B) arrays,
+    # whose slots at or past a lane's count were never written), then with
+    # those slots filled with random words, then trimmed to the occupied
+    # rows (as run_group(check=True) passes them); then from its first lane
+    # past 32 KiB behind the 32 KiB before it; then random lanes behind a
+    # 32 KiB prefix and reaching below 0
+    empty = stream.bytes[:0]
+    r_args = (got[0], got[1], count, p.out_base, p.d_total, empty)
+    rerr, _ = hold_resolve(
+        f"the 32 KiB-flush group, tokens (T, B) = {tuple(got[0].shape)} as "
+        f"the main path passes them", r_args, card, corpus)
+    unwritten = ~(torch.arange(p.T, device="cuda")[:, None]
+                  < count.long()[None, :])
+    noise = torch.randint(-2**31, 2**31 - 1, (2, p.T, p.B), dtype=torch.int32,
+                          device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(8))
+    e, _ = hold_resolve(
+        f"the same with its {int(unwritten.sum())} unwritten slots random",
+        (torch.where(unwritten, noise[0], got[0]),
+         torch.where(unwritten, noise[1], got[1]), *r_args[2:]), card, corpus)
+    rerr = max(rerr, e)
+    Tc = int(count.max())
+    toks, starts = got[0][:Tc].contiguous(), got[1][:Tc].contiguous()
+    e, _ = hold_resolve(f"the same trimmed to its {Tc} occupied rows",
+                        (toks, starts, *r_args[2:]), card, corpus)
+    rerr = max(rerr, e)
+    raw = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).cuda()
+    k0 = int(np.searchsorted(f_index.anchor_out, 40000))
+    cut = int(f_index.anchor_out[k0])
+    e, _ = hold_resolve(
+        f"the group from lane {k0} behind a 32 KiB prefix",
+        (toks[:, k0:].contiguous(), starts[:, k0:].contiguous(),
+         count[k0:].contiguous(), (p.out_base[k0:] - cut + 32768).contiguous(),
+         32768 + len(corpus) - cut, raw[cut - 32768 : cut]), card,
+        corpus[cut - 32768 :])
+    rerr = max(rerr, e)
+    for P, below in ((32768, False), (0, True)):
+        args = random_generic_tokens(4097, 8, P, seed=P + 7, below=below)
+        args = tuple(torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                     else a for a in args)
+        e, flagged = hold_resolve(f"4097 random lanes, prefix {P}", args,
+                                  card)
+        assert flagged == below
+        rerr = max(rerr, e)
+    start.record()
+    ik.resolve_global_plain(*r_args)
+    end.record()
+    torch.cuda.synchronize()
+    records["resolve_global"] = dict(
+        replaces="zlibes_tpu/ops/inflate_kernel.py:152",
+        note="the reference's resolve_global is an XLA scatter / cummax / "
+             "pointer-doubling program, not a pallas_call; the kernel is "
+             "init + expand + ceil(log2 total) jump launches, counted as "
+             "one",
+        max_abs_err=rerr, ms=cuda_ms(lambda: ik.resolve_global(*r_args)),
+        plain_ms=start.elapsed_time(end), plain_runs=1,
+        shape=[p.d_total], tokens_shape=list(got[0].shape),
+        # read: the emitted tokens and starts, the per-lane arrays;
+        # written: the bytes; ~10 operations a byte and 20 a token (the
+        # expansion, the copy)
+        **bound(nbytes(count, p.out_base) + 2 * 4 * n_tok + p.d_total,
+                10 * p.d_total + 20 * n_tok))
+
+    # -- the scan's single lane: kernel and plain on a 50 KB stream
+    small = zlib.compress(corpus[:50000], 6)
+    s_index = zlibes_tpu_torch.build_index(small)
+    s_stream = ip._Stream(small, "cuda")
+    blk = s_index.blocks[0]
+    lt, dt = ip._tables("cuda", [ip._block_code_lengths(small, blk)])
+    one = dict(device="cuda")
+    s_lanes = (s_stream.words, lt, dt,
+               torch.zeros(1, dtype=torch.int32, **one),
+               torch.tensor([blk.payload_start_bit], **one),
+               torch.tensor([s_stream.total_bits], **one),
+               torch.ones(1, dtype=torch.bool, **one))
+    s_got = ik.decode_tokens(*s_lanes, T=ip._SCAN_CHUNK_TOKENS)
+    torch.cuda.synchronize()
+    s_want = ik.decode_tokens_plain(*s_lanes, ip._SCAN_CHUNK_TOKENS)
+    records["decode_tokens"]["max_abs_err"] = max(
+        records["decode_tokens"]["max_abs_err"],
+        hold_tokens(f"the scan's lane of block 0 of a {len(small)} B stream",
+                    s_got, s_want, ip._SCAN_CHUNK_TOKENS, card))
+    assert int(s_got[3][0]) == blk.end_bit
+
+    # -- end to end through the public entry points, launches counted
+    tk.LAUNCHES.clear()
+    spans = zlibes_tpu_torch.inflate_to_device(flush, f_index, device="cuda")
+    launches = dict(tk.LAUNCHES)
+    (dev_out, off, n), = spans
+    assert dev_out.is_cuda and (off, n) == (0, len(corpus))
+    assert dev_out.cpu().numpy().tobytes() == corpus
+    assert launches == {"decode_tokens": 1, "resolve_global": 1}, launches
+    edge = 5 * 32768
+    seek = zlibes_tpu_torch.inflate_range(flush, f_index, edge - 150, 300,
+                                          device="cuda")
+    assert seek == corpus[edge - 150 : edge + 150]
+    print(f"generic inflate_to_device(device='cuda'): one CUDA span of {n} "
+          f"B byte-exact, launches {launches}; inflate_range of 300 B "
+          f"across the block boundary at {edge} byte-exact")
+    rnd = np.random.default_rng(0).integers(0, 256, 40000, np.uint8)
+    mixed = corpus[:40000] + rnd.tobytes() + corpus[40000:80000]
+    m_comp = zlib_flushed(mixed, 16384)
+    m_index = zlibes_tpu_torch.build_index(m_comp)
+    stored = [b for b in m_index.blocks if b.btype == 0 and b.out_len]
+    assert [(b.out_start, b.out_len) for b in stored] == [(49152, 16384)]
+    (m_out, _, _), = zlibes_tpu_torch.inflate_to_device(m_comp, m_index,
+                                                        device="cuda")
+    assert m_out.cpu().numpy().tobytes() == mixed
+    assert zlibes_tpu_torch.inflate_range(m_comp, m_index, 50000, 300,
+                                          device="cuda") == mixed[50000:50300]
+    print("generic stored block between dynamic blocks (output 49,152-"
+          "65,536, one group spanning it): inflate_to_device and a 300 B "
+          "inflate_range inside it byte-exact")
+    for name, comp, idx in (("32 KiB flushes", flush, f_index),
+                            ("no flush, chained", chained, c_index)):
+        tk.LAUNCHES.clear()
+        out = ip.inflate_raw_indexed(comp, idx, "cuda")
+        assert out.cpu().numpy().tobytes() == corpus, name
+        print(f"generic inflate_raw_indexed ({name}, "
+              f"{len(ip.plan_groups(comp, idx, 'cpu'))} group(s)): "
+              f"byte-exact, launches {dict(tk.LAUNCHES)}")
+    tk.LAUNCHES.clear()
+    out, blocks, end_bit = ip.inflate_raw_scan(chained, 2, device="cuda")
+    assert out.cpu().numpy().tobytes() == corpus
+    assert end_bit == c_index.blocks[-1].end_bit
+    scan_launches = dict(tk.LAUNCHES)
+    assert scan_launches["resolve_global"] == 1
+    assert scan_launches["decode_tokens"] >= len(c_index.blocks)
+    print(f"generic inflate_raw_scan(device='cuda') of the chained stream "
+          f"({len(blocks)} blocks): byte-exact, launches {scan_launches}")
+    tk.LAUNCHES.clear()
+    assert zlibes_tpu_torch.inflate(chained, index=c_index,
+                                    device="cuda") == corpus
+    assert not tk.LAUNCHES, dict(tk.LAUNCHES)
+    print("generic inflate(index=) with the native runtime: the host "
+          "decode, byte-exact, no launch")
+    real_available = native.available
+    native.available = lambda: False
+    try:
+        for name, idx in (("the 32 KiB-flush index", f_index),
+                          ("no index", None)):
+            tk.LAUNCHES.clear()
+            assert zlibes_tpu_torch.inflate(flush, index=idx,
+                                            device="cuda") == corpus
+            print(f"generic inflate() without the native runtime, {name}: "
+                  f"byte-exact, Adler-32 on the device, launches "
+                  f"{dict(tk.LAUNCHES)}")
+        # -- corruption probe through the device path
+        rng = np.random.default_rng(6)
+        raised = 0
+        for _ in range(6):
+            bad = bytearray(flush)
+            pos = int(rng.integers(16, len(bad) - 8))
+            bad[pos] ^= int(rng.integers(1, 256))
+            try:
+                got_bad = zlibes_tpu_torch.inflate(bytes(bad), index=f_index,
+                                                   device="cuda")
+            except (CorruptError, ChecksumError) as exc:
+                raised += 1
+                print(f"generic corruption at byte {pos}: "
+                      f"{type(exc).__name__}")
+            else:
+                assert got_bad == corpus, f"flip at {pos} gave wrong bytes"
+                print(f"generic corruption at byte {pos}: in a bit gap")
+        assert raised >= 4, f"only {raised} of 6 corruptions detected"
+        device_call_s = wall_s(lambda: zlibes_tpu_torch.inflate(
+            flush, index=f_index, device="cuda"))
+        scan_call_s = wall_s(lambda: zlibes_tpu_torch.inflate(
+            chained, device="cuda"), runs=3)
+    finally:
+        native.available = real_available
+
+    # -- times
+    trailer = int.from_bytes(flush[-4:], "big")
+
+    def device_pipeline():
+        out = ip.run_group(stream, p, check=False)
+        return adler32_device(out)
+
+    assert int(device_pipeline()) == trailer
+    pipe_ms = cuda_ms(device_pipeline)
+
+    def to_device():
+        out = zlibes_tpu_torch.inflate_to_device(flush, f_index,
+                                                 device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    n = len(corpus)
+    to_device_s = wall_s(to_device)
+    plan_s = wall_s(lambda: ip.plan_groups(flush, f_index, "cuda"))
+    seek_s = wall_s(lambda: zlibes_tpu_torch.inflate_range(
+        flush, f_index, edge - 150, 300, device="cuda"))
+    native_s = wall_s(lambda: zlibes_tpu_torch.inflate(flush, index=f_index,
+                                                       device="cuda"))
+    zlib_f_s = wall_s(lambda: zlib.decompress(flush))
+    zlib_c_s = wall_s(lambda: zlib.decompress(chained))
+    print(f"generic host: plan_groups ({p.B} lanes, {p.lt.shape[0]} table "
+          f"rows, copies to the card) {plan_s * 1e3:.2f} ms, median of 5 "
+          f"{card}")
+    print(f"generic device pipeline (plan prebuilt, stream on device; "
+          f"decode + resolve + adler32): {pipe_ms:.4f} ms -> "
+          f"{n / pipe_ms / 1e6:.3f} GB/s of output, median of 20 {card}")
+    print(f"generic whole inflate_to_device() call, host to device: "
+          f"{to_device_s * 1e3:.2f} ms -> {n / to_device_s / 1e9:.4f} GB/s; "
+          f"inflate() without the native runtime, host to host: "
+          f"{device_call_s * 1e3:.2f} ms; inflate_range seek (300 B across a "
+          f"block boundary): {seek_s * 1e3:.2f} ms; inflate() through the "
+          f"native runtime: {native_s * 1e3:.2f} ms; medians of 5 {card}")
+    print(f"generic un-indexed inflate() of the chained stream without the "
+          f"native runtime (the scan: {len(blocks)} single-lane decodes + "
+          f"one resolve): {scan_call_s * 1e3:.2f} ms, median of 3 {card}")
+    print(f"CPython zlib.decompress, one core: flushed stream "
+          f"{zlib_f_s * 1e3:.2f} ms, chained {zlib_c_s * 1e3:.2f} ms, "
+          f"medians of 5 (host CPU beside {card})")
+    device_ms = profile_pipeline(device_pipeline, card)
+    if device_ms:
+        busy = sum(device_ms.values())
+        print(f"generic untraced device pipeline: device busy {busy:.4f} of "
+              f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
+              f"{card}")
+    call_ms = profile_pipeline(to_device, card, runs=3)
+    if call_ms:
+        busy = sum(call_ms.values())
+        print(f"generic inflate_to_device(): device busy {busy:.4f} of "
+              f"{to_device_s * 1e3:.2f} ms per untraced call -> idle share "
+              f"{1 - busy / (to_device_s * 1e3):.3f} {card}")
+    r = records["decode_tokens"]
+    r["device_ms"] = device_time(device_ms, "decode_tokens")
+    mhz, clock_src = sm_clock_mhz()
+    cycles = r["device_ms"] * 1e-3 * mhz * 1e6
+    r.update(sm_mhz=mhz,
+             cycles_per_token=cycles / r["longest_lane_tokens"])
+    print(f"decode_tokens lanes: longest {r['longest_lane_tokens']} tokens, "
+          f"mean {r['mean_lane_tokens']:.2f}; device {r['device_ms']:.4f} ms "
+          f"at {mhz:.0f} MHz ({clock_src}) = {cycles:.0f} cycles -> "
+          f"{r['cycles_per_token']:.1f} cycles a token of the longest lane "
+          f"{card}")
+    records["resolve_global"]["device_ms"] = device_time(device_ms,
+                                                         "resolve_global")
+    for name in ("decode_tokens", "resolve_global"):
+        r = records[name]
+        print(f"kernel {name}: exact vs plain (max_abs_err "
+              f"{r['max_abs_err']}), kernel {r['ms']:.4f} ms by events "
+              f"(median of 20), device {r['device_ms']:.4f} ms a launch "
+              f"(torch.profiler), bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({r['bytes']} B), plain {r['plain_ms']:.1f} "
+              f"ms (one run), shape {r['shape']}"
+              + (f", tokens {r['tokens_shape']}" if "tokens_shape" in r
+                 else "") + f", library call: none {card}")
+    return launches, device_ms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1260,6 +1660,9 @@ def main() -> None:
         launches[name] = enc_launches[name]
     gen_launches, _ = general_phase(corpus, card, records)
     launches["select_tokens"] = gen_launches["select_tokens"]
+    generic_launches, _ = generic_phase(corpus, card, records)
+    for name in ("decode_tokens", "resolve_global"):
+        launches[name] = generic_launches[name]
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
@@ -1271,10 +1674,12 @@ def main() -> None:
 
     wide = ("decode_wide", "resolve_wide")
     encode = ("select_turbo", "select_tokens", "encode_fields")
+    generic = ("decode_tokens", "resolve_global")
     entries = []
     for name, r in records.items():
         group = ("wide" if name in wide else
-                 "encode" if name in encode else "turbo")
+                 "encode" if name in encode else
+                 "inflate" if name in generic else "turbo")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"zlibes_tpu_torch/csrc/{group}_kernels.cu",

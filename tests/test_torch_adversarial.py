@@ -23,6 +23,7 @@ from zlibes_tpu_torch.codec import deflate_pipeline as dp
 from zlibes_tpu_torch.ops import huffman
 from zlibes_tpu_torch.spec import refmodel as rm
 from zlibes_tpu_torch.spec.refmodel import BitWriter
+from test_torch_contract_cases import zlib_flushed
 from test_torch_fixed_streams import expand, fixed_stream
 
 torch.set_num_threads(2)
@@ -268,3 +269,94 @@ def test_indexed_fuzz_batched_lanes():
             detected += int(bool(diff[o0:o1].any()))
     assert total >= 1000
     assert detected >= 0.9 * total, (detected, total)
+
+
+@pytest.fixture
+def device_path(monkeypatch):
+    """The public inflate with the native runtime unavailable: a stream
+    without a turbo or wide index takes the device decodes (the scan, or
+    the group decode of a generic index) in their plain versions."""
+    from zlibes_tpu_torch.runtime import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def generic_fuzz_stream():
+    """About 100 KB of CPython zlib output with a full flush every 16 KiB,
+    indexed by ``build_index`` with an anchor every 1 KiB: self-contained,
+    neither turbo nor wide."""
+    rng = np.random.default_rng(21)
+    data = (b"indexed fuzz corpus with repeated structure " * 1500
+            + rng.integers(0, 256, 30000, dtype=np.uint8).tobytes())
+    comp = zlib_flushed(data, 16384)
+    index = zlibes_tpu_torch.build_index(comp, anchor_every=1024)
+    assert index.self_contained and not index.turbo and not index.wide
+    return data, comp, index
+
+
+def test_indexed_fuzz_batched_lanes_generic_index(generic_fuzz_stream,
+                                                  device_path):
+    """The twin of the reference's batched-lanes fuzz on a generic index:
+    one corruption inside every decode lane a round, 1000 and more in all,
+    through the group decode; the public call raises every round, and the
+    device output either holds wrong bytes inside nearly every corrupted
+    lane's span."""
+    data, comp, index = generic_fuzz_stream
+    barr = np.frombuffer(data, np.uint8)
+    rng = np.random.default_rng(21)
+    # each lane's bytes inside its block's payload (block headers stay
+    # intact, so every corruption reaches a lane decode)
+    blk = index.anchor_block
+    ends = np.where(np.append(blk[1:] == blk[:-1], False),
+                    np.roll(index.anchor_bit, -1),
+                    [index.blocks[b].end_bit for b in blk])
+    total = detected = 0
+    while total < 1000:
+        bad = bytearray(comp)
+        corrupted = []
+        for k in range(len(blk)):
+            lo, hi = int(index.anchor_bit[k]) // 8 + 1, int(ends[k]) // 8 - 1
+            if hi <= lo:
+                continue
+            bad[int(rng.integers(lo, hi))] ^= int(rng.integers(1, 256))
+            corrupted.append(k)
+        total += len(corrupted)
+        with pytest.raises((CorruptError, ChecksumError)):
+            zlibes_tpu_torch.inflate(bytes(bad), index=index, device="cpu")
+        (out, _, n), = zlibes_tpu_torch.inflate_to_device(bytes(bad), index,
+                                                          device="cpu")
+        diff = out[:n].numpy() != barr
+        for k in corrupted:
+            o0 = int(index.anchor_out[k])
+            o1 = (int(index.anchor_out[k + 1])
+                  if k + 1 < len(index.anchor_out) else barr.size)
+            detected += int(bool(diff[o0:o1].any()))
+    assert total >= 1000
+    assert detected >= 0.9 * total, (detected, total)
+
+
+def test_corruption_fuzz_device_pipeline_without_index_on_device(
+        device_path):
+    """The twin of the reference's fuzz of its un-indexed device scan: the
+    same sweep through the port's scan (the native runtime unavailable):
+    CPython's bytes, or a typed error."""
+    rng = np.random.default_rng(9)
+    data = b"device fuzz " * 200
+    comp = zlib.compress(data, 6)
+    assert _native(comp) == data
+    typed = 0
+    for _ in range(25):
+        bad = bytearray(comp)
+        bad[int(rng.integers(2, len(bad)))] ^= int(rng.integers(1, 256))
+        try:
+            expect = zlib.decompress(bytes(bad))
+        except zlib.error:
+            expect = None
+        try:
+            got = _native(bytes(bad))
+        except CodecError:
+            typed += 1
+            continue
+        assert got == expect
+    assert typed >= 15

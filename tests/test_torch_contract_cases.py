@@ -78,6 +78,8 @@ two literals a step from one-level tables of fewer than 15 bits:
 """
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +89,7 @@ from zlibes_tpu_torch.ops import lz77
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
 from zlibes_tpu_torch.spec import constants as C
+from zlibes_tpu_torch.spec.errors import CorruptError
 from test_torch_fixed_streams import fixed_lane
 
 torch.set_num_threads(2)
@@ -624,3 +627,377 @@ def test_wide_decode_cases_hold_their_features():
     assert (i + 257, d) == (284, 20)
     assert (int(ll[284]) + int(C.LENGTH_EXTRA_BITS[i]) + int(dl[20])
             + int(C.DIST_EXTRA_BITS[d])) == 44
+
+
+# ---------------------------------------------------------------------------
+# decode_tokens
+#
+# One stream of lanes one after another, fixed codes (``deep``: the codes of
+# 1 to 15 bits above), one lane a case; the other lanes of a call are
+# inactive and keep their start bit.
+
+_GENERIC_DECODE = {
+    # case: (tokens, end bit past the lane's first bit or None = its last,
+    #        T, tables, [(count, end bit, error, still active, tokens,
+    #        starts) of each call: a lane still active resumes])
+    "resumed": ([104, (4, 2), 105, 106, 107, 108, 109, 256], None, 3,
+                "fixed",
+                [(3, 28, 0, 1, [104, 4 | (2 << 9) | (1 << 25), 105],
+                  [0, 1, 5]),
+                 (3, 52, 0, 1, [106, 107, 108], [0, 1, 2]),
+                 (1, 67, 0, 0, [109], [0])]),
+    # the match's code ends one bit past the lane's end: kept out, error,
+    # the position stays behind the second literal
+    "past_end": ([97, 98, (10, 1), 256], 8 + 8 + 7 + 5 - 1, 64, "fixed",
+                 [(2, 16, 1, 0, [97, 98], [0, 1])]),
+    # no end-of-block: the lane stops where its end bit is
+    "end_at_anchor": ([97, 98, 99], None, 64, "fixed",
+                      [(3, 24, 0, 0, [97, 98, 99], [0, 1, 2])]),
+    # the decode does not hold a distance against the output
+    "far_distance": ([97, (3, 32768), 256], None, 64, "fixed",
+                     [(2, 8 + 7 + 5 + 13 + 7, 0, 0,
+                       [97, 3 | (32768 << 9) | (1 << 25)], [0, 1])]),
+    # a length whose distance symbol is 30 (reserved): error behind the
+    # literal
+    "invalid_distance": ([97, "len3_dist30"], None, 64, "fixed",
+                         [(1, 8, 1, 0, [97], [0])]),
+    "inactive": ([97, 98, 256], None, 64, "fixed",
+                 [(0, 0, 0, 0, [], [])]),
+    # a 15-bit literal code and a 44-bit token through the sub-tables
+    "deep_codes": ([200, (230, 1030), 97, 256], None, 64, "deep",
+                   [(3, 15 + 44 + 1 + 2, 0, 0,
+                     [200, 230 | (1030 << 9) | (1 << 25), 97],
+                     [0, 1, 231])]),
+}
+GENERIC_DECODE_CASES = tuple(_GENERIC_DECODE)
+GENERIC_LANES = 4
+_GENERIC_LANE = 2
+
+
+def _generic_lane_bits(case: str):
+    """(the lane's stream bytes, its bit length): tokens then padding."""
+    from test_torch_fixed_streams import write_tokens
+    from zlibes_tpu_torch.spec.refmodel import BitWriter
+
+    tokens, _, _, tables = _GENERIC_DECODE[case][:4]
+    lengths = DEEP_LENGTHS if tables == "deep" else None
+    bw = BitWriter()
+    bw.write_bits(0b101, 3)   # the lane starts off a byte boundary
+    for tok in tokens:
+        if tok == "len3_dist30":
+            write_tokens(bw, [257], lengths)
+            bw.write_code(30, 5)   # fixed distance code of symbol 30
+        else:
+            write_tokens(bw, [tok], lengths)
+    nbits = bw.bit_length
+    return bw.getvalue() + bytes(16), nbits
+
+
+def generic_decode_case(case: str):
+    """((words (NW,) int32, lt (1, LL_W), dt (1, D_W), row (4,) int32,
+    bit0, end_bit (4,) int64, active0 (4,) bool), T) of ``case``: lane 2
+    holds it from bit 3 on, the other lanes are inactive."""
+    from zlibes_tpu_torch.ops.inflate_kernel import stream_words
+
+    raw, nbits = _generic_lane_bits(case)
+    _, end, T, tables = _GENERIC_DECODE[case][:4]
+    lengths = DEEP_LENGTHS if tables == "deep" else (
+        C.fixed_litlen_code_lengths(), C.fixed_dist_code_lengths())
+    lt, dt = wk.wide_decode_tables(*lengths)
+    bit0 = np.array([5, 40, 3, 0], np.int64)
+    endb = np.array([90, 41, 3 + (nbits - 3 if end is None else end), 0],
+                    np.int64)
+    active = np.zeros(GENERIC_LANES, bool)
+    active[_GENERIC_LANE] = case != "inactive"
+    row = np.zeros(GENERIC_LANES, np.int32)
+    return (stream_words(raw), lt[None], dt[None], row, bit0, endb,
+            active), T
+
+
+def run_generic_decode_case(case: str, decode) -> None:
+    """Run ``decode`` (``decode_tokens`` on a device) on ``case`` call
+    after call, resuming lanes left active, and assert every call's lane as
+    the contract fixes it and the other lanes as inactive ones."""
+    args, T = generic_decode_case(case)
+    words, lt, dt, row, bit0, endb, active = args
+    for want in _GENERIC_DECODE[case][4]:
+        tokens, starts, count, bitpos, still, err = (
+            x.cpu().numpy() for x in decode(words, lt, dt, row, bit0, endb,
+                                            active, T))
+        n, end, bad, more, want_tok, want_st = want
+        lane = _GENERIC_LANE
+        assert [count[lane], bitpos[lane] - 3, err[lane], still[lane]] == \
+            [n, end, bad, more]
+        assert list(tokens[:n, lane]) == want_tok
+        assert list(starts[:n, lane]) == want_st
+        others = [i for i in range(GENERIC_LANES) if i != lane]
+        assert not count[others].any() and not err[others].any()
+        assert not still[others].any()
+        assert np.array_equal(bitpos[others], np.asarray(bit0)[others])
+        bit0, active = bitpos, still
+    assert not active.any()
+
+
+def _plain_decode(words, lt, dt, row, bit0, endb, active, T):
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    t = torch.from_numpy
+    return ik.decode_tokens(t(words), t(lt), t(dt), t(row), t(bit0),
+                            t(endb), t(active), T=T)
+
+
+@pytest.mark.parametrize("case", GENERIC_DECODE_CASES)
+def test_decode_tokens_plain_gives_the_cases_tokens(case):
+    run_generic_decode_case(case, _plain_decode)
+
+
+def check_decode_tokens(got, want, T: int, what: str = "") -> int:
+    """``decode_tokens`` output ``got`` (on any device) against its plain
+    version's ``want``: counts, end bits and flags equal, tokens and starts
+    equal where emitted (the kernel leaves the other slots unwritten).
+    Returns the largest absolute difference (0)."""
+    dev = want[0].device
+    got = [x.to(dev) for x in got]
+    emitted = (torch.arange(T, device=dev)[:, None]
+               < want[2][None, :].long())
+    err = 0
+    for name, a, b in (*zip(("count", "bitpos", "active", "err"), got[2:],
+                            want[2:]),
+                       *((n, a[emitted], b[emitted]) for n, a, b in
+                         zip(("tokens", "starts"), got[:2], want[:2]))):
+        assert torch.equal(a, b), f"decode_tokens {name} != plain {what}"
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def test_check_decode_tokens_ignores_unwritten_slots_only():
+    args, T = generic_decode_case("resumed")
+    want = _plain_decode(*args, T)
+    got = [x.clone() for x in want]
+    past = torch.arange(T)[:, None] >= want[2][None, :].long()
+    assert past.any()
+    got[0][past] = -7              # past each count: never written
+    assert check_decode_tokens(got, want, T) == 0
+    got[0][0, _GENERIC_LANE] += 1  # an emitted token
+    with pytest.raises(AssertionError, match="tokens"):
+        check_decode_tokens(got, want, T)
+
+
+def zlib_flushed(data: bytes, every: int, level: int = 6, zdict=None,
+                 mode=zlib.Z_FULL_FLUSH) -> bytes:
+    """CPython zlib with a flush every ``every`` input bytes: full flushes
+    make self-contained blocks (the seekable zlib files of zran-style
+    readers), sync flushes empty stored blocks between chained ones."""
+    co = (zlib.compressobj(level, zdict=zdict) if zdict
+          else zlib.compressobj(level))
+    out = []
+    for i in range(0, len(data), every):
+        out += [co.compress(data[i : i + every]), co.flush(mode)]
+    return b"".join(out) + co.flush()
+
+
+# ---------------------------------------------------------------------------
+# resolve_global
+#
+# Lanes of tokens (literal ints, (length, distance) matches) tiled from
+# their first byte on, behind a seeded prefix; the bytes they must give by
+# the modular rule (a byte of a copy reads start - dist + (q - start) %
+# dist, a byte below the prefix's end is the prefix's).
+
+def _generic_prefix(n: int) -> np.ndarray:
+    return ((np.arange(n) * 7 + 3) % 251).astype(np.uint8)
+
+
+_RUN_LANES = 64
+_GENERIC_RESOLVE = {
+    # case: (prefix length, first lane's first byte from the prefix's end,
+    #        lanes of tokens, err)
+    "prefix_reach": (32768, 0, [[(258, 32768), (10, 1), 7]], False),
+    "straddle": (100, -3, [[(10, 5), 1, 2], [(6, 4)]], False),
+    "below_zero": (0, 0, [[1, (4, 2)], [5]], True),
+    "overlap": (0, 0, [[1, 2, 3, (20, 3)], [(5, 23), 4]], False),
+    # a run of distance 1 over 64 lanes: a chain of 1,024 hops
+    "dist1_run": (0, 0, [[9]] + [[(258, 1)] * 16] * _RUN_LANES, False),
+}
+GENERIC_RESOLVE_CASES = tuple(_GENERIC_RESOLVE)
+
+
+def generic_resolve_case(case: str):
+    """((tokens (T, B), starts (T, B), count (B,), out_base (B,) int32,
+    total, prefix (P,) uint8), the bytes (total,), err) of ``case``."""
+    P, first, lanes, err = _GENERIC_RESOLVE[case]
+    T = max(len(lane) for lane in lanes)
+    B = len(lanes)
+    tokens = np.zeros((T, B), np.int32)
+    starts = np.zeros((T, B), np.int32)
+    count = np.array([len(lane) for lane in lanes], np.int32)
+    out_base = np.zeros(B, np.int32)
+    prefix = _generic_prefix(P)
+    g = P + first
+    want = np.zeros(g + sum(t[0] if isinstance(t, tuple) else 1
+                            for lane in lanes for t in lane), np.int64)
+    want[:P] = prefix
+    for b, lane in enumerate(lanes):
+        out_base[b] = g
+        for t, tok in enumerate(lane):
+            starts[t, b] = g - out_base[b]
+            if isinstance(tok, tuple):
+                n, d = tok
+                tokens[t, b] = n | (d << 9) | (1 << 25)
+                for q in range(max(g, P), g + n):
+                    want[q] = want[max(g - d + (q - g) % d, 0)]
+            else:
+                tokens[t, b] = tok
+                if g >= P:
+                    want[g] = tok
+                n = 1
+            g += n
+    return ((tokens, starts, count, out_base, g, prefix),
+            want.astype(np.uint8), err)
+
+
+def check_generic_resolve_case(case: str, out: np.ndarray,
+                               err: bool) -> None:
+    _, want, want_err = generic_resolve_case(case)
+    assert np.array_equal(out, want)
+    assert err == want_err
+
+
+@pytest.mark.parametrize("case", GENERIC_RESOLVE_CASES)
+def test_resolve_global_plain_gives_the_cases_bytes(case):
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    (tokens, starts, count, out_base, total, prefix), _, _ = \
+        generic_resolve_case(case)
+    t = torch.from_numpy
+    out, err = ik.resolve_global(t(tokens), t(starts), t(count),
+                                 t(out_base), total, t(prefix))
+    check_generic_resolve_case(case, out.numpy(), bool(err))
+
+
+def test_generic_resolve_cases_hold_their_features():
+    (tokens, _, _, out_base, total, prefix), want, _ = \
+        generic_resolve_case("dist1_run")
+    assert total == 1 + _RUN_LANES * 16 * 258 and (want == 9).all()
+    (_, _, _, out_base, _, prefix), want, _ = generic_resolve_case("straddle")
+    assert out_base[0] < prefix.size < out_base[0] + 10
+    (_, _, _, _, _, prefix), want, _ = generic_resolve_case("prefix_reach")
+    assert np.array_equal(want[32768 : 32768 + 258], prefix[:258])
+
+
+def random_generic_tokens(B: int, T: int, P: int, seed: int,
+                          below: bool = False, junk: bool = False):
+    """Random lanes for ``resolve_global`` that tile [P, total): (tokens,
+    starts (T, B), count, out_base (B,) int32, total, prefix (P,) uint8).
+    Lanes hold 0 to T tokens, half literals, half matches of 3-258 bytes at
+    distances up to 32,768 that stay at or above byte 0 (``below``: also
+    below it, after a literal at byte 0).  Slots at or past a lane's count
+    hold 0, or random words with ``junk`` (what ``decode_tokens`` leaves
+    there on the card)."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0, T + 1, B).astype(np.int32)
+    count[0] = max(int(count[0]), 1)
+    is_match = rng.random((T, B)) < 0.5
+    is_match[0, 0] = False
+    lens = np.where(is_match, rng.integers(3, 259, (T, B)), 1)
+    lens = np.where(np.arange(T)[:, None] < count[None, :], lens, 0)
+    starts = np.cumsum(lens, axis=0) - lens
+    lane_len = lens.sum(axis=0)
+    out_base = P + np.cumsum(lane_len) - lane_len
+    g = out_base[None, :] + starts
+    reach = np.minimum(g if not below else 32768, 32768)
+    dist = (rng.random((T, B)) * np.maximum(reach, 1)).astype(np.int64) + 1
+    tokens = np.where(is_match, lens | (dist << 9) | (1 << 25),
+                      rng.integers(0, 256, (T, B)))
+    tokens = np.where(lens > 0, tokens, 0).astype(np.int32)
+    starts = starts.astype(np.int32)
+    prefix = rng.integers(0, 256, P).astype(np.uint8)
+    if junk:
+        past = np.arange(T)[:, None] >= count[None, :]
+        for a in (tokens, starts):
+            a[past] = rng.integers(-2**31, 2**31, int(past.sum()))
+    return (tokens, starts, count, out_base.astype(np.int32),
+            int(P + lane_len.sum()), prefix)
+
+
+def expand_generic(tokens, starts, count, out_base, total, prefix):
+    """The bytes of tiling lanes by the modular rule, one byte at a time
+    (a source below 0 reads byte 0): the reference's arithmetic without
+    its passes."""
+    out = np.zeros(total, np.int64)
+    P = prefix.size
+    out[:P] = prefix
+    order = sorted((int(out_base[b]) + int(starts[t, b]), int(tokens[t, b]))
+                   for b in range(tokens.shape[1])
+                   for t in range(int(count[b])))
+    for g, tok in order:
+        if not tok & (1 << 25):
+            if g >= P:
+                out[g] = tok & 255
+            continue
+        n, d = tok & 511, (tok >> 9) & 0xFFFF
+        for q in range(max(g, P), g + n):
+            out[q] = out[max(g - d + (q - g) % d, 0)]
+    return out.astype(np.uint8)
+
+
+@pytest.mark.parametrize("P,below", [(0, False), (32768, False),
+                                     (0, True)])
+def test_resolve_global_plain_on_random_lanes(P, below):
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    args = random_generic_tokens(33, 12, P, seed=P + below, below=below)
+    out, err = ik.resolve_global(*(torch.from_numpy(a) if
+                                   isinstance(a, np.ndarray) else a
+                                   for a in args))
+    assert np.array_equal(out.numpy(), expand_generic(*args))
+    assert bool(err) == below
+
+
+@pytest.mark.parametrize("P", [0, 32768])
+def test_resolve_global_plain_skips_the_slots_past_each_count(P):
+    """Random words past each lane's count change nothing: the bytes and
+    the flag are those of the same lanes with zeros there."""
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    def run(junk):
+        args = random_generic_tokens(33, 12, P, seed=P + 3, junk=junk)
+        return ik.resolve_global(*(torch.from_numpy(a) if
+                                   isinstance(a, np.ndarray) else a
+                                   for a in args)), args
+
+    (out, err), args = run(True)
+    (clean, clean_err), clean_args = run(False)
+    assert not np.array_equal(args[0], clean_args[0])
+    assert torch.equal(out, clean) and bool(err) == bool(clean_err)
+    assert np.array_equal(out.numpy(), expand_generic(*clean_args))
+
+
+def garbage_generic_lanes(B: int, seed: int = 0):
+    """B lanes over random stream words under the fixed tables and random
+    complete and incomplete codes of up to 15 bits, at random start bits
+    (some inactive, some ending past the stream)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(-2**31, 2**31, 8192, dtype=np.int64).astype(np.int32)
+    rows = [(C.fixed_litlen_code_lengths(), C.fixed_dist_code_lengths())]
+    for _ in range(3):
+        ll = np.zeros(288, np.int64)
+        ll[rng.permutation(288)[:200]] = rng.integers(7, 16, 200)
+        ll[rng.permutation(288)[:6]] = rng.integers(3, 7, 6)
+        dl = np.zeros(30, np.int64)
+        dl[:] = rng.integers(4, 16, 30)
+        rows.append((ll, dl))
+    lt = np.zeros((len(rows), wk.LL_W), np.int32)
+    dt = np.zeros((len(rows), wk.D_W), np.int32)
+    for r, (ll, dl) in enumerate(rows):
+        try:
+            lt[r], dt[r] = wk.wide_decode_tables(ll, dl)
+        except CorruptError:   # over-subscribed: no codes
+            pass
+    bit0 = rng.integers(0, 8192 * 32, B)
+    t = torch.from_numpy
+    return (t(words), t(lt), t(dt), t(rng.integers(0, len(rows), B)
+                                      .astype(np.int32)),
+            t(bit0), t(bit0 + rng.integers(0, 6000, B)),
+            t(rng.random(B) < 0.9))

@@ -20,6 +20,7 @@ from zlibes_tpu_torch.codec import wide as wd
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
 from zlibes_tpu_torch.spec import constants as C
+from test_torch_contract_cases import check_decode_tokens, zlib_flushed
 from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
 
 torch.set_num_threads(2)
@@ -860,3 +861,203 @@ def test_general_deflate_on_card_equals_cpu(monkeypatch):
     tk.LAUNCHES.clear()
     assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == raw
     assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}
+
+
+# ---------------------------------------------------------------------------
+# the generic indexed decode: decode_tokens and resolve_global
+
+@pytest.fixture(scope="module")
+def generic_stream():
+    """raw.bin through CPython zlib with a full flush every 32 KiB,
+    indexed by ``build_index``: self-contained, 4 KiB anchors."""
+    data = (GOLDEN / "raw.bin").read_bytes()
+    comp = zlib_flushed(data, 32768)
+    index = zlibes_tpu_torch.build_index(comp)
+    assert index.self_contained and not index.wide
+    return data, comp, index
+
+
+def _decode_tokens_both(args, T):
+    """decode_tokens on the card against its plain version on the CPU:
+    counts, end bits, flags equal, tokens and starts where emitted."""
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    got = ik.decode_tokens(*(a.cuda() for a in args), T=T)
+    torch.cuda.synchronize()
+    want = ik.decode_tokens_plain(*(a.cpu() for a in args), T)
+    check_decode_tokens(got, want, T)
+    return want
+
+
+def _group_args(comp, index):
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    p = ip.plan_groups(comp, index, "cpu")[0]
+    words = torch.from_numpy(ik.stream_words(comp))
+    return p, (words, p.lt, p.dt, p.rows, p.bit0, p.endb, p.active)
+
+
+def test_decode_tokens_kernel_matches_plain_on_a_group(generic_stream):
+    data, comp, index = generic_stream
+    p, args = _group_args(comp, index)
+    count, bitpos, still, err = _decode_tokens_both(args, p.T)[2:]
+    assert not err.any() and not still.any()
+    assert np.array_equal(bitpos.numpy(), p.lane_end)
+
+
+def test_decode_tokens_kernel_resumes_like_plain(generic_stream):
+    """T cut to 300: every call, lanes stopped while active resume from
+    their end bit."""
+    data, comp, index = generic_stream
+    p, (words, lt, dt, rows, bit0, endb, active) = _group_args(comp, index)
+    calls = 0
+    while bool(active.any()):
+        *_, bit0, active, err = _decode_tokens_both(
+            (words, lt, dt, rows, bit0, endb, active), 300)
+        assert not err.any()
+        calls += 1
+    assert calls > 3 and np.array_equal(bit0.numpy(), p.lane_end)
+
+
+@pytest.mark.parametrize("B", [1, 33, 4097])
+def test_decode_tokens_kernel_matches_plain_on_garbage(B):
+    from test_torch_contract_cases import garbage_generic_lanes
+
+    _decode_tokens_both(garbage_generic_lanes(B, seed=B), 64)
+
+
+@pytest.mark.parametrize("case", ["resumed", "past_end", "end_at_anchor",
+                                  "far_distance", "invalid_distance",
+                                  "inactive", "deep_codes"])
+def test_decode_tokens_kernel_gives_the_contract_cases(case):
+    from test_torch_contract_cases import run_generic_decode_case
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    def decode(*args):
+        *lanes, T = args
+        out = ik.decode_tokens(*(torch.as_tensor(a).cuda() for a in lanes),
+                               T=T)
+        torch.cuda.synchronize()
+        return out
+
+    run_generic_decode_case(case, decode)
+
+
+def _resolve_global_both(tokens, starts, count, out_base, total, prefix):
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    t = torch.as_tensor
+    got, err = ik.resolve_global(t(tokens).cuda(), t(starts).cuda(),
+                                 t(count).cuda(), t(out_base).cuda(), total,
+                                 t(prefix).cuda())
+    torch.cuda.synchronize()
+    want, want_err = ik.resolve_global_plain(
+        t(tokens).cpu(), t(starts).cpu(), t(count).cpu(), t(out_base).cpu(),
+        total, t(prefix).cpu())
+    assert torch.equal(got.cpu(), want)
+    assert bool(err) == bool(want_err)
+    return want, bool(err)
+
+
+@pytest.mark.parametrize("B,P,below", [(1, 0, False), (33, 32768, False),
+                                       (4097, 0, False), (4097, 32768, False),
+                                       (33, 0, True)])
+def test_resolve_global_kernel_matches_plain_on_random_lanes(B, P, below):
+    from test_torch_contract_cases import random_generic_tokens
+
+    T = 600 if B == 1 else 8
+    args = random_generic_tokens(B, T, P, seed=B + P, below=below)
+    _, err = _resolve_global_both(*args)
+    assert err == below
+
+
+@pytest.mark.parametrize("B,P", [(33, 0), (4097, 32768)])
+def test_resolve_global_kernel_skips_the_slots_past_each_count(B, P):
+    """Random words past each lane's count, as the decoder leaves them in
+    the (T, B) arrays that run_group(check=False) passes on."""
+    from test_torch_contract_cases import random_generic_tokens
+
+    _resolve_global_both(*random_generic_tokens(B, 8, P, seed=B + 1,
+                                                junk=True))
+
+
+@pytest.mark.parametrize("case", ["prefix_reach", "straddle", "below_zero",
+                                  "overlap", "dist1_run"])
+def test_resolve_global_kernel_gives_the_contract_cases(case):
+    from test_torch_contract_cases import (check_generic_resolve_case,
+                                           generic_resolve_case)
+
+    args, _, _ = generic_resolve_case(case)
+    out, err = _resolve_global_both(*args)
+    check_generic_resolve_case(case, out.numpy(), err)
+
+
+@pytest.mark.parametrize("with_prefix", [False, True])
+def test_resolve_global_kernel_matches_plain_on_a_group(generic_stream,
+                                                        with_prefix):
+    """The group's own tokens from byte 0, and from its eleventh lane (past
+    the first 32 KiB) on behind the 32 KiB before it."""
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    data, comp, index = generic_stream
+    p, args = _group_args(comp, index)
+    tokens, starts, count = (x.cuda() for x in ik.decode_tokens(
+        *(a.cuda() for a in args), T=p.T)[:3])
+    out_base = p.out_base.cuda()
+    raw = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).cuda()
+    total, prefix = p.d_total, raw[:0]
+    if with_prefix:
+        k0 = 10
+        cut = int(index.anchor_out[k0])
+        assert cut >= 32768
+        tokens = tokens[:, k0:].contiguous()
+        starts = starts[:, k0:].contiguous()
+        count = count[k0:].contiguous()
+        prefix = raw[cut - 32768 : cut]
+        out_base = (out_base[k0:] - cut + 32768).contiguous()
+        total = 32768 + len(data) - cut
+    out, err = _resolve_global_both(tokens, starts, count, out_base, total,
+                                    prefix)
+    assert not err
+    skip = 0 if not with_prefix else 32768
+    assert out[skip:].numpy().tobytes() == data[len(data) - (total - skip):]
+
+
+def test_generic_paths_on_card_count_launches(generic_stream, monkeypatch):
+    """inflate_to_device and inflate_range on the generic index, the
+    device branch of the scan, and inflate() without the native runtime,
+    through the kernels and not their plain versions."""
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+    from zlibes_tpu_torch.runtime import native
+
+    data, comp, index = generic_stream
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(ik, "decode_tokens_plain", plain)
+    monkeypatch.setattr(ik, "resolve_global_plain", plain)
+    tk.LAUNCHES.clear()
+    (out, off, n), = zlibes_tpu_torch.inflate_to_device(comp, index,
+                                                        device="cuda")
+    assert out.is_cuda and (off, n) == (0, len(data))
+    assert out.cpu().numpy().tobytes() == data
+    assert dict(tk.LAUNCHES) == {"decode_tokens": 1, "resolve_global": 1}
+    assert zlibes_tpu_torch.inflate_range(comp, index, 32700, 300,
+                                          device="cuda") == data[32700:33000]
+    small = zlib.compress(data[:50000], 6)
+    tk.LAUNCHES.clear()
+    got, blocks, _ = ip.inflate_raw_scan(small, 2, device="cuda")
+    assert got.cpu().numpy().tobytes() == data[:50000]
+    assert tk.LAUNCHES["resolve_global"] == 1
+    assert tk.LAUNCHES["decode_tokens"] == sum(b.btype != 0 for b in blocks)
+    monkeypatch.setattr(native, "available", lambda: False)
+    assert zlibes_tpu_torch.inflate(comp, device="cuda") == data
+    assert zlibes_tpu_torch.inflate(comp, index=index, device="cuda") == data
+    bad = bytearray(comp)
+    bad[len(bad) // 2] ^= 0x55
+    with pytest.raises((zlibes_tpu_torch.CorruptError,
+                        zlibes_tpu_torch.ChecksumError)):
+        zlibes_tpu_torch.inflate(bytes(bad), index=index, device="cuda")

@@ -181,19 +181,19 @@ def wide_stream():
 
 
 def test_non_turbo_indexes_not_ported(wide_stream, monkeypatch):
-    """What is still not ported for a generic index (neither turbo nor wide
-    anchors): the seek and the device-resident output, and, without the
-    native runtime, its whole-stream decode.  The messages say what is
-    missing."""
+    """A generic index (neither turbo nor wide anchors) of the reference's
+    wide stream: the seek and the device-resident output go through the
+    group decode, and so does, without the native runtime, its whole-stream
+    decode; only ``build_index`` still needs that runtime."""
     data, comp, index = wide_stream
     generic = _generic(index_from_reference(index))
-    with pytest.raises(NotImplementedError, match="generic index"):
-        zlibes_tpu_torch.inflate_range(comp, generic, 0, 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="generic index"):
-        zlibes_tpu_torch.inflate_to_device(comp, generic, device="cpu")
+    assert zlibes_tpu_torch.inflate_range(comp, generic, 0, 10,
+                                          device="cpu") == data[:10]
+    (out, off, n), = zlibes_tpu_torch.inflate_to_device(comp, generic,
+                                                        device="cpu")
+    assert (off, n) == (0, len(data)) and out.numpy().tobytes() == data
     monkeypatch.setattr(native, "available", lambda: False)
-    with pytest.raises(NotImplementedError, match="native runtime"):
-        zlibes_tpu_torch.inflate(comp, index=generic, device="cpu")
+    assert zlibes_tpu_torch.inflate(comp, index=generic, device="cpu") == data
     with pytest.raises(RuntimeError, match="native runtime unavailable"):
         zlibes_tpu_torch.build_index(comp)
 
@@ -347,9 +347,19 @@ def test_no_index_decodes_through_native():
 
 
 def test_no_index_without_native_raises(monkeypatch):
+    """Without the native runtime a stream without an index decodes on the
+    device path (the scan); what it refuses, it refuses with the port's
+    errors."""
     monkeypatch.setattr(native, "available", lambda: False)
-    with pytest.raises(NotImplementedError, match="native runtime"):
-        zlibes_tpu_torch.inflate(zlib.compress(b"abc" * 100), device="cpu")
+    comp = zlib.compress(b"abc" * 100)
+    assert zlibes_tpu_torch.inflate(comp, device="cpu") == b"abc" * 100
+    with pytest.raises(E.ChecksumError):
+        zlibes_tpu_torch.inflate(comp[:-1] + bytes([comp[-1] ^ 1]),
+                                 device="cpu")
+    # a body cut short fails at its last token, as in the reference's
+    # device scan
+    with pytest.raises(E.CorruptError):
+        zlibes_tpu_torch.inflate(comp[:-6], device="cpu")
 
 
 def test_cuda_without_card_raises(turbo_stream, monkeypatch):

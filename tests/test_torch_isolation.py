@@ -72,6 +72,20 @@ assert zlib.decompressobj(zdict=data[:500]).decompress(fdict) == data
 host, hindex = zt.deflate_indexed(data, backend="refmodel")
 assert zt.deflate(data, backend="refmodel") == host
 assert zt.inflate(host, backend="refmodel") == data
+# a generic index (the host model's): the seek and the device output
+# through the group decode, and the scan of a stream without an index
+assert not hindex.wide and not hindex.turbo
+assert zt.inflate_range(host, hindex, 4090, 20,
+                        device="cpu") == data[4090:4110]
+(gout, goff, gn), = zt.inflate_to_device(host, hindex, device="cpu")
+assert (goff, gn) == (0, len(data)) and gout.numpy().tobytes() == data
+from zlibes_tpu_torch.codec import inflate_pipeline as ip
+sout, _, _ = ip.inflate_raw_scan(zlib.compress(data[:3000], 6), 2,
+                                 device="cpu")
+assert sout.numpy().tobytes() == data[:3000]
+for name in ("zlibes_tpu_torch.ops.inflate_kernel",
+             "zlibes_tpu_torch.codec.inflate_pipeline"):
+    assert name in names, name
 from zlibes_tpu_torch.runtime import native
 if native.available():
     assert zt.inflate(zlib.compress(data, 6), device="cpu") == data

@@ -111,8 +111,11 @@ def inflate(data: bytes, *, backend: str = "device", index=None,
     and one resolve kernel a call).  Without an index, and with any other
     index (generic 4 KiB anchors, a ``build_index`` index of a foreign
     stream, a non-turbo index on an FDICT stream), the stream decodes on
-    the host through the port's native runtime, and an index that does not
-    match what was decoded raises CorruptError.  ``dictionary=`` supplies
+    the host through the port's native runtime when it is available, and
+    an index that does not match what was decoded raises CorruptError;
+    without that runtime it decodes on ``device``: through the index's
+    anchor lanes (kernels ``decode_tokens`` + ``resolve_global``), or
+    without an index block by block (the scan).  ``dictionary=`` supplies
     the preset dictionary for FDICT streams (RFC 1950 §2.2).
 
     ``backend="refmodel"`` decodes with the numpy spec model on the host
@@ -135,9 +138,11 @@ def inflate_range(data: bytes, index, start: int, length: int, *,
                   device: torch.device | str = "cuda") -> bytes:
     """Random-access decode: output bytes [start, start+length) only.
 
-    Decodes, on ``device``, just the self-contained blocks covering the
-    range of a stream with a turbo or a wide index, so the cost is
-    O(length + block_size) whatever the stream's size.
+    Decodes, on ``device``, just the blocks covering the range, through
+    any self-contained index (turbo, wide, or generic: the host model's,
+    ``build_index`` of a stream written with full flushes), so the cost is
+    O(length + block_size) whatever the stream's size.  A chained index
+    raises CorruptError, a stream with a preset dictionary HeaderError.
     """
     from . import inflate_pipeline
 
@@ -148,12 +153,14 @@ def inflate_range(data: bytes, index, start: int, length: int, *,
 
 def inflate_to_device(data: bytes, index, *,
                       device: torch.device | str = "cuda"):
-    """Decompress a stream with a turbo or a wide index straight into
-    ``device`` memory, with no device-to-host copy of the output.
+    """Decompress a stream with any self-contained index (turbo, wide or
+    generic) straight into ``device`` memory, with no device-to-host copy
+    of the output.
 
     Returns a list of (uint8 tensor, out_offset, nbytes) spans covering the
     output: bytes [out_offset, out_offset + nbytes) are the tensor's first
-    nbytes.
+    nbytes (one span today).  A chained index raises CorruptError, a
+    stream with a preset dictionary HeaderError.
     """
     from . import inflate_pipeline
 
@@ -165,7 +172,9 @@ def build_index(data: bytes, anchor_every: int = 4096) -> StreamIndex:
     """Scan any conformant zlib stream into a StreamIndex (block layout and
     one decode anchor about every ``anchor_every`` output bytes), for
     streams this framework did not write.  ``inflate(data, index=...)``
-    accepts it (host decode, the index checked against the stream).
+    accepts it (host decode, the index checked against the stream), and
+    ``inflate_range`` / ``inflate_to_device`` do when its blocks are
+    self-contained (a stream written with full flushes).
     Requires the native runtime scanner; RuntimeError without it.
     """
     from ..runtime import native

@@ -1,15 +1,26 @@
 """zlib-container inflate for the PyTorch port.
 
 Counterpart of ``zlibes_tpu/codec/inflate_pipeline.py``.  Container
-framing and header parsing are host work; the payload decode, LZ resolve
-and Adler-32 of a stream with a turbo or a wide (default-profile) index run
-on the requested device, as do the seek (``inflate_range``) and the
-device-resident output (``inflate_to_device``).  A stream without an index,
-and a stream whose index the card cannot use (generic 4 KiB anchors, a
-chained index of a foreign stream, any non-turbo index on a stream with a
-preset dictionary), decodes on the host through the port's native runtime
-(``runtime/native.py``), as the JAX package does when that runtime is
-available; the index must still match what was decoded.
+framing, header parsing and table construction are host work; payload
+decode, LZ resolve and Adler-32 run on the requested device.  Three device
+decodes:
+
+  * a turbo or a wide (default-profile) index: the turbo and wide pipelines
+    (``codec/turbo.py``, ``codec/wide.py``);
+  * any other index (generic ~4 KiB anchors, a ``build_index`` index of a
+    foreign stream, chained or self-contained, the index of a stream with a
+    preset dictionary): anchor lanes grouped into dispatches of
+    ``decode_tokens`` + ``resolve_global`` (``plan_groups``, ``run_group``,
+    ``inflate_raw_indexed``);
+  * no index: the blocks one after another, each a single lane of
+    ``decode_tokens``, then ``resolve_global`` over 4 MiB windows
+    (``inflate_raw_scan``).
+
+``inflate()`` sends a stream without a turbo or wide index to the port's
+native runtime (``runtime/native.py``) when it is available, as the JAX
+package does, and checks the index against what was decoded; without it
+such a stream takes the device decodes above.  ``inflate_range`` and
+``inflate_to_device`` take any self-contained index.
 """
 from __future__ import annotations
 
@@ -18,9 +29,11 @@ import torch
 
 from ..spec import constants as C
 from ..spec.errors import (
+    BlockTypeError,
     ChecksumError,
     CorruptError,
     HeaderError,
+    StoredBlockError,
     TruncatedError,
 )
 from ..spec.refmodel import (
@@ -30,10 +43,38 @@ from ..spec.refmodel import (
     read_dynamic_code_lengths,
 )
 
+from ..ops import wide_kernel as wk
 from ..ops.adler32 import adler32_device
+from ..ops.inflate_kernel import (
+    decode_tokens,
+    resolve_global,
+    splice_stored,
+    stream_words,
+)
 
 _FIXED_LITLEN_LENGTHS = C.fixed_litlen_code_lengths()
 _FIXED_DIST_LENGTHS = C.fixed_dist_code_lengths()
+
+# decode lanes a group dispatch
+_LANES = 8192
+# tokens a scan-path decode call (a block resumes until its end)
+_SCAN_CHUNK_TOKENS = 65536
+# output bytes a resolve window of the scan path, behind a 32 KiB halo
+_RESOLVE_WINDOW = 1 << 22
+
+
+def _bucket(n: int, lo: int = 4096) -> int:
+    return max(lo, 1 << (max(n, 1) - 1).bit_length())
+
+
+class _Stream:
+    """The compressed stream on the device: ``words`` (NW,) int32, the same
+    memory as ``bytes`` (4·NW,) uint8."""
+
+    def __init__(self, data: bytes, device: torch.device | str):
+        self.words = torch.from_numpy(stream_words(data)).to(device)
+        self.bytes = self.words.view(torch.uint8)
+        self.total_bits = len(data) * 8
 
 
 def _block_code_lengths(data: bytes, blk: BlockInfo):
@@ -48,25 +89,346 @@ def _block_code_lengths(data: bytes, blk: BlockInfo):
     return ll, dl
 
 
-def _decode_native(data: bytes, offset: int, dictionary: bytes | None):
-    """Whole-stream host decode, for a stream without an index or with one
-    the card cannot use: (bytes as a uint8 CPU tensor, end bit, Adler-32)."""
-    from ..runtime import native
+def _tables(device, rows):
+    """(lt (NB, LL_W), dt (NB, D_W)) int32 on ``device`` from a list of
+    (litlen, dist) code lengths, one row each."""
+    lt = np.zeros((len(rows), wk.LL_W), np.int32)
+    dt = np.zeros((len(rows), wk.D_W), np.int32)
+    for r, (ll, dl) in enumerate(rows):
+        lt[r], dt[r] = wk.wide_decode_tables(ll, dl)
+    return torch.from_numpy(lt).to(device), torch.from_numpy(dt).to(device)
 
-    if not native.available():
-        raise NotImplementedError(
-            "this stream has no turbo or self-contained wide index, so it "
-            "decodes on the host, which needs the native runtime (g++); the "
-            "device decode of generic and un-indexed streams is not ported "
-            "yet")
-    out, _index, end_bit, adler = native.decode(
-        data, bit_offset=offset * 8, dictionary=dictionary)
-    return torch.from_numpy(out), end_bit, adler
+
+# ---------------------------------------------------------------------------
+# no index: the scan path
+
+def _decode_one_block(stream: _Stream, bitpos: int, ll_len, d_len):
+    """Decode one block's payload as a single lane, resumed every
+    ``_SCAN_CHUNK_TOKENS`` tokens: (tokens (N,) int32 on the device, the
+    bit after its end-of-block)."""
+    dev = stream.words.device
+    lt, dt = _tables(dev, [(ll_len, d_len)])
+    bit = torch.tensor([bitpos], dtype=torch.int64, device=dev)
+    end = torch.tensor([stream.total_bits], dtype=torch.int64, device=dev)
+    row = torch.zeros(1, dtype=torch.int32, device=dev)
+    active = torch.ones(1, dtype=torch.bool, device=dev)
+    parts = []
+    while True:
+        toks, _, cnt, bit, active, err = decode_tokens(
+            stream.words, lt, dt, row, bit, end, active, T=_SCAN_CHUNK_TOKENS)
+        n, bad, more = torch.stack([cnt.long(), err.long(),
+                                    active.long()]).cpu()[:, 0].tolist()
+        if bad:
+            raise CorruptError("invalid Huffman data in block payload")
+        parts.append(toks[:n, 0])
+        if not more:
+            break
+    return torch.cat(parts), int(bit[0])
+
+
+def _resolve_tokens_device(tokens: torch.Tensor,
+                           dictionary: bytes | None = None) -> torch.Tensor:
+    """Resolve one stream's tokens (N,) int32 into its bytes on their
+    device, in 4 MiB windows, each behind the 32 KiB before it (the first
+    behind the preset dictionary's tail, or nothing: a copy from before the
+    stream raises)."""
+    dev = tokens.device
+    ism = (tokens & wk.TOK_MATCH_BIT) != 0
+    lens = torch.where(ism, tokens & wk.TOK_VAL_MASK, 1).long()
+    ends = torch.cumsum(lens, 0)
+    starts = ends - lens
+    total = int(ends[-1]) if tokens.numel() else 0
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    P = C.WINDOW_SIZE
+    tail = bytes(dictionary[-P:]) if dictionary else b""
+    first = torch.from_numpy(np.frombuffer(tail, np.uint8).copy()).to(dev)
+    bounds = torch.arange(0, total, _RESOLVE_WINDOW, device=dev)
+    # each window's tokens: from the one covering its first byte to the
+    # last starting before its end
+    t0s = torch.searchsorted(ends, bounds, right=True).tolist()
+    t1s = torch.searchsorted(starts, (bounds + _RESOLVE_WINDOW).clamp(
+        max=total)).tolist()
+    for a, t0, t1 in zip(range(0, total, _RESOLVE_WINDOW), t0s, t1s):
+        b = min(total, a + _RESOLVE_WINDOW)
+        prefix = first if a == 0 else out[a - P : a]
+        halo = prefix.numel()
+        n = t1 - t0
+        res, err = resolve_global(
+            tokens[t0:t1].reshape(n, 1).contiguous(),
+            (starts[t0:t1] - starts[t0]).int().reshape(n, 1),
+            torch.tensor([n], dtype=torch.int32, device=dev),
+            (starts[t0 : t0 + 1] + (halo - a)).int(),
+            halo + (b - a), prefix.contiguous())
+        if bool(err):
+            raise CorruptError("back-reference before start of output")
+        out[a:b] = res[halo:]
+    return out
+
+
+def inflate_raw_scan(data: bytes, byte_offset: int = 0,
+                     dictionary: bytes | None = None, *,
+                     device: torch.device | str):
+    """Inflate an arbitrary conformant deflate stream starting at
+    ``byte_offset`` without an index, on ``device``: block headers parsed on
+    the host, each block's payload one lane of ``decode_tokens``, the
+    stream's tokens resolved together (copies cross blocks).  Returns
+    (bytes as a uint8 tensor on ``device``, list[BlockInfo], end bit).
+
+    The reference's scan takes its native runtime when it can; this is its
+    device branch, which the port's ``inflate()`` reaches when the native
+    runtime is not available."""
+    stream = _Stream(data, device)
+    br = BitReader(data, byte_offset)
+    parts: list[torch.Tensor] = []
+    blocks: list[BlockInfo] = []
+    out_count = 0
+    while True:
+        start_bit = br.bitpos
+        try:
+            bfinal = br.read_bits(1)
+            btype = br.read_bits(2)
+        except TruncatedError:
+            raise TruncatedError("stream ended before final block")
+        if btype == C.BTYPE_STORED:
+            br.align_to_byte()
+            payload_start = br.bitpos
+            pos = br.bitpos >> 3
+            if pos + 4 > len(data):
+                raise TruncatedError("stored block header truncated")
+            length = data[pos] | (data[pos + 1] << 8)
+            nlen = data[pos + 2] | (data[pos + 3] << 8)
+            if length != (~nlen & 0xFFFF):
+                raise StoredBlockError("LEN/NLEN mismatch")
+            pos += 4
+            if pos + length > len(data):
+                raise TruncatedError("stored block data truncated")
+            # stored bytes are literal tokens
+            parts.append(stream.bytes[pos : pos + length].int())
+            br.bitpos = (pos + length) * 8
+            out_len = length
+        elif btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC):
+            if btype == C.BTYPE_FIXED:
+                ll_len, d_len = _FIXED_LITLEN_LENGTHS, _FIXED_DIST_LENGTHS
+            else:
+                ll_len, d_len = read_dynamic_code_lengths(br)
+            payload_start = br.bitpos
+            toks, br.bitpos = _decode_one_block(stream, br.bitpos, ll_len,
+                                                d_len)
+            parts.append(toks)
+            out_len = int(torch.where((toks & wk.TOK_MATCH_BIT) != 0,
+                                      toks & wk.TOK_VAL_MASK, 1).sum())
+        else:
+            raise BlockTypeError("reserved BTYPE 3")
+        blocks.append(BlockInfo(
+            btype=btype, bfinal=bool(bfinal), start_bit=start_bit,
+            payload_start_bit=payload_start, end_bit=br.bitpos,
+            out_start=out_count, out_len=out_len))
+        out_count += out_len
+        if bfinal:
+            break
+    tokens = torch.cat(parts) if parts else stream.words.new_zeros(0)
+    out = _resolve_tokens_device(tokens, dictionary=dictionary)
+    return out, blocks, br.bitpos
+
+
+# ---------------------------------------------------------------------------
+# an index: anchor lanes in groups
+
+def _index_lanes(index: StreamIndex):
+    """Flatten a StreamIndex into per-lane (bit0, end_bit, out_base,
+    out_len, block_id) int64 arrays: a lane runs to the next anchor of its
+    block, or to the block's end."""
+    lane_bit0 = np.asarray(index.anchor_bit, np.int64)
+    lane_out = np.asarray(index.anchor_out, np.int64)
+    lane_block = np.asarray(index.anchor_block, np.int64)
+    blk_end = np.array([b.end_bit for b in index.blocks] or [0], np.int64)
+    blk_out_end = np.array([b.out_start + b.out_len for b in index.blocks]
+                           or [0], np.int64)
+    same = np.zeros(lane_bit0.size, bool)
+    same[:-1] = lane_block[1:] == lane_block[:-1]
+    nxt = np.roll(lane_bit0, -1)
+    nxt_out = np.roll(lane_out, -1)
+    lane_end = np.where(same, nxt, blk_end[lane_block])
+    lane_outlen = np.where(same, nxt_out, blk_out_end[lane_block]) - lane_out
+    return lane_bit0, lane_end, lane_out, lane_outlen, lane_block
+
+
+class _GroupPlan:
+    """Host-prepared device tensors for one indexed decode dispatch.
+
+    lt, dt       (NB, LL_W), (NB, D_W) int32: one table row per block
+    rows         (B,) int32 each lane's row
+    bit0, endb   (B,) int64 each lane's absolute start / end bit
+    active       (B,) bool, all true
+    out_base     (B,) int32 each lane's first byte from the group's
+    lane_end     (B,) int64 on the host, for the end check
+    B lanes, T token slots a lane; the group's output is
+    [d_base, d_base + d_total) of the stream's.
+    """
+
+    __slots__ = ("lt", "dt", "rows", "bit0", "endb", "active", "out_base",
+                 "lane_end", "B", "T", "d_base", "d_total")
+
+
+def plan_groups(data: bytes, index: StreamIndex,
+                device: torch.device | str) -> list[_GroupPlan]:
+    """Group anchor lanes into device dispatches (whole blocks per group,
+    ≤ _LANES lanes, ≤ 2^23-byte output span).
+
+    For non-self-contained (foreign) indexes, groups additionally split at
+    stored blocks so back-references never point into an unresolved gap —
+    stored content reaches later groups through the chained prefix.
+    """
+    lane_bit0, lane_end, lane_out, lane_outlen, lane_block = \
+        _index_lanes(index)
+    split_at_stored = not getattr(index, "self_contained", True)
+    nlanes = lane_bit0.size
+    if nlanes == 0:
+        return []
+    max_span = int(lane_outlen.max(initial=1))
+    T = _bucket(max_span + 16, lo=512)
+    max_span_bytes = (1 << 23) - C.BLOCK_MAX_BUFFER_LEN
+    groups: list[tuple[int, int]] = []
+    gstart = 0
+    i = 0
+    while i < nlanes:
+        j = i
+        while j < nlanes and lane_block[j] == lane_block[i]:
+            j += 1
+        span = int(lane_out[j - 1] + lane_outlen[j - 1] - lane_out[gstart])
+        gap = (split_at_stored and i > gstart
+               and lane_block[i] != lane_block[i - 1] + 1)
+        if (j - gstart > _LANES or span > max_span_bytes or gap) \
+                and i > gstart:
+            groups.append((gstart, i))
+            gstart = i
+        i = j
+    if gstart < nlanes:
+        groups.append((gstart, nlanes))
+
+    # one table pair per block; every fixed block shares one build
+    built: dict[object, tuple] = {}
+
+    def code_lengths(b):
+        blk = index.blocks[b]
+        key = blk.btype if blk.btype == C.BTYPE_FIXED else b
+        if key not in built:
+            built[key] = _block_code_lengths(data, blk)
+        return built[key]
+
+    def on_dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    plans = []
+    for g0, g1 in groups:
+        p = _GroupPlan()
+        block_ids, rows = np.unique(lane_block[g0:g1], return_inverse=True)
+        p.lt, p.dt = _tables(device, [code_lengths(int(b))
+                                      for b in block_ids])
+        p.B = g1 - g0
+        p.T = T
+        p.rows = on_dev(rows, np.int32)
+        p.bit0 = on_dev(lane_bit0[g0:g1], np.int64)
+        p.endb = on_dev(lane_end[g0:g1], np.int64)
+        p.active = torch.ones(p.B, dtype=torch.bool, device=device)
+        p.lane_end = lane_end[g0:g1]
+        p.d_base = int(lane_out[g0])
+        p.d_total = int(lane_out[g1 - 1] + lane_outlen[g1 - 1]) - p.d_base
+        p.out_base = on_dev(lane_out[g0:g1] - p.d_base, np.int32)
+        plans.append(p)
+    return plans
+
+
+def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
+              prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode and resolve one planned group on the stream's device; returns
+    its bytes with the prefix at [0, P) and the group's at [P, P + d_total).
+
+    ``prefix``: the (up to 32 KiB of) output before the group, for streams
+    whose blocks are not self-contained (groups then resolve in order, each
+    behind the previous tail) and for the first groups of a stream with a
+    preset dictionary.  ``check`` raises CorruptError on a lane that failed
+    or did not end at its index's end bit, and on a copy from before the
+    prefix."""
+    tokens, starts, count, endpos, still, err = decode_tokens(
+        stream.words, p.lt, p.dt, p.rows, p.bit0, p.endb, p.active, T=p.T)
+    if check:
+        meta = torch.stack([count.long(), err.long(), still.long(),
+                            endpos]).cpu().numpy()
+        if meta[1].any() or meta[2].any():
+            raise CorruptError("invalid Huffman data in indexed block")
+        if not (meta[3] == p.lane_end).all():
+            raise CorruptError("lane did not end at its anchor boundary")
+        # the occupied token rows only (unchecked, the whole (T, B) arrays
+        # go on: the counts stay on the device, and the resolve skips every
+        # slot at or past its lane's count)
+        Tc = int(meta[0].max(initial=0))
+        tokens, starts = tokens[:Tc], starts[:Tc]
+    if prefix is None:
+        prefix = stream.bytes.new_zeros(0)
+    P = prefix.numel()
+    out, rerr = resolve_global(tokens, starts, count, p.out_base + P,
+                               P + p.d_total, prefix)
+    if check and bool(rerr):
+        raise CorruptError("back-reference escapes its resolve span")
+    return out
+
+
+def inflate_raw_indexed(data: bytes, index: StreamIndex,
+                        device: torch.device | str,
+                        dictionary: bytes | None = None,
+                        check: bool = True) -> torch.Tensor:
+    """Anchor-parallel inflate through any index; returns the bytes as a
+    uint8 tensor on ``device``.
+
+    Self-contained blocks (no copy across a block boundary) resolve group
+    by group; a chained index (a foreign stream) resolves its groups in
+    order, each behind the 32 KiB before it.  ``dictionary`` (FDICT
+    streams): its tail is the prefix of every group that starts in the first
+    32 KiB of output.  Stored payloads are spliced in on the device: before
+    the groups of a chained index (its groups split at stored blocks, and a
+    group's prefix reads them), after those of a self-contained one (a group
+    may span a stored block and writes its span whole).
+    """
+    stream = _Stream(data, device)
+    out = torch.empty(index.total_out, dtype=torch.uint8, device=device)
+    chained = not getattr(index, "self_contained", True)
+    W = C.WINDOW_SIZE
+    dict_tail = None
+    if dictionary:
+        dict_tail = torch.from_numpy(np.frombuffer(
+            bytes(dictionary[-W:]), np.uint8).copy()).to(device)
+    if chained:
+        splice_stored(out, stream.bytes, data, index.blocks)
+    for p in plan_groups(data, index, device):
+        prefix = None
+        if (chained and p.d_base) or (dict_tail is not None
+                                      and p.d_base < W):
+            prefix = out[max(0, p.d_base - W) : p.d_base]
+            if dict_tail is not None and prefix.numel() < W:
+                prefix = torch.cat([dict_tail, prefix])[-W:]
+        dev_out = run_group(stream, p, check=check, prefix=prefix)
+        P = 0 if prefix is None else prefix.numel()
+        out[p.d_base : p.d_base + p.d_total] = dev_out[P : P + p.d_total]
+    if not chained:
+        splice_stored(out, stream.bytes, data, index.blocks)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entry points
+
+def _refuse_fdict(data: bytes, what: str) -> None:
+    if len(data) > 1 and data[1] & 0x20:
+        raise HeaderError(
+            f"{what} does not take a stream with a preset dictionary "
+            f"(FDICT): decode it with inflate(..., dictionary=)")
 
 
 def _on_device(index: StreamIndex, dictionary: bytes | None = None) -> bool:
-    """Whether the card decodes this index: a turbo index, or a wide,
-    self-contained one on a stream without a preset dictionary."""
+    """Whether the turbo or the wide pipeline decodes this index: a turbo
+    index, or a wide, self-contained one on a stream without a preset
+    dictionary."""
     return bool(getattr(index, "turbo", False)
                 or (getattr(index, "wide", False) and dictionary is None
                     and getattr(index, "self_contained", True)))
@@ -76,8 +438,9 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
                      device: torch.device | str,
                      check: bool = True) -> torch.Tensor:
     """Device decode of an indexed stream's payload: the turbo path for a
-    turbo index, the wide path for a self-contained wide index.  Returns
-    the output bytes as a uint8 tensor on ``device``."""
+    turbo index, the wide path for a self-contained wide index, the group
+    path for any other.  Returns the output bytes as a uint8 tensor on
+    ``device``."""
     if getattr(index, "turbo", False):
         from .turbo import inflate_raw_turbo
 
@@ -86,11 +449,7 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
         from .wide import inflate_raw_wide
 
         return inflate_raw_wide(data, index, device, check=check)
-    raise NotImplementedError(
-        "the device decode of a generic index (4 KiB anchors, neither turbo "
-        "nor wide) is not ported yet: inflate_range and inflate_to_device "
-        "need a turbo or a wide index; inflate() decodes such a stream on "
-        "the host")
+    return inflate_raw_indexed(data, index, device, check=check)
 
 
 def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
@@ -100,13 +459,17 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
     Only the self-contained blocks overlapping the range are decoded, on
     ``device``, through a sub-index that keeps the turbo and wide flags, so
     a seek runs the same kernels as a whole-stream decode.  Block
-    out_starts are multiples of 128 KiB, so the sub-stream keeps the anchor
-    geometry (512 B turbo segments, 128 B wide sub-spans).
+    out_starts are multiples of 128 KiB in turbo and wide streams, so the
+    sub-stream keeps their anchor geometry (512 B turbo segments, 128 B
+    wide sub-spans); a generic index's lanes are its anchors wherever they
+    lie.
     """
     total = index.total_out
     if start < 0 or length < 0 or start + length > total:
         raise ValueError(
             f"range [{start}, {start + length}) outside output [0, {total})")
+    data = bytes(data)
+    _refuse_fdict(data, "inflate_range")
     if not getattr(index, "self_contained", True):
         raise CorruptError(
             "inflate_range requires self-contained blocks (indexes from this "
@@ -133,7 +496,7 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
         getattr(index, "max_tokens", 0),
         getattr(index, "wide", False),
     )
-    out = _inflate_indexed(bytes(data), sub, device)
+    out = _inflate_indexed(data, sub, device)
     return out[start - out_lo : end - out_lo].cpu().numpy().tobytes()
 
 
@@ -143,23 +506,39 @@ def inflate_to_device(data: bytes, index: StreamIndex, *,
     host: returns [(uint8 tensor on ``device``, out_offset, nbytes)].
 
     One span covers the whole output: a turbo stream's chunk rows or a wide
-    stream's block rows, flattened, or, for a wide stream with stored
-    content, one spliced tensor.  As in the reference, the decode's meta
-    checks are skipped; the caller verifies the bytes.
+    stream's block rows, flattened, or one tensor into which the coded
+    rows, the groups of a generic index and the stored blocks' payloads
+    were spliced.  As in the reference, the decode's meta checks are
+    skipped; the caller verifies the bytes.
     """
+    data = bytes(data)
+    _refuse_fdict(data, "inflate_to_device")
     if not getattr(index, "self_contained", True):
         raise CorruptError(
             "inflate_to_device requires self-contained blocks (streams "
             "produced by this framework); use inflate() for foreign streams")
-    out = _inflate_indexed(bytes(data), index, device, check=False)
+    out = _inflate_indexed(data, index, device, check=False)
     return [(out, 0, index.total_out)]
+
+
+def _decode_native(data: bytes, offset: int, dictionary: bytes | None):
+    """Whole-stream host decode through the native runtime: (bytes as a
+    uint8 CPU tensor, end bit, Adler-32)."""
+    from ..runtime import native
+
+    out, _index, end_bit, adler = native.decode(
+        data, bit_offset=offset * 8, dictionary=dictionary)
+    return torch.from_numpy(out), end_bit, adler
 
 
 def inflate(data: bytes, *, device: torch.device | str,
             verify_checksum: bool = True, index=None,
             dictionary: bytes | None = None) -> bytes:
-    """zlib-container inflate; a turbo- or wide-indexed stream decodes on
-    ``device``, any other on the host through the native runtime."""
+    """zlib-container inflate.  A turbo- or wide-indexed stream decodes on
+    ``device``; any other on the host through the native runtime when it is
+    available, else on ``device`` (through its index, or by the scan)."""
+    from ..runtime import native
+
     data = bytes(data)
     if len(data) < 6:
         raise TruncatedError("zlib stream shorter than minimal frame")
@@ -189,7 +568,7 @@ def inflate(data: bytes, *, device: torch.device | str,
             raise HeaderError("turbo streams never carry FDICT")
         out = _inflate_indexed(data, index, device)
         end_bit = index.blocks[-1].end_bit
-    else:
+    elif native.available():
         out, end_bit, known_adler = _decode_native(data, offset, dictionary)
         # the decode did not need the index, but a caller who passes one
         # that belongs to another stream must get an error, not the bytes
@@ -197,6 +576,12 @@ def inflate(data: bytes, *, device: torch.device | str,
                                   or index.total_out != out.numel()):
             raise CorruptError("index does not match this stream (block "
                                "layout / output size disagree)")
+    elif index is not None:
+        out = inflate_raw_indexed(data, index, device, dictionary=dictionary)
+        end_bit = index.blocks[-1].end_bit
+    else:
+        out, _blocks, end_bit = inflate_raw_scan(
+            data, byte_offset=offset, dictionary=dictionary, device=device)
     if verify_checksum:
         trailer_pos = (end_bit + 7) >> 3
         if trailer_pos + 4 > len(data):

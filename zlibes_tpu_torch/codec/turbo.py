@@ -17,6 +17,7 @@ from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
 
 from ..ops import turbo_kernel as tk
+from ..ops.inflate_kernel import stream_words
 
 SUB = tk.SUB
 
@@ -161,16 +162,12 @@ class TurboPlan:
         p.T = tk.MAX_TOKENS
         p.total_out = index.total_out
 
-        raw = np.frombuffer(data, np.uint8)
-        words = np.zeros(-(-raw.size // 4), "<u4")
-        words.view(np.uint8)[: raw.size] = raw
-
         def lanes(vals):
             x = np.zeros(p.L_pad, np.int32)
             x[:L] = vals
             return torch.from_numpy(x).to(device)
 
-        p.words = torch.from_numpy(words.view(np.int32)).to(device)
+        p.words = torch.from_numpy(stream_words(data)).to(device)
         p.start_w = lanes(start_w)
         p.bit0 = lanes(bit0_abs & 31)
         p.endb = lanes(endb)

@@ -19,6 +19,7 @@ from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
 
 from ..ops import wide_kernel as wk
+from ..ops.inflate_kernel import splice_stored, stream_words
 
 SUB = wk.SUB
 # the largest lane window, in stream words, a valid wide index can need
@@ -108,10 +109,7 @@ class WidePlan:
                     if b.btype == C.BTYPE_STORED and b.out_len]
         p.total_out = index.total_out
         p.T = wk.MAX_TOKENS
-        raw = np.frombuffer(data, np.uint8)
-        words = np.zeros(-(-raw.size // 4), "<u4")
-        words.view(np.uint8)[: raw.size] = raw
-        p.words = torch.from_numpy(words.view(np.int32)).to(device)
+        p.words = torch.from_numpy(stream_words(data)).to(device)
         if not p.coded:
             # all-stored stream (incompressible input): copies only
             p.Cb = p.LPB = p.SW = 0
@@ -228,11 +226,5 @@ def inflate_raw_wide(data: bytes, index: StreamIndex,
                       device=plan.words.device)
     for i, b in enumerate(plan.coded):
         out[b.out_start : b.out_start + b.out_len] = rows[i, : b.out_len]
-    stream = plan.words.view(torch.uint8)
-    for b in plan.stored:
-        pos = (b.payload_start_bit >> 3) + 4   # past LEN / NLEN
-        if pos + b.out_len > len(data):
-            raise CorruptError("stored block runs past the end of the stream")
-        out[b.out_start : b.out_start + b.out_len] = \
-            stream[pos : pos + b.out_len]
+    splice_stored(out, plan.words.view(torch.uint8), data, plan.stored)
     return out

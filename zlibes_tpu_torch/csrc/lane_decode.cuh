@@ -1,7 +1,9 @@
-// What the two per-lane Huffman decode kernels share (decode_turbo in
-// turbo_kernels.cu, decode_wide in wide_kernels.cu): asynchronous copies,
-// the staging of a block's lane windows out of the stream, and the packing
-// of table entries for a walk that keeps its stream bits in registers.
+// What the per-lane Huffman decode kernels share (decode_turbo in
+// turbo_kernels.cu, decode_wide in wide_kernels.cu, decode_tokens in
+// inflate_kernels.cu): asynchronous copies, the staging of a block's lane
+// windows out of the stream, the packing of table entries for a walk that
+// keeps its stream bits in registers, and the layout and lookup of the
+// two-level tables that wide_decode_tables builds.
 
 #pragma once
 
@@ -120,6 +122,53 @@ __device__ __forceinline__ int repack_dt(int d, int max_dist) {
 __device__ __forceinline__ int token_dist(int de, uint32_t y) {
   const int dln = de & 15, deb = (de >> 4) & 15;
   return ((de >> 8) & 0x7FFF) + (int)((y >> dln) & ((1u << deb) - 1u));
+}
+
+// ------------------------------------------------------ two-level tables
+// One block row of wide_decode_tables (ops/wide_kernel.py): a litlen root
+// of 2^9 entries and its sub-tables (LL_W entries), a distance root of 2^6
+// entries and its sub-tables from D_SUB_OFF (D_W entries).  A root entry
+// with kSubFlag points to a sub-table: base in bits 9.. (litlen) or 8..
+// (distance), index width in bits 0..3 (litlen) or 24..27 (distance).
+
+constexpr int kLlRootBits = 9;      // LL_ROOT_BITS
+constexpr int kLlRoot = 1 << kLlRootBits;
+constexpr int kLlSub = 512;         // LL_SUB
+constexpr int kLlW = kLlRoot + kLlSub;
+constexpr int kDRootBits = 6;       // D_ROOT_BITS
+constexpr int kDRoot = 1 << kDRootBits;
+constexpr int kDSubOff = 128;       // D_SUB_OFF
+constexpr int kDW = kDSubOff + 640; // D_W
+constexpr int kSubFlag = 1 << 30;
+
+// an entry of a table in shared memory (kGlobal false) or in global memory,
+// read through the read-only path (kGlobal true)
+template <bool kGlobal>
+__device__ __forceinline__ int table_entry(const int32_t* t, int i) {
+  if constexpr (kGlobal) return __ldg(t + i);
+  return t[i];
+}
+
+// the litlen entry of the plain two-level lookup at the view x
+template <bool kGlobal = false>
+__device__ __forceinline__ int lookup_ll(const int32_t* lt, uint32_t x) {
+  const int e1 = table_entry<kGlobal>(lt, x & (kLlRoot - 1));
+  if (!(e1 & kSubFlag)) return e1;
+  const int subw = min(e1 & 15, 6);
+  const int sidx = ((e1 >> 9) & 511) +
+                   (int)((x >> kLlRootBits) & ((1u << subw) - 1u));
+  return table_entry<kGlobal>(lt, kLlRoot + min(sidx, kLlSub - 1));
+}
+
+// the distance entry of the plain two-level lookup at the view y
+template <bool kGlobal = false>
+__device__ __forceinline__ int lookup_d(const int32_t* dt, uint32_t y) {
+  const int d1 = table_entry<kGlobal>(dt, y & (kDRoot - 1));
+  if (!(d1 & kSubFlag)) return d1;
+  const int dsw = min((d1 >> 24) & 15, 9);
+  const int dsidx = ((d1 >> 8) & 1023) +
+                    (int)((y >> kDRootBits) & ((1u << dsw) - 1u));
+  return table_entry<kGlobal>(dt, kDSubOff + min(dsidx, 639));
 }
 
 }  // namespace lane_decode

@@ -20,15 +20,6 @@ namespace {
 using namespace lane_decode;
 
 constexpr int kSub = 128;           // SUB: bytes per lane / sub-span
-constexpr int kLlRootBits = 9;      // LL_ROOT_BITS
-constexpr int kLlRoot = 1 << kLlRootBits;
-constexpr int kLlSub = 512;         // LL_SUB
-constexpr int kLlW = kLlRoot + kLlSub;
-constexpr int kDRootBits = 6;       // D_ROOT_BITS
-constexpr int kDRoot = 1 << kDRootBits;
-constexpr int kDSubOff = 128;       // D_SUB_OFF
-constexpr int kDW = kDSubOff + 640; // D_W
-constexpr int kSubFlag = 1 << 30;
 constexpr int kWindow = 32768;      // RFC 1951 window
 constexpr int kMatchBit = 1 << 25;  // TOK_MATCH_BIT
 constexpr int kTokensPad = 256;     // TOKENS_PAD: slots per sub-span
@@ -102,26 +93,6 @@ __device__ __forceinline__ uint32_t bits_at(uint32_t x, int pos, int len) {
   uint32_t out;
   asm("bfe.u32 %0, %1, %2, %3;" : "=r"(out) : "r"(x), "r"(pos), "r"(len));
   return out;
-}
-
-// the litlen entry of the plain two-level lookup at the view x
-__device__ __forceinline__ int lookup_ll(const int32_t* lt, uint32_t x) {
-  const int e1 = lt[x & (kLlRoot - 1)];
-  if (!(e1 & kSubFlag)) return e1;
-  const int subw = min(e1 & 15, 6);
-  const int sidx = ((e1 >> 9) & 511) +
-                   (int)((x >> kLlRootBits) & ((1u << subw) - 1u));
-  return lt[kLlRoot + min(sidx, kLlSub - 1)];
-}
-
-// the distance entry of the plain two-level lookup at the view y
-__device__ __forceinline__ int lookup_d(const int32_t* dt, uint32_t y) {
-  const int d1 = dt[y & (kDRoot - 1)];
-  if (!(d1 & kSubFlag)) return d1;
-  const int dsw = min((d1 >> 24) & 15, 9);
-  const int dsidx = ((d1 >> 8) & 1023) +
-                    (int)((y >> kDRootBits) & ((1u << dsw) - 1u));
-  return dt[kDSubOff + min(dsidx, 639)];
 }
 
 // Whether every bit pattern whose low `bits` bits are i finds the same
