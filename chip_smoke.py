@@ -47,16 +47,24 @@ random bits under the fixture's tables and on the fixture with ``T`` cut to
 ragged last block) and on random matches with ``lazy`` on and off, segments
 of 4,096 and 1,024 and a context prefix of 0 and 32,768, ``decode_tokens``
 with ``T`` cut to 512 (lanes resumed call after call), on 4,096 lanes of
-random bits and on the scan's single lane of a 50 KB stream,
-``resolve_global`` behind a 32 KiB prefix and on random lanes reaching
-below byte 0.  Both wide and turbo decoders are
+random bits, on the scan's single lane of a 50 KB stream, on one warp of 32
+distinct table rows, on codes of 12-15 bits with 13-bit distance extras, on
+tokens ending on and one bit past a lane's end and on one lane of 65,800
+tokens resumed, ``resolve_global`` with the unwritten slots random, behind
+a 32 KiB prefix, on random lanes reaching below byte 0, on a distance-1 run
+of 1 MiB, on copies across tile and lane boundaries, on overlapping copies
+and on an (n, 1) lane of 1,050,000 tokens behind a 32 KiB prefix.  Both
+wide and turbo decoders are
 held in the form the pipelines call,
 ``decode_*((words, start_w), ...)``, against the plain decode of the plain
 windows; the stand-alone ``lane_windows`` kernel, which no path launches any
 more, is still held against its plain version at both widths.  For
 ``decode_turbo`` and ``decode_wide``, which their longest lane bounds, it
 prints that lane's and the mean lane's token count, the steps and the
-device cycles a step.  The native phase also inflates a CPython stream
+device cycles a step, for ``decode_tokens`` too; for ``resolve_global``
+its expand and rounds and how many rounds found a byte open, and for the
+scan its busy time and ``decode_tokens``' share of it.  The native phase
+also inflates a CPython stream
 with the index ``build_index`` makes for it.  Any failure raises.  The last
 line of standard output is one JSON object naming the device; the line
 before it is the card's name and power limit from nvidia-smi, and the line
@@ -1091,6 +1099,52 @@ def hold_resolve(what: str, args: tuple, card: str,
     return e, bool(err)
 
 
+def hold_walk_and_span_cases(records: dict, card: str) -> None:
+    """Both generic kernels on the contract cases of their designs
+    (``test_torch_contract_cases``): ``decode_tokens`` on a warp of 32
+    distinct table rows, on codes of 12-15 bits with 13-bit distance extras,
+    on tokens ending on and one bit past a lane's end, and on one lane of
+    65,800 tokens resumed after 65,536 (held against the case's tokens: its
+    plain version takes a launch a tensor op a token); ``resolve_global`` on
+    a distance-1 run of 1 MiB, on copies across tile and lane boundaries, on
+    overlapping copies and on one (n, 1) lane of 1,050,000 tokens behind a
+    32 KiB prefix, each against its plain version and the case's bytes."""
+    from test_torch_contract_cases import (RESOLVE_SPAN_CASES, WALK_CASES,
+                                           check_decode_tokens, run_walk_case,
+                                           span_case)
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    for case in WALK_CASES:
+        errs = [0]
+
+        def decode(*args):
+            *lanes, T = args
+            lanes = [torch.as_tensor(np.asarray(a)).cuda() for a in lanes]
+            got = ik.decode_tokens(*lanes, T=T)
+            torch.cuda.synchronize()
+            if case != "scan_lane":
+                errs.append(check_decode_tokens(
+                    got, ik.decode_tokens_plain(*lanes, T), T, case))
+            return got
+
+        calls = run_walk_case(case, decode)
+        r = records["decode_tokens"]
+        r["max_abs_err"] = max(r["max_abs_err"], *errs)
+        print(f"kernel decode_tokens on the walk case {case}: the case's "
+              f"tokens in {len(calls)} call(s)"
+              + ("" if case == "scan_lane" else ", exact vs plain")
+              + f" (max_abs_err {max(errs)}) {card}")
+    for case in RESOLVE_SPAN_CASES:
+        args, want = span_case(case)
+        args = tuple(torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                     else a for a in args)
+        e, flagged = hold_resolve(f"the span case {case}", args, card,
+                                  want.tobytes())
+        assert not flagged
+        r = records["resolve_global"]
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+
+
 def generic_phase(corpus: bytes, card: str,
                   records: dict) -> tuple[dict, dict]:
     """The generic indexed decode and the un-indexed device decode on two
@@ -1180,7 +1234,8 @@ def generic_phase(corpus: bytes, card: str,
         replaces="zlibes_tpu/ops/inflate_kernel.py:62",
         note="the reference's decode_tokens is an XLA while_loop, not a "
              "pallas_call; its plain PyTorch version is one eager step a "
-             "token of the longest lane (plain_ms is one run)",
+             "token of the longest lane (plain_ms is one run); the kernel "
+             "is a flatten launch and the walk, counted as one",
         max_abs_err=err, ms=cuda_ms(decode), plain_ms=plain_ms, plain_runs=1,
         shape=list(got[0].shape), tokens=n_tok,
         longest_lane_tokens=int(count.max()),
@@ -1244,8 +1299,7 @@ def generic_phase(corpus: bytes, card: str,
         replaces="zlibes_tpu/ops/inflate_kernel.py:152",
         note="the reference's resolve_global is an XLA scatter / cummax / "
              "pointer-doubling program, not a pallas_call; the kernel is "
-             "init + expand + ceil(log2 total) jump launches, counted as "
-             "one",
+             "an expand launch and one launch a round, counted as one",
         max_abs_err=rerr, ms=cuda_ms(lambda: ik.resolve_global(*r_args)),
         plain_ms=start.elapsed_time(end), plain_runs=1,
         shape=[p.d_total], tokens_shape=list(got[0].shape),
@@ -1275,6 +1329,7 @@ def generic_phase(corpus: bytes, card: str,
         hold_tokens(f"the scan's lane of block 0 of a {len(small)} B stream",
                     s_got, s_want, ip._SCAN_CHUNK_TOKENS, card))
     assert int(s_got[3][0]) == blk.end_bit
+    hold_walk_and_span_cases(records, card)
 
     # -- end to end through the public entry points, launches counted
     tk.LAUNCHES.clear()
@@ -1421,27 +1476,52 @@ def generic_phase(corpus: bytes, card: str,
               f"{1 - busy / (to_device_s * 1e3):.3f} {card}")
     r = records["decode_tokens"]
     r["device_ms"] = device_time(device_ms, "decode_tokens")
-    mhz, clock_src = sm_clock_mhz()
-    cycles = r["device_ms"] * 1e-3 * mhz * 1e6
-    r.update(sm_mhz=mhz,
-             cycles_per_token=cycles / r["longest_lane_tokens"])
-    print(f"decode_tokens lanes: longest {r['longest_lane_tokens']} tokens, "
-          f"mean {r['mean_lane_tokens']:.2f}; device {r['device_ms']:.4f} ms "
-          f"at {mhz:.0f} MHz ({clock_src}) = {cycles:.0f} cycles -> "
-          f"{r['cycles_per_token']:.1f} cycles a token of the longest lane "
+    flatten_ms = device_time(device_ms, "decode_tokens_flatten")
+    lane_report("decode_tokens", r, got[0], count, ik.TOK_MATCH_BIT,
+                r["device_ms"], card)
+    print(f"decode_tokens: the flatten launch {flatten_ms:.4f} ms of it "
+          f"({p.lt.shape[0]} rows into {p.lt.shape[0] * ik.FLAT_W * 4} B of "
+          f"one-level roots), the walk {r['device_ms'] - flatten_ms:.4f} "
           f"{card}")
-    records["resolve_global"]["device_ms"] = device_time(device_ms,
-                                                         "resolve_global")
+    rr = records["resolve_global"]
+    rr["device_ms"] = device_time(device_ms, "resolve_global")
+    expand_ms = device_time(device_ms, "resolve_global_expand")
+    _, _, open_ = ik._resolve_global_cuda(*r_args)
+    flags = open_.tolist()
+    rr.update(rounds=len(flags) - 1, rounds_with_work=sum(flags[:-1]),
+              expand_ms=expand_ms, rounds_ms=rr["device_ms"] - expand_ms)
+    assert flags[-1] == 0, flags
+    print(f"resolve_global: expand {expand_ms:.4f} ms, rounds "
+          f"{rr['rounds_ms']:.4f} ms ({rr['rounds_with_work']} of its "
+          f"{rr['rounds']} rounds found a byte open; flags {flags}) on "
+          f"{p.d_total} B in {-(-p.d_total // ik.RESOLVE_TILE)} tiles {card}")
     for name in ("decode_tokens", "resolve_global"):
         r = records[name]
         print(f"kernel {name}: exact vs plain (max_abs_err "
               f"{r['max_abs_err']}), kernel {r['ms']:.4f} ms by events "
               f"(median of 20), device {r['device_ms']:.4f} ms a launch "
               f"(torch.profiler), bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']} ({r['bytes']} B), plain {r['plain_ms']:.1f} "
-              f"ms (one run), shape {r['shape']}"
+              f"{r['bound_by']} ({r['bytes']} B), share of the bound "
+              f"{r['bound_ms'] / r['device_ms']:.3f}, plain "
+              f"{r['plain_ms']:.1f} ms (one run), shape {r['shape']}"
               + (f", tokens {r['tokens_shape']}" if "tokens_shape" in r
                  else "") + f", library call: none {card}")
+    scan_s = wall_s(lambda: ip.inflate_raw_scan(chained, 2, device="cuda"),
+                    runs=3)
+    scan_ms = profile_pipeline(
+        lambda: ip.inflate_raw_scan(chained, 2, device="cuda"), card, runs=2,
+        quiet=True)
+    if scan_ms:
+        busy = sum(scan_ms.values())
+        n_dec = scan_launches["decode_tokens"]
+        dec = device_time(scan_ms, "decode_tokens", n_dec)
+        res = device_time(scan_ms, "resolve_global")
+        print(f"generic scan (inflate_raw_scan of the chained stream, "
+              f"{len(blocks)} blocks): whole call {scan_s * 1e3:.2f} ms "
+              f"(median of 3), device busy {busy:.4f} ms a call, of it "
+              f"decode_tokens {dec * n_dec:.4f} ms ({n_dec} launches, "
+              f"{dec:.4f} a launch; share of busy {dec * n_dec / busy:.3f}),"
+              f" resolve_global {res:.4f} ms {card}")
     return launches, device_ms
 
 
@@ -1696,7 +1776,8 @@ def main() -> None:
             "tokens", "longest_lane_tokens", "mean_lane_tokens",
             "longest_lane_steps", "mean_lane_steps",
             "mean_warp_longest_steps", "sm_mhz", "cycles_per_token",
-            "cycles_per_step", "note") if k in r})
+            "cycles_per_step", "expand_ms", "rounds_ms", "rounds",
+            "rounds_with_work", "note") if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

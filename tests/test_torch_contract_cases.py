@@ -78,6 +78,7 @@ two literals a step from one-level tables of fewer than 15 bits:
 """
 from __future__ import annotations
 
+import functools
 import zlib
 
 import numpy as np
@@ -1001,3 +1002,362 @@ def garbage_generic_lanes(B: int, seed: int = 0):
                                       .astype(np.int32)),
             t(bit0), t(bit0 + rng.integers(0, 6000, B)),
             t(rng.random(B) < 0.9))
+
+
+# ---------------------------------------------------------------------------
+# decode_tokens: lanes that a walk from one-level roots takes apart
+#
+# Lanes one after another in one stream (bit 3 on), each under a row of its
+# call's tables; a lane ends where its last token ends, less ``cut`` bits.
+# What a lane must give follows from where each of its tokens ends: the
+# tokens that end at or before the lane's end bit, up to its end-of-block;
+# the first that ends past it is an error that leaves the position behind
+# the token before.
+
+def _random_code(rng, nsym: int, nused: int, max_len: int = 15):
+    """Code lengths of a complete code (a package-merge of max_len bits)
+    over ``nused`` random symbols of ``nsym``, by random frequencies."""
+    freq = np.zeros(nsym, np.int64)
+    freq[rng.permutation(nsym)[:nused]] = rng.integers(1, 1000, nused)
+    return tdp.package_merge_np(freq, max_len).astype(np.int64)
+
+
+def _skewed_code(nsym: int, scale: float):
+    """Code lengths over all ``nsym`` symbols by Zipf frequencies (symbol i
+    of rank i has 2^20 / (i + 1)^scale): the rarest get 12- to 15-bit
+    codes."""
+    freq = (2.0 ** 20 / (np.arange(nsym) + 1.0) ** scale).astype(np.int64)
+    return tdp.package_merge_np(np.maximum(freq, 1), 15).astype(np.int64)
+
+
+def _draw_tokens(rng, lengths, n: int, eob: bool):
+    """``n`` tokens of literals and matches whose symbols all have codes
+    under ``lengths`` (symbols drawn evenly, so rare codes come often), then
+    end-of-block when ``eob``."""
+    ll, dl = lengths
+    lits = np.flatnonzero(ll[:256])
+    lens = np.flatnonzero(ll[257:286]) + 257
+    dists = np.flatnonzero(dl[:30])
+    out = []
+    for _ in range(n):
+        if rng.random() < 0.5 or not lens.size or not dists.size:
+            out.append(int(rng.choice(lits)))
+            continue
+        i = int(rng.choice(lens)) - 257
+        d = int(rng.choice(dists))
+        length = int(C.LENGTH_BASE[i]) + int(
+            rng.integers(0, 1 << int(C.LENGTH_EXTRA_BITS[i])))
+        dist = int(C.DIST_BASE[d]) + int(
+            rng.integers(0, 1 << int(C.DIST_EXTRA_BITS[d])))
+        out.append((min(length, 258), dist))
+    return out + [C.END_OF_BLOCK] if eob else out
+
+
+def _walk_case_spec(case: str):
+    """(row code lengths, lanes as (row, tokens, cut bits), T)."""
+    fixed = (C.fixed_litlen_code_lengths(), C.fixed_dist_code_lengths())
+    if case == "warp_32_rows":
+        rng = np.random.default_rng(90)
+        rows = []
+        for _ in range(32):
+            ll = _random_code(rng, 286, int(rng.integers(20, 286)))
+            ll[C.END_OF_BLOCK] = ll[C.END_OF_BLOCK] or 15
+            rows.append((tdp.package_merge_np(
+                np.where(ll > 0, 2 ** (15 - np.minimum(ll, 15)), 0), 15
+            ).astype(np.int64), _random_code(rng, 30, int(rng.integers(2, 30)))))
+        return rows, [(r, _draw_tokens(rng, rows[r], 40, eob=r % 2 == 0), 0)
+                      for r in range(32)], 64
+    if case == "long_codes":
+        rng = np.random.default_rng(91)
+        ll = _skewed_code(286, 2.0)
+        dl = _skewed_code(30, 3.0)   # symbols 28, 29 (13 extra bits) rarest
+        return [(ll, dl)], [(0, _draw_tokens(rng, (ll, dl), 150, eob=k == 3),
+                             0) for k in range(4)], 256
+    if case == "lane_ends":
+        # two literals ending at the end bit and one bit past it, a match
+        # ending at it, a 44-bit token ending at it and one bit past it
+        return [fixed, DEEP_LENGTHS], [
+            (0, [97, 98], 0), (0, [97, 98], 1), (0, [97, (10, 5)], 0),
+            (1, [97, (230, 1030)], 0), (1, [97, (230, 1030)], 1),
+            (0, [97, 98, 99], 2)], 64
+    if case == "scan_lane":
+        # one lane of more tokens than a scan call takes (65,536)
+        rng = np.random.default_rng(93)
+        toks = [int(t) for t in rng.integers(0, 256, 65800)]
+        for i in rng.integers(1, 65800, 6000):
+            toks[int(i)] = (int(rng.integers(3, 259)),
+                            int(rng.integers(1, 32769)))
+        return [fixed], [(0, toks + [C.END_OF_BLOCK], 0)], 65536
+    raise KeyError(case)
+
+
+WALK_CASES = ("warp_32_rows", "long_codes", "lane_ends", "scan_lane")
+
+
+def _token_bits(tok, lengths) -> int:
+    """Bits of a literal, end-of-block or (length, distance) token."""
+    ll, dl = lengths
+    if isinstance(tok, int):
+        return int(ll[tok])
+    s = int(C.LENGTH_TO_SYMBOL[tok[0]])
+    d = int(C.DIST_TO_SYMBOL[tok[1]])
+    return (int(ll[s]) + int(C.LENGTH_EXTRA_BITS[s - 257]) + int(dl[d])
+            + int(C.DIST_EXTRA_BITS[d]))
+
+
+@functools.cache
+def walk_case(case: str):
+    """((words (NW,) int32, lt (NB, LL_W), dt (NB, D_W), rows (B,) int32,
+    bit0, end_bit (B,) int64, active0 (B,) bool), T, the tokens each lane
+    must give (packed), the end bit and error flag each must end with) of
+    ``case`` (cached: callers do not write to the arrays)."""
+    from test_torch_fixed_streams import write_tokens
+    from zlibes_tpu_torch.ops.inflate_kernel import stream_words
+    from zlibes_tpu_torch.spec.refmodel import BitWriter
+
+    rows, lanes, T = _walk_case_spec(case)
+    lt = np.zeros((len(rows), wk.LL_W), np.int32)
+    dt = np.zeros((len(rows), wk.D_W), np.int32)
+    for r, lengths in enumerate(rows):
+        lt[r], dt[r] = wk.wide_decode_tables(*lengths)
+    bw = BitWriter()
+    bw.write_bits(0b101, 3)
+    bit0, endb, want = [], [], []
+    for r, toks, cut in lanes:
+        bit0.append(bw.bit_length)
+        write_tokens(bw, toks, rows[r])
+        ends = bit0[-1] + np.cumsum([_token_bits(tok, rows[r])
+                                     for tok in toks])
+        assert ends[-1] == bw.bit_length
+        end = int(ends[-1]) - cut
+        got, pos, err = [], bit0[-1], False
+        for tok, e in zip(toks, ends):
+            if e > end:
+                err = True
+                break
+            pos = int(e)
+            if tok == C.END_OF_BLOCK:
+                break
+            got.append(tok if isinstance(tok, int) else
+                       tok[0] | (tok[1] << 9) | (1 << 25))
+        endb.append(end)
+        want.append((got, pos, err))
+    B = len(lanes)
+    args = (stream_words(bw.getvalue() + bytes(16)), lt, dt,
+            np.array([r for r, _, _ in lanes], np.int32),
+            np.array(bit0, np.int64), np.array(endb, np.int64),
+            np.ones(B, bool))
+    return args, T, want
+
+
+def run_walk_case(case: str, decode) -> list:
+    """Run ``decode`` (``decode_tokens`` on numpy arguments and ``T``, any
+    device) on ``case``, resuming lanes left active until none is, and
+    assert each lane's tokens, starts, end bit and error flag.  Returns the
+    calls' outputs as numpy arrays."""
+    args, T, want = walk_case(case)
+    words, lt, dt, rows, bit0, endb, active = args
+    B = bit0.size
+    got = [[] for _ in range(B)]
+    calls = []
+    err = np.zeros(B, bool)
+    while active.any():
+        out = [x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+               for x in decode(words, lt, dt, rows, bit0, endb, active, T)]
+        tokens, starts, count, bitpos, still, bad = out
+        for b in range(B):
+            n = int(count[b])
+            lens = np.where(tokens[:n, b] & (1 << 25), tokens[:n, b] & 511, 1)
+            assert np.array_equal(starts[:n, b], np.cumsum(lens) - lens)
+            got[b] += tokens[:n, b].tolist()
+        assert not (still & bad).any()
+        err |= bad
+        calls.append(out)
+        bit0, active = bitpos, still
+    for b, (toks, pos, e) in enumerate(want):
+        assert got[b] == toks, f"lane {b}"
+        assert (int(bit0[b]), bool(err[b])) == (pos, e), f"lane {b}"
+    return calls
+
+
+def test_walk_cases_hold_their_features():
+    """``warp_32_rows`` is one warp over 32 distinct rows; ``long_codes``
+    has literals of 12- to 15-bit codes, distances with 13 extra bits and
+    tokens of 32 bits and more; ``lane_ends`` ends lanes on and one bit
+    before a token's end, behind a pair of literals, a match and a 44-bit
+    token; ``scan_lane`` is one lane of more than 65,536 tokens."""
+    args, T, want = walk_case("warp_32_rows")
+    rows = args[3]
+    assert rows.size == 32 and np.unique(rows).size == 32
+    assert np.unique(args[1], axis=0).shape[0] == 32
+    assert all(toks and not e for toks, _, e in want)
+    ll, dl = _walk_case_spec("long_codes")[0][0]
+    toks = [t for _, ts, _ in _walk_case_spec("long_codes")[1] for t in ts]
+    assert {12, 13, 14, 15} <= {int(ll[t]) for t in toks
+                                if isinstance(t, int) and t < 256}
+    assert any(not isinstance(t, int) and t[1] > 16384 for t in toks)
+    assert max(_token_bits(t, (ll, dl)) for t in toks) >= 32
+    _, _, want = walk_case("lane_ends")
+    assert [(len(t), e) for t, _, e in want] == [
+        (2, False), (1, True), (2, False), (2, False), (1, True), (2, True)]
+    _, T, want = walk_case("scan_lane")
+    assert len(want) == 1 and len(want[0][0]) > T == 65536
+
+
+def _plain_walk(words, lt, dt, rows, bit0, endb, active, T):
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    t = torch.from_numpy
+    return ik.decode_tokens(t(words), t(lt), t(dt), t(rows),
+                            t(np.asarray(bit0)), t(endb),
+                            t(np.asarray(active)), T=T)
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_decode_tokens_plain_gives_the_walk_cases(case):
+    calls = run_walk_case(case, _plain_walk)
+    if case == "scan_lane":
+        assert len(calls) == 2 and int(calls[0][2][0]) == 65536
+
+
+# ---------------------------------------------------------------------------
+# resolve_global: spans that a tiled resolve takes apart
+#
+# Lanes of tokens (as for the cases above), each case's bytes computed
+# token by token:
+#
+#   * ``megabyte_run``    a literal, then a distance-1 run over 16 lanes:
+#     1,052,641 bytes, a chain that crosses 257 tiles of 4 KiB;
+#   * ``tiles_and_lanes`` 64 random lanes of 300-2,000 bytes behind a
+#     32 KiB prefix: copies that cross tile and lane boundaries and reach
+#     the prefix;
+#   * ``overlapping``     copies of distance 1-9 over 100-258 bytes, at
+#     tile boundaries too;
+#   * ``scan_window``     one lane, shape (n, 1), of 1,050,000 tokens behind
+#     a 32 KiB prefix, as the scan's resolve passes a window.
+
+RESOLVE_SPAN_CASES = ("megabyte_run", "tiles_and_lanes", "overlapping",
+                      "scan_window")
+
+
+def _span_lanes(case: str):
+    """(prefix length, lanes of tokens)."""
+    if case == "megabyte_run":
+        return 0, [[65] + [(258, 1)] * 255] + [[(258, 1)] * 255] * 15
+    rng = np.random.default_rng(RESOLVE_SPAN_CASES.index(case) + 70)
+    if case == "tiles_and_lanes":
+        lanes, g = [], 32768
+        for _ in range(64):
+            lane, n = [], 0
+            target = int(rng.integers(300, 2000))
+            while n < target:
+                if rng.random() < 0.3:
+                    lane.append(int(rng.integers(0, 256)))
+                    n += 1
+                else:
+                    ln = int(rng.integers(3, 259))
+                    lane.append((ln, int(rng.integers(1, min(g + n, 32768)
+                                                      + 1))))
+                    n += ln
+            lanes.append(lane)
+            g += n
+        return 32768, lanes
+    if case == "overlapping":
+        lanes = []
+        for _ in range(16):
+            lane = [int(x) for x in rng.integers(0, 256, 12)]
+            for _ in range(12):
+                lane.append((int(rng.integers(100, 259)),
+                             int(rng.integers(1, 10))))
+                lane.append(int(rng.integers(0, 256)))
+            lanes.append(lane)
+        return 0, lanes
+    if case == "scan_window":
+        n = 1_050_000
+        kind = rng.random(n) < 0.8
+        toks = np.where(kind, rng.integers(0, 256, n),
+                        rng.integers(3, 31, n)
+                        | (rng.integers(1, 32769, n) << 9) | (1 << 25))
+        return 32768, [toks.tolist()]
+    raise KeyError(case)
+
+
+def _expand_lanes(prefix: np.ndarray, lanes) -> np.ndarray:
+    """The bytes of packed or (length, distance) tokens one after another
+    behind ``prefix``."""
+    out = bytearray(prefix.tobytes())
+    for lane in lanes:
+        for tok in lane:
+            if not isinstance(tok, tuple):
+                if not tok & (1 << 25):
+                    out.append(tok & 255)
+                    continue
+                tok = (tok & 511, (tok >> 9) & 0xFFFF)
+            n, d = tok
+            src = len(out) - d
+            if d >= n:
+                out += out[src : src + n]
+            else:
+                out += (out[src:] * (n // d + 1))[:n]
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+@functools.cache
+def span_case(case: str):
+    """((tokens (T, B), starts (T, B), count (B,), out_base (B,) int32,
+    total, prefix (P,) uint8), the bytes (total,)) of ``case`` (cached:
+    callers do not write to the arrays)."""
+    P, lanes = _span_lanes(case)
+    T, B = max(len(lane) for lane in lanes), len(lanes)
+    tokens = np.zeros((T, B), np.int32)
+    starts = np.zeros((T, B), np.int32)
+    count = np.array([len(lane) for lane in lanes], np.int32)
+    out_base = np.zeros(B, np.int32)
+    g = P
+    for b, lane in enumerate(lanes):
+        packed = np.array([t if not isinstance(t, tuple) else
+                           t[0] | (t[1] << 9) | (1 << 25) for t in lane],
+                          np.int64)
+        lens = np.where(packed & (1 << 25), packed & 511, 1)
+        tokens[: len(lane), b] = packed
+        starts[: len(lane), b] = np.cumsum(lens) - lens
+        out_base[b] = g
+        g += int(lens.sum())
+    prefix = _generic_prefix(P)
+    want = _expand_lanes(prefix, lanes)
+    assert want.size == g
+    return (tokens, starts, count, out_base, g, prefix), want
+
+
+def test_span_cases_hold_their_features():
+    (_, _, _, _, total, _), want = span_case("megabyte_run")
+    assert total >= 1 << 20 and (want == 65).all()
+    (tokens, starts, count, out_base, total, P), _ = span_case(
+        "tiles_and_lanes")
+    g = out_base[None, :] + starts
+    ln = np.where(tokens & (1 << 25), tokens & 511, 1)
+    d = (tokens >> 9) & 0xFFFF
+    valid = np.arange(tokens.shape[0])[:, None] < count[None, :]
+    ism = valid & ((tokens & (1 << 25)) != 0)
+    assert (ism & (g // 4096 != (g + ln - 1) // 4096)).any()  # over an edge
+    assert (ism & (g - d < out_base[None, :])).any()      # from a lane before
+    assert (ism & (g - d < P.size)).any()                  # from the prefix
+    assert (np.diff(out_base) < 4096).all()                # lanes in a tile
+    (tokens, _, count, _, _, _), _ = span_case("overlapping")
+    ism = (tokens & (1 << 25)) != 0
+    assert (ism & (((tokens >> 9) & 0xFFFF) < (tokens & 511))).sum() > 100
+    (tokens, _, count, out_base, total, P), _ = span_case("scan_window")
+    assert tokens.shape[1] == 1 and count[0] >= 1_000_000
+    assert P.size == 32768 and total < P.size + (9 << 19)  # ~4 MiB window
+
+
+@pytest.mark.parametrize("case", RESOLVE_SPAN_CASES)
+def test_resolve_global_plain_gives_the_span_cases(case):
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    args, want = span_case(case)
+    out, err = ik.resolve_global(*(torch.from_numpy(a) if
+                                   isinstance(a, np.ndarray) else a
+                                   for a in args))
+    assert not bool(err)
+    assert np.array_equal(out.numpy(), want)

@@ -67,3 +67,60 @@ def test_select_turbo_whole_dispatch_matches_reference(selected):
     valid = np.arange(512)[None, :] < jcnt[:, None]
     assert np.array_equal(tv[valid], jtv[valid])
     assert np.array_equal(td[valid], jtd[valid])
+
+
+# ---------------------------------------------------------------------------
+# decode_tokens and resolve_global: the JAX XLA programs against the port's
+# plain versions on the walk and span cases
+
+def _jax_walk_decode(case: str):
+    """The JAX ``decode_tokens`` in the form ``run_walk_case`` calls: the
+    case's rows as flat tables, tokens repacked into the port's (T, B)
+    layout with their starts."""
+    from test_torch_generic import _flat_tables, _jax_stream
+    from zlibes_tpu.ops import inflate_kernel as jik
+
+    ll_tab, d_tab = _flat_tables(cases._walk_case_spec(case)[0])
+
+    def decode(words, lt, dt, rows, bit0, endb, active, T):
+        w32, bts = _jax_stream(words)
+        val, dist, count, bitpos, still, err = (
+            np.asarray(x) for x in jik.decode_tokens(
+                w32, bts, ll_tab, d_tab, rows, np.asarray(bit0, np.int32),
+                endb.astype(np.int32), np.asarray(active), T=T, M=15, D=15))
+        emitted = np.arange(T)[None, :] < count[:, None]
+        tokens = np.where(dist > 0, val | (dist << 9) | (1 << 25), val)
+        lens = np.where(dist > 0, val, 1) * emitted
+        starts = np.cumsum(lens, axis=1) - lens
+        return (np.where(emitted, tokens, 0).T, starts.T, count,
+                bitpos.astype(np.int64), still, err)
+
+    return decode
+
+
+@pytest.mark.parametrize("case", cases.WALK_CASES)
+def test_decode_tokens_walk_case_matches_reference(case):
+    """Call for call: counts, end bits, flags, and the emitted tokens and
+    starts of the plain version equal the JAX ones (each also holds the
+    case's tokens, ``run_walk_case``)."""
+    got = cases.run_walk_case(case, cases._plain_walk)
+    want = cases.run_walk_case(case, _jax_walk_decode(case))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        emitted = np.arange(g[0].shape[0])[:, None] < w[2][None, :]
+        for a, b in zip(g[2:], w[2:]):
+            assert np.array_equal(a, b)
+        assert np.array_equal(g[0][emitted], w[0][emitted])
+        assert np.array_equal(g[1][emitted], w[1][emitted])
+
+
+@pytest.mark.parametrize("case", cases.RESOLVE_SPAN_CASES)
+def test_resolve_global_span_case_matches_reference(case):
+    from test_torch_generic import both_resolves
+
+    (tokens, starts, count, out_base, total, prefix), want = \
+        cases.span_case(case)
+    O = 1 << (total - 1).bit_length()
+    out, err = both_resolves(tokens, starts, count, out_base, total, prefix,
+                             O)
+    assert not err and np.array_equal(out, want)

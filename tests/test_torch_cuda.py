@@ -1061,3 +1061,43 @@ def test_generic_paths_on_card_count_launches(generic_stream, monkeypatch):
     with pytest.raises((zlibes_tpu_torch.CorruptError,
                         zlibes_tpu_torch.ChecksumError)):
         zlibes_tpu_torch.inflate(bytes(bad), index=index, device="cuda")
+
+
+@pytest.mark.parametrize("case", ["warp_32_rows", "long_codes", "lane_ends",
+                                  "scan_lane"])
+def test_decode_tokens_kernel_gives_the_walk_cases(case):
+    """The kernel holds each case's tokens call after call, and (but for the
+    65,800-token lane, which the CPU tests hold) equals its plain version
+    call for call."""
+    from test_torch_contract_cases import run_walk_case
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    def decode(*args):
+        *lanes, T = args
+        lanes = [torch.as_tensor(np.asarray(a)) for a in lanes]
+        got = ik.decode_tokens(*(a.cuda() for a in lanes), T=T)
+        torch.cuda.synchronize()
+        if case != "scan_lane":
+            check_decode_tokens(got, ik.decode_tokens_plain(*lanes, T), T)
+        return got
+
+    run_walk_case(case, decode)
+
+
+@pytest.mark.parametrize("case", ["megabyte_run", "tiles_and_lanes",
+                                  "overlapping", "scan_window"])
+def test_resolve_global_kernel_gives_the_span_cases(case):
+    """The kernel equals its plain version and the case's bytes, and its
+    last round leaves no byte open."""
+    from test_torch_contract_cases import span_case
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    args, want = span_case(case)
+    out, err = _resolve_global_both(*args)
+    assert not err and np.array_equal(out.numpy(), want)
+    cuda = [torch.as_tensor(a).cuda() if isinstance(a, np.ndarray) else a
+            for a in args]
+    got, _, open_ = ik._resolve_global_cuda(*cuda)
+    assert torch.equal(got.cpu(), out)
+    assert open_.numel() == ik.resolve_rounds(args[4]) + 1
+    assert int(open_[-1]) == 0

@@ -6,9 +6,14 @@ The group is the bench corpus (``zlibes_tpu_torch.bench_corpus``) through
 CPython zlib at level 6 with a full flush every 32 KiB, indexed by the
 port's ``build_index``: 940 lanes of about 4 KiB, one group, as
 ``chip_smoke.py`` drives it.  For each variant the script rewrites a piece
-of ``zlibes_tpu_torch/csrc/inflate_kernels.cu`` (tables staged in shared memory, the distance looked up behind a length
-only, the stream read without the word loaded ahead, the tables read by
-plain loads, lanes a block), builds the copy with ``nvcc`` into
+of ``zlibes_tpu_torch/csrc/inflate_kernels.cu`` (the questions its design
+turns on: the block's first row staged in shared memory against every row
+read through L1 from the flattened scratch, the stream's words loaded a
+step ahead or in the step, the lookups' addresses worked out from the row
+or from an opaque row pointer, 1 to 32 lanes a block against as few as make
+two blocks an SM),
+raising if the text a variant rewrites is not there, builds the copy with
+``nvcc`` into
 ``build/probe_decode_tokens/``, holds the kernel exactly against
 ``decode_tokens_plain`` and times 30 launches back to back with CUDA events.
 Variants are timed in turns, three times, inside one process, so they share
@@ -31,82 +36,72 @@ SRC = ROOT / "zlibes_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "probe_decode_tokens"
 NVCC = "/usr/local/cuda/bin/nvcc"
 
-# the row's tables in shared memory for the lanes of the block's first
-# lane's row (the others read theirs from global memory)
+# the flat row of the block's first lane in shared memory, copied by the
+# warp with 16-byte cp.async before the walk (the lanes of that row read it
+# there, the others through L1): rows staged against rows flattened once a
+# call into scratch
 _STAGED = [
-    ("""  const int l = blockIdx.x * kDecodeThreads + threadIdx.x;
+    ("""  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
   const int64_t row = min(max(table_row[l], 0), nrows - 1);
-  const int32_t* lt_r = lt + row * kLlW;
-  const int32_t* dt_r = dt + row * kDW;
-""", """  __shared__ int32_t s_lt[kLlW], s_dt[kDW];
-  const int l = blockIdx.x * kDecodeThreads + threadIdx.x;
+""", """  __shared__ __align__(16) int32_t s_flat[kFlatW];
+  const int l = blockIdx.x * kDecodeLanes + threadIdx.x;
   const int64_t row0 =
-      min(max(table_row[blockIdx.x * kDecodeThreads], 0), nrows - 1);
-  for (int i = threadIdx.x; i < kLlW; i += kDecodeThreads)
-    s_lt[i] = lt[row0 * kLlW + i];
-  for (int i = threadIdx.x; i < kDW; i += kDecodeThreads)
-    s_dt[i] = dt[row0 * kDW + i];
+      min(max(table_row[blockIdx.x * kDecodeLanes], 0), nrows - 1);
+  for (int i = threadIdx.x; i < kFlatW / 4; i += kDecodeLanes)
+    cp_async16(s_flat + 4 * i, flat + row0 * kFlatW + 4 * i);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   if (l >= lanes) return;
   const int64_t row = min(max(table_row[l], 0), nrows - 1);
-  const int32_t* lt_r = row == row0 ? s_lt : lt + row * kLlW;
-  const int32_t* dt_r = row == row0 ? s_dt : dt + row * kDW;
 """),
-    ("lookup_ll<true>(lt_r, x)", "lookup_ll<false>(lt_r, x)"),
-    ("lookup_d<true>(dt_r, y)", "lookup_d<false>(dt_r, y)"),
+    ("const int32_t* lf = flat + row * kFlatW;",
+     "const int32_t* lf = row == row0 ? s_flat : flat + row * kFlatW;"),
+    ("return __ldg(lf + (x & (kLlFast - 1)));",
+     "return lf[x & (kLlFast - 1)];"),
+    ("return __ldg(lf + kLlFast + (y & (kDFast - 1)));",
+     "return lf[kLlFast + (y & (kDFast - 1))];"),
 ]
 
-_DISTANCE_BRANCH = [
-    ("""      refill();
-      const uint32_t y = (uint32_t)buf;
-      const int de = lookup_d<true>(dt_r, y);
-""", """      if (is_len) refill();
-      const uint32_t y = (uint32_t)buf;
-      const int de = is_len ? lookup_d<true>(dt_r, y) : 0;
-"""),
-]
-
-_NO_PREFETCH = [
-    ("""    ++nw;
-    uint64_t nxt = word(nw);
-    auto refill = [&]() {
-      while (avail <= 32) {
-        buf |= nxt << avail;
-        avail += 32;
-        nxt = word(++nw);
-      }
-    };
-""", """    ++nw;
-    auto refill = [&]() {
-      while (avail <= 32) {
-        buf |= word(nw++) << avail;
-        avail += 32;
-      }
-    };
-"""),
-]
-
-_PLAIN_LOADS = [
-    ("lookup_ll<true>(lt_r, x)", "lookup_ll<false>(lt_r, x)"),
-    ("lookup_d<true>(dt_r, y)", "lookup_d<false>(dt_r, y)"),
+# no word loaded a step ahead: p0 loads its word in the step that takes it
+_LOAD_IN_STEP = [
+    ("r1 = r2; r2 = r3; r3 = p0; p0 = ahead;",
+     "r1 = r2; r2 = r3; r3 = p0; p0 = word(wq);"),
+    ("""      ahead = word(wq);
+      x0 = nx0;""", """      x0 = nx0;"""),
 ]
 
 
-def _threads(n: int):
-    return [("constexpr int kDecodeThreads = 32;",
-             f"constexpr int kDecodeThreads = {n};")]
+# the row's flat roots and the lane's words behind pointers the compiler
+# cannot take apart, so that a lookup's address is one 32-bit index scaled
+# onto a 64-bit base instead of the row's offset worked out again
+_OPAQUE = [
+    ("const int32_t* lf = flat + row * kFlatW;  // the row's flat roots",
+     """const int32_t* lf = flat + row * kFlatW;  // the row's flat roots
+  asm("" : "+l"(lf));"""),
+    ("const uint32_t* wp = words + w0;",
+     """const uint32_t* wp = words + w0;
+    asm("" : "+l"(wp));"""),
+]
+
+
+def _lanes(n: int):
+    """n lanes a block, in place of as few as fill the schedulers once."""
+    return [("const int lpb = decode_lanes_a_block(lanes);",
+             f"const int lpb = {n};")]
 
 
 # name -> substitutions in inflate_kernels.cu
 VARIANTS = {
     "as committed": [],
-    "tables in shared memory": _STAGED,
-    "distance branch": _DISTANCE_BRANCH,
-    "no word loaded ahead": _NO_PREFETCH,
-    "tables by plain loads": _PLAIN_LOADS,
-    "64 lanes a block": _threads(64),
-    "128 lanes a block": _threads(128),
+    "first row staged": _STAGED + _lanes(32),
+    "no word loaded ahead": _LOAD_IN_STEP,
+    "opaque row pointers": _OPAQUE,
+    "1 lane a block": _lanes(1),
+    "2 lanes a block": _lanes(2),
+    "8 lanes a block": _lanes(8),
+    "32 lanes a block": _lanes(32),
 }
 
 
@@ -116,7 +111,7 @@ def start_build(name: str, subs) -> tuple[subprocess.Popen, Path]:
         if old not in text:
             raise SystemExit(f"{name}: {old!r} is not in inflate_kernels.cu")
         text = text.replace(old, new)
-    stem = name.replace(" ", "_")
+    stem = "".join(c if c.isalnum() else "_" for c in name)
     cu = OUT / f"{stem}.cu"
     cu.write_text(text)
     so = OUT / f"{stem}.so"
@@ -170,16 +165,19 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     P, I = ctypes.c_void_p, ctypes.c_int
 
+    flat = torch.empty((p.lt.shape[0], ik.FLAT_W), dtype=torch.int32,
+                       device="cuda")
+
     def run(so: Path) -> tuple[bool, float]:
         fn = ctypes.CDLL(str(so)).zt_decode_tokens
-        fn.argtypes = [P, ctypes.c_int64, P, P, I, P, P, P, P, I, I, P, P, P,
-                       P, P, P, P]
+        fn.argtypes = [P, ctypes.c_int64, P, P, I, P, P, P, P, P, I, I, P, P,
+                       P, P, P, P, P]
         fn.restype = I
 
         def launch() -> None:
             rc = fn(words.data_ptr(), words.numel(), p.lt.data_ptr(),
-                    p.dt.data_ptr(), p.lt.shape[0], p.rows.data_ptr(),
-                    p.bit0.data_ptr(), p.endb.data_ptr(),
+                    p.dt.data_ptr(), p.lt.shape[0], flat.data_ptr(),
+                    p.rows.data_ptr(), p.bit0.data_ptr(), p.endb.data_ptr(),
                     p.active.data_ptr(), B, T, tokens.data_ptr(),
                     starts.data_ptr(), count.data_ptr(), bitpos.data_ptr(),
                     active.data_ptr(), err.data_ptr(), stream)

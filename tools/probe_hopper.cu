@@ -5,6 +5,10 @@
 // with nvcc, launches the probes and prints the table.
 //
 //   smem_chain  a chain of dependent shared-memory lookups (a table walk);
+//   global_chain  the same chain through a table in global memory, read by
+//               __ldg through L1 (as decode_tokens reads its flattened
+//               roots) or by ld.global.cg from L2 (as a resolve_global
+//               round follows a pointer that another SM may have written);
 //   alu         dependent and independent integer instructions of one warp,
 //               alone on its scheduler or beside 1, 3 or 7 busy warps;
 //   refill      the funnel-shift / select step that moves a lane's 96-bit
@@ -32,6 +36,24 @@ __global__ void smem_chain_kernel(int iters, long long* cycles, int* sink) {
   const long long t1 = clock64();
   if (threadIdx.x == 0) *cycles = t1 - t0;
   sink[threadIdx.x] = idx;
+}
+
+// table: kTable entries in global memory, as smem_chain_kernel fills its
+// own; a first pass over it brings it into the cache the chain reads
+template <bool kL1>
+__global__ void global_chain_kernel(const int* __restrict__ table,
+                                    int iters, long long* cycles, int* sink) {
+  int warm = 0;
+  for (int i = threadIdx.x; i < kTable; i += blockDim.x)
+    warm ^= kL1 ? __ldg(table + i) : __ldcg(table + i);
+  int idx = threadIdx.x;
+  const long long t0 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < iters; ++i)
+    idx = kL1 ? __ldg(table + idx) : __ldcg(table + idx);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+  sink[threadIdx.x] = idx ^ warm;
 }
 
 // warp 0 is timed; every warp runs the same loop.  chains = 1: each
@@ -144,6 +166,17 @@ extern "C" {
 
 int probe_smem_chain(int iters, void* cycles, void* sink) {
   smem_chain_kernel<<<1, 32>>>(iters, (long long*)cycles, (int*)sink);
+  return (int)cudaDeviceSynchronize();
+}
+
+int probe_global_chain(int l1, const void* table, int iters, void* cycles,
+                       void* sink) {
+  if (l1)
+    global_chain_kernel<true><<<1, 32>>>((const int*)table, iters,
+                                         (long long*)cycles, (int*)sink);
+  else
+    global_chain_kernel<false><<<1, 32>>>((const int*)table, iters,
+                                          (long long*)cycles, (int*)sink);
   return (int)cudaDeviceSynchronize();
 }
 

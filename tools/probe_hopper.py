@@ -4,7 +4,8 @@
 
 Builds ``tools/probe_hopper.cu`` with ``nvcc`` for ``sm_90a`` into
 ``build/probe_hopper/`` and prints, in SM cycles per operation: a dependent
-shared-memory lookup; a dependent and an independent integer instruction of
+shared-memory lookup; the same lookup in global memory through L1 and
+through L2; a dependent and an independent integer instruction of
 one warp that is alone on its scheduler or shares it with 1, 3 or 7 busy
 warps; the funnel-shift / select step that moves a 96-bit stream view on;
 and 32 scattered lane windows staged by ``cp.async`` and read from shared
@@ -46,6 +47,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, argtypes in (("probe_smem_chain", [I, P, P]),
+                           ("probe_global_chain", [I, P, I, P, P]),
                            ("probe_alu", [I, I, I, P, P]),
                            ("probe_refill", [I, I, P, P]),
                            ("probe_gather", [I, P, P, I, I, I, P, P])):
@@ -81,6 +83,13 @@ def main() -> None:
     c = call(lib.probe_smem_chain, iters)[0]
     print(f"smem_chain: {c / iters:.1f} cycles a dependent shared-memory "
           f"lookup (one warp, {iters} lookups) {card}")
+    i = torch.arange(2048, device="cuda")
+    table = ((i * 5 + 1 + 64 * (i & 31)) & 2047).int()
+    for l1, path in ((1, "L1 (__ldg)"), (0, "L2 (ld.global.cg)")):
+        c = call(lib.probe_global_chain, l1, table.data_ptr(), iters)[0]
+        print(f"global_chain: {c / iters:.1f} cycles a dependent lookup in "
+              f"an 8 KB table in global memory through {path} (one warp, "
+              f"{iters} lookups) {card}")
     for warps in (4, 8, 16, 32):
         dep = call(lib.probe_alu, warps, 1, iters)[0] / (3 * iters)
         ind = call(lib.probe_alu, warps, 4, iters)[0] / (12 * iters)

@@ -2,8 +2,9 @@
 // turbo_kernels.cu, decode_wide in wide_kernels.cu, decode_tokens in
 // inflate_kernels.cu): asynchronous copies, the staging of a block's lane
 // windows out of the stream, the packing of table entries for a walk that
-// keeps its stream bits in registers, and the layout and lookup of the
-// two-level tables that wide_decode_tables builds.
+// keeps its stream bits in registers, the layout and lookup of the
+// two-level tables that wide_decode_tables builds, and their flattening
+// into the one-level roots of a walk's fast step.
 
 #pragma once
 
@@ -124,6 +125,13 @@ __device__ __forceinline__ int token_dist(int de, uint32_t y) {
   return ((de >> 8) & 0x7FFF) + (int)((y >> dln) & ((1u << deb) - 1u));
 }
 
+// bits [pos, pos + len) of x, len < 32: one bit-field extract
+__device__ __forceinline__ uint32_t bits_at(uint32_t x, int pos, int len) {
+  uint32_t out;
+  asm("bfe.u32 %0, %1, %2, %3;" : "=r"(out) : "r"(x), "r"(pos), "r"(len));
+  return out;
+}
+
 // ------------------------------------------------------ two-level tables
 // One block row of wide_decode_tables (ops/wide_kernel.py): a litlen root
 // of 2^9 entries and its sub-tables (LL_W entries), a distance root of 2^6
@@ -169,6 +177,53 @@ __device__ __forceinline__ int lookup_d(const int32_t* dt, uint32_t y) {
   const int dsidx = ((d1 >> 8) & 1023) +
                     (int)((y >> kDRootBits) & ((1u << dsw) - 1u));
   return table_entry<kGlobal>(dt, kDSubOff + min(dsidx, 639));
+}
+
+// ------------------------------------------------------- one-level roots
+// A two-level row flattened into a one-level root of more bits than its
+// own root, whose entries the fast step of a walk indexes with no branch.
+
+// Whether every bit pattern whose low `bits` bits are i finds the same
+// entry in a two-level table (root entry e1 at i's root bits, a pointer to
+// a sub-table of 2^subw entries from index base of sub, indices clipped to
+// cap): then *e is that entry.  With all of the sub-table's index bits in i
+// the entry is simply looked up.  With some missing, the entry found with
+// zeros for them stands for all of them when its code is no longer than
+// `bits`: wide_decode_tables (ops/wide_kernel.py) repeats an entry of code
+// length n every 2^(n - root_bits) sub-table slots.  An empty slot (code
+// length 0) or a longer code leaves the index to the two-level lookup.
+__device__ __forceinline__ bool flat_entry(const int32_t* sub, int e1,
+                                           int subw, int base, int cap, int i,
+                                           int root_bits, int bits, int* e) {
+  const int have = min(subw, bits - root_bits);
+  const int low = base + ((i >> root_bits) & ((1 << have) - 1));
+  *e = sub[min(low, cap)];
+  const int ln = *e & 15;
+  return subw == have || (ln != 0 && ln <= bits);
+}
+
+// entry i of the repacked one-level litlen root of `bits` bits of the row
+// lt: kEBad where a longer code (or none) decides
+__device__ __forceinline__ int flat_lt_entry(const int32_t* lt, int i,
+                                             int bits) {
+  const int e1 = lt[i & (kLlRoot - 1)];
+  if (!(e1 & kSubFlag)) return repack_lt(e1);
+  int e;
+  return flat_entry(lt + kLlRoot, e1, min(e1 & 15, 6), (e1 >> 9) & 511,
+                    kLlSub - 1, i, kLlRootBits, bits, &e)
+             ? repack_lt(e) : kEBad;
+}
+
+// entry i of the repacked one-level distance root of `bits` bits of the row
+// dt: kDSlow where a longer code (or none) decides
+__device__ __forceinline__ int flat_dt_entry(const int32_t* dt, int i,
+                                             int bits, int max_dist) {
+  const int d1 = dt[i & (kDRoot - 1)];
+  if (!(d1 & kSubFlag)) return repack_dt(d1, max_dist);
+  int d;
+  return flat_entry(dt + kDSubOff, d1, min((d1 >> 24) & 15, 9),
+                    (d1 >> 8) & 1023, 639, i, kDRootBits, bits, &d)
+             ? repack_dt(d, max_dist) : kDSlow;
 }
 
 }  // namespace lane_decode

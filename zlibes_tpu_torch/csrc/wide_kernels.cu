@@ -88,32 +88,6 @@ constexpr int kLlFast = 1 << kLlFastBits;
 constexpr int kDFastBits = 8;        // one-level distance root
 constexpr int kDFast = 1 << kDFastBits;
 
-// bits [pos, pos + len) of x, len < 32: one bit-field extract
-__device__ __forceinline__ uint32_t bits_at(uint32_t x, int pos, int len) {
-  uint32_t out;
-  asm("bfe.u32 %0, %1, %2, %3;" : "=r"(out) : "r"(x), "r"(pos), "r"(len));
-  return out;
-}
-
-// Whether every bit pattern whose low `bits` bits are i finds the same
-// entry in a two-level table (root entry e1 at i's root bits, a pointer to
-// a sub-table of 2^subw entries from index base of sub, indices clipped to
-// cap): then *e is that entry.  With all of the sub-table's index bits in i
-// the entry is simply looked up.  With some missing, the entry found with
-// zeros for them stands for all of them when its code is no longer than
-// `bits`: wide_decode_tables (ops/wide_kernel.py) repeats an entry of code
-// length n every 2^(n - root_bits) sub-table slots.  An empty slot (code
-// length 0) or a longer code leaves the index to the two-level lookup.
-__device__ __forceinline__ bool flat_entry(const int32_t* sub, int e1,
-                                           int subw, int base, int cap, int i,
-                                           int root_bits, int bits, int* e) {
-  const int have = min(subw, bits - root_bits);
-  const int low = base + ((i >> root_bits) & ((1 << have) - 1));
-  *e = sub[min(low, cap)];
-  const int ln = *e & 15;
-  return subw == have || (ln != 0 && ln <= bits);
-}
-
 __global__ void __launch_bounds__(kDecodeThreads)
 decode_wide_kernel(const int32_t* __restrict__ words, int64_t nwords,
                    const int32_t* __restrict__ start_w, int sw,

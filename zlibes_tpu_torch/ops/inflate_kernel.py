@@ -54,6 +54,11 @@ from .wide_kernel import (
 
 _MASK32 = (1 << 32) - 1
 
+# entries of a row of one-level roots that the decode kernel flattens each
+# table row into: 2^11 litlen, 2^8 distance (kFlatW of
+# csrc/inflate_kernels.cu)
+FLAT_W = (1 << 11) + (1 << 8)
+
 
 def stream_words(data: bytes) -> np.ndarray:
     """The stream as little-endian int32 words, the last one zero-padded:
@@ -87,11 +92,14 @@ def splice_stored(out: torch.Tensor, stream_bytes: torch.Tensor,
 # 2^15-entry tables, two gathers a window.  Here a lane reads its block's
 # two-level tables (wide_kernel.wide_decode_tables: 7 KB a row where a flat
 # row is 128 KiB + 128 KiB), which decode the same codes to the same
-# symbols.  A generic lane covers about 4 KiB of output, up to ~1,900
-# stream words: the kernel (csrc/inflate_kernels.cu) does not stage whole
-# windows but keeps a 64-bit bit buffer per lane in registers, refilled one
-# word at a time with the next word already loaded.  One thread a lane;
-# the kernel is bound by its longest lane's chain of tokens.
+# symbols.  The kernel (csrc/inflate_kernels.cu) is bound by its longest
+# lane's chain of tokens, one thread a lane: it first flattens every row
+# into one-level roots of 11 litlen and 8 distance bits (FLAT_W entries, in
+# a scratch array the wrapper allocates), then walks each lane as
+# decode_wide does, two literals a step, with the stream's words in
+# registers (a generic lane, up to ~1,900 words, is too long to stage),
+# every rare case through the two-level row, and as few lanes a block as
+# make two blocks an SM (a warp pays for each of its lanes' rare steps).
 #
 # Contract (the reference's, token for token): a token is bad when its
 # litlen code is invalid (no code, symbol 286/287), when a length has an
@@ -217,11 +225,12 @@ def decode_tokens(words: torch.Tensor, lt: torch.Tensor, dt: torch.Tensor,
     active = torch.empty(B, dtype=torch.bool, device=dev)
     err = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
+        flat = torch.empty((NB, FLAT_W), dtype=torch.int32, device=dev)
         _launch("decode_tokens", dev, _ptr(words),
                 ctypes.c_int64(words.numel()), _ptr(lt), _ptr(dt),
-                ctypes.c_int(NB), _ptr(table_row), _ptr(bit0), _ptr(end_bit),
-                _ptr(active0), ctypes.c_int(B), ctypes.c_int(T),
-                _ptr(tokens), _ptr(starts),
+                ctypes.c_int(NB), _ptr(flat), _ptr(table_row), _ptr(bit0),
+                _ptr(end_bit), _ptr(active0), ctypes.c_int(B),
+                ctypes.c_int(T), _ptr(tokens), _ptr(starts),
                 _ptr(count), _ptr(bitpos), _ptr(active), _ptr(err))
     return tokens, starts, count, bitpos, active, err
 
@@ -233,23 +242,30 @@ def decode_tokens(words: torch.Tensor, lt: torch.Tensor, dt: torch.Tensor,
 # scatter, a cummax forward fill of each byte's covering token, one gather
 # of its metadata, then pointer-doubling rounds (full width while many
 # bytes are open, then over a sort-compacted set).  Here the decoder hands
-# over each token's offset, so no cumsum or fill is needed: an expand kernel
-# (one thread a token) writes each byte of its token as one int32 of state,
-# the final byte with the sign bit or the position of its source (the
-# reference's modular rule for an overlapping copy; a source in the prefix
-# is read from it at once); then ceil(log2(total)) in-place pointer-jumping
-# rounds, a launch each, finish every chain (a source always lies before
-# its byte, and a round at least halves what is left of a chain: a long
-# run of dist 1 is a chain of one hop a token), a round that finds nothing
-# open leaving the rest at once; the last writes the bytes.
+# over each token's offset, so no cumsum or fill is needed.  The kernel
+# (csrc/inflate_kernels.cu) takes the output in 4 KiB tiles, a block each:
+# an expand kernel finds the tokens that cover its tile by searches over
+# out_base and the lanes' ascending starts (so it reads no slot past a
+# count, and one lane of a million tokens spreads over all SMs as well as
+# 940 lanes do), gives each byte its final value or its source by the
+# reference's modular rule, and resolves the sources inside the tile in
+# shared memory; then rounds, a launch each, jump the pointers that leave
+# their tile (up to RESOLVE_HOPS a byte), skipping tiles with nothing open
+# and every tile once a round left nothing open: a source lies in an
+# earlier tile, so ``rounds`` of them finish any chain.
 #
 # Coordinates as in the reference: the prefix (P bytes, already resolved)
 # is [0, P) of the output; lane b's bytes start at out_base[b] (>= P - 258:
 # a token may start before P, and its bytes below P are the prefix's) and
-# the lanes tile [P, total).  ``err`` marks a copy from below 0; such a
-# source reads byte 0.  A byte that no token covers (only a corrupt decode
-# leaves one) is 0 here and the forward-filled token's in the plain
-# version, as in the reference.  total < 2**31.
+# the lanes tile [P, total) in lane order.  ``err`` marks a copy from below
+# 0; such a source reads byte 0.  A byte that no token covers (only a
+# corrupt decode leaves one) is 0 here and the forward-filled token's in
+# the plain version, as in the reference.  total < 2**31.
+
+# output bytes a block of the kernel owns, and the pointers an open byte
+# follows a round (kTile and kHops of csrc/inflate_kernels.cu)
+RESOLVE_TILE = 4096
+RESOLVE_HOPS = 16
 
 _RESOLVED = 1 << 40   # plain version: a final byte carries this flag
 
@@ -316,16 +332,40 @@ def resolve_global(tokens: torch.Tensor, starts: torch.Tensor,
     if not _route(tokens):
         return resolve_global_plain(tokens, starts, count, out_base, total,
                                     prefix)
+    out, err, _ = _resolve_global_cuda(tokens, starts, count, out_base,
+                                       total, prefix)
+    return out, err.bool()
+
+
+def resolve_rounds(total: int) -> int:
+    """The rounds ``resolve_global``'s kernel launches after its expand for
+    a span of ``total`` bytes: each multiplies a pointer's reach by
+    RESOLVE_HOPS + 1, and a chain has fewer hops than there are tiles."""
+    tiles = -(-total // RESOLVE_TILE)
+    rounds = 0
+    while (RESOLVE_HOPS + 1) ** rounds < tiles:
+        rounds += 1
+    return rounds
+
+
+def _resolve_global_cuda(tokens, starts, count, out_base, total: int,
+                         prefix):
+    """The kernel's launch, on checked CUDA tensors: (out, err () int32,
+    open_ (rounds + 1,) int32, where open_[r] says that round r - 1, or the
+    expand for r = 0, left a byte unresolved)."""
+    dev = tokens.device
+    T, B = tokens.shape
     out = torch.empty(total, dtype=torch.uint8, device=dev)
     err = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = resolve_rounds(total)
+    open_ = torch.zeros(rounds + 1, dtype=torch.int32, device=dev)
     if total:
-        rounds = max(total - 1, 1).bit_length()
         state = torch.empty(total, dtype=torch.int32, device=dev)
-        # one flag a round: the round left a chain open
-        open_ = torch.empty(rounds + 1, dtype=torch.int32, device=dev)
+        tile_open = torch.empty(-(-total // RESOLVE_TILE), dtype=torch.int32,
+                                device=dev)
         _launch("resolve_global", dev, _ptr(tokens), _ptr(starts),
                 _ptr(count), _ptr(out_base), ctypes.c_int(T), ctypes.c_int(B),
-                _ptr(prefix), ctypes.c_int(P), ctypes.c_int(total),
-                ctypes.c_int(rounds), _ptr(state), _ptr(open_), _ptr(out),
-                _ptr(err))
-    return out, err.bool()
+                _ptr(prefix), ctypes.c_int(prefix.numel()),
+                ctypes.c_int(total), ctypes.c_int(rounds), _ptr(state),
+                _ptr(tile_open), _ptr(open_), _ptr(out), _ptr(err))
+    return out, err, open_
