@@ -44,8 +44,14 @@ cut to 64, ``resolve_turbo`` on random tokens under unsorted starts with
 self-copies among them and on one chunk row alone, ``decode_wide`` on
 random bits under the fixture's tables and on the fixture with ``T`` cut to
 16, ``select_tokens`` on the corpus' second dispatch (padded blocks, a
-ragged last block) and on random matches with ``lazy`` on and off, segments
-of 4,096 and 1,024 and a context prefix of 0 and 32,768, ``decode_tokens``
+ragged last block), on random matches with ``lazy`` on and off, segments
+of 4,096 and 1,024 and a context prefix of 0 and 32,768, on the chain cases
+of its design (``SELECT_CHAIN_CASES`` of ``tests/test_torch_contract_cases.py``:
+a lane of 16,384 literals, lanes of 1,024 and 1,025 tokens, 258-byte
+matches, lanes of 0-3 positions, a match to the lane's end, growing
+lengths, parses that never meet, a match over eight pieces; with and
+without a 32 KiB prefix) and on the dispatch of 1 MiB of seeded random
+bytes, whose level-6 encode must come back through CPython, ``decode_tokens``
 with ``T`` cut to 512 (lanes resumed call after call), on 4,096 lanes of
 random bits, on the scan's single lane of a 50 KB stream, on one warp of 32
 distinct table rows, on codes of 12-15 bits with 13-bit distance extras, on
@@ -61,7 +67,12 @@ windows; the stand-alone ``lane_windows`` kernel, which no path launches any
 more, is still held against its plain version at both widths.  For
 ``decode_turbo`` and ``decode_wide``, which their longest lane bounds, it
 prints that lane's and the mean lane's token count, the steps and the
-device cycles a step, for ``decode_tokens`` too; for ``resolve_global``
+device cycles a step, for ``decode_tokens`` too; for ``select_tokens`` on
+the bench and the incompressible dispatch its device time and cycles, the
+lanes' tokens, and the fix-up rounds, walks and longest speculative walk of
+the kernel's procedure in numpy (``select_tokens_model``, held exactly
+against the kernel there), with ``select_turbo``'s device time beside it;
+for ``resolve_global``
 its expand and rounds and how many rounds found a byte open, and for the
 scan its busy time and ``decode_tokens``' share of it.  The native phase
 also inflates a CPython stream
@@ -99,6 +110,8 @@ ENCODE_SRC = "zlibes_tpu/ops/encode_kernel.py"
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; 67 TFLOP/s float32 outside
 # the tensor cores, the rate the kernels' integer operations are held to
 HBM_BYTES_PER_S = 3.35e12
+# numpy.random.default_rng seed of the incompressible encode (1 MiB)
+INCOMPRESSIBLE_SEED = 0
 OPS_PER_S = 67e12
 
 
@@ -188,6 +201,28 @@ def profile_pipeline(fn, card: str, runs: int = 5,
     for name, us in top[:12]:
         print(f"  device {us / runs / 1e3:.4f} ms/call  {name[:100]}")
     return {name: us / runs / 1e3 for name, us in per_name.items()}
+
+
+def kernel_event_ms(fn, name: str, runs: int = 10) -> tuple[float, int]:
+    """Mean device ms of the ``<name>_kernel`` launches that torch.profiler
+    records over ``runs`` calls of ``fn``, and how many it recorded (a mean
+    over the records, so a record the trace drops does not count as a
+    launch that took no time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    pat = re.compile(rf"\b{name}_kernel\b")
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and pat.search(e.name)]
+    assert us, f"the profiler's trace holds no {name}_kernel"
+    return statistics.fmean(us) / 1e3, len(us)
 
 
 def device_time(ms: dict, name: str, launches_per_call: int = 1) -> float:
@@ -831,6 +866,65 @@ def hold_select_tokens(args: tuple, kw: dict, what: str, card: str):
     return err, (tv, td, cnt), start.elapsed_time(end)
 
 
+def select_tokens_lanes(what: str, args: tuple, kw: dict, got: tuple,
+                        call, record: dict, card: str) -> None:
+    """The kernel's procedure in numpy (``select_tokens_model``) on a
+    dispatch the kernel ran: its tokens must be the kernel's; prints the
+    device time a launch of ``call`` (``kernel_event_ms``) and in SM cycles
+    beside the lanes' tokens, the fix-up rounds, the most walks of a piece
+    and the longest speculative walk, and adds them to ``record`` under
+    ``what``."""
+    from test_torch_contract_cases import select_tokens_model
+
+    device_ms, n_events = kernel_event_ms(call, "select_tokens")
+    tv, td, cnt, stats = select_tokens_model(*(a.cpu().numpy() for a in args),
+                                             **kw)
+    for a, b in zip((tv, td, cnt), got):
+        assert np.array_equal(a, b.cpu().numpy()), \
+            f"select_tokens_model != the kernel ({what})"
+    live = cnt > 0
+    mhz, src = sm_clock_mhz()
+    rounds, walks, longest = (int(x) for x in stats[live].max(0))
+    record[what] = dict(
+        device_ms=device_ms, sm_mhz=mhz, cycles=device_ms * mhz * 1e3,
+        longest_lane_tokens=int(cnt.max()),
+        mean_lane_tokens=float(cnt[live].mean()), lanes=int(cnt.size),
+        empty_lanes=int((~live).sum()), rounds=rounds,
+        median_rounds=float(np.median(stats[live, 0])), most_walks=walks,
+        longest_walk=longest)
+    r = record[what]
+    print(f"select_tokens on {what}: device {device_ms:.4f} ms a launch "
+          f"(torch.profiler, mean of {n_events} launches) = "
+          f"{r['cycles']:.0f} cycles at {mhz:.0f} MHz "
+          f"({src}); {r['lanes']} lanes, {r['empty_lanes']} empty, longest "
+          f"{r['longest_lane_tokens']} tokens (mean of the others "
+          f"{r['mean_lane_tokens']:.1f}); fix-up rounds: most {rounds} "
+          f"(median {r['median_rounds']:.0f}), most walks a piece {walks}, "
+          f"longest speculative walk {longest} tokens (the launch's "
+          f"cycles over it: {r['cycles'] / max(longest, 1):.1f} a token; "
+          f"select_tokens_model, exact with the kernel) {card}")
+
+
+def hold_select_chain_cases(card: str) -> int:
+    """``select_tokens`` against its plain version on the cases that stress
+    the kernel's pieces, walks and fix-up rounds (``SELECT_CHAIN_CASES`` of
+    ``test_torch_contract_cases``), each also holding its own features;
+    returns the largest error."""
+    from test_torch_contract_cases import (SELECT_CHAIN_CASES,
+                                           check_select_chain_case,
+                                           select_chain_inputs)
+
+    err = 0
+    for case, (_, _, _, holds) in SELECT_CHAIN_CASES.items():
+        args, kw = select_chain_inputs(case)
+        e, (tv, td, cnt), _ = hold_select_tokens(
+            tuple(a.cuda() for a in args), kw, f"{case} ({holds})", card)
+        check_select_chain_case(case, tv.cpu().numpy(), td.cpu().numpy(),
+                                cnt.cpu().numpy())
+        err = max(err, e)
+    return err
+
+
 def general_phase(corpus: bytes, card: str,
                   records: dict) -> tuple[dict, dict]:
     """The general encoder (level 6) on the bench corpus: ``select_tokens``
@@ -862,9 +956,10 @@ def general_phase(corpus: bytes, card: str,
           f"{nblocks} blocks, {Bp} a dispatch -> {-(-nblocks // Bp)} "
           f"dispatches of L={Bp * nseg} lanes of {SEG})")
 
-    def dispatch(d0):
-        blk_np, nv_np, _ = dp.general_rows(arr, d0, min(nblocks, d0 + Bp), N,
-                                           Bp, None)
+    def dispatch(d0, arr=arr):
+        n_blocks = -(-arr.size // N)
+        blk_np, nv_np, _ = dp.general_rows(arr, d0, min(n_blocks, d0 + Bp),
+                                           N, Bp, None)
         blk = torch.from_numpy(blk_np).cuda()
         nv = torch.from_numpy(nv_np).cuda()
         return blk, nv, lz77.find_matches(blk, nv, N=N, S=cfg.probe_words,
@@ -897,6 +992,7 @@ def general_phase(corpus: bytes, card: str,
             dict(N=n_r, SEG_SIZE=seg, lazy=lazy, start=start),
             f"random matches, SEG {seg}, start {start}, lazy={lazy}", card)
         err = max(err, e)
+    err = max(err, hold_select_chain_cases(card))
 
     # -- the first (full) dispatch, stage by stage, on the card
     blk, nv, matches = dispatch(0)
@@ -1062,6 +1158,27 @@ def general_phase(corpus: bytes, card: str,
           f"({r['bytes']} B), {launches['select_tokens']} launches a call, "
           f"longest lane {r['longest_lane_tokens']} tokens (mean "
           f"{r['mean_lane_tokens']:.1f}), library call: none {card}")
+    select_tokens_lanes("the bench dispatch", (blk, matches, nv), kw,
+                        (tv, td, cnt), lambda: lz77.select_tokens(
+                            blk, matches, nv, **kw), r, card)
+
+    # -- data nobody can compress: 1 MiB of seeded random bytes, one
+    # dispatch of 8 blocks (8 of its 16 rows padded), nearly all literals
+    rnd = np.random.default_rng(INCOMPRESSIBLE_SEED).integers(
+        0, 256, 1 << 20, dtype=np.uint8)
+    comp_r = zlibes_tpu_torch.deflate(rnd.tobytes(), level=6, device="cuda")
+    assert zlib.decompress(comp_r) == rnd.tobytes(), \
+        "deflate(random, level=6) does not come back through CPython"
+    r_blk, r_nv, r_matches = dispatch(0, rnd)
+    e, got, _ = hold_select_tokens((r_blk, r_matches, r_nv), kw,
+                                   "1 MiB of random bytes", card)
+    r["max_abs_err"] = max(r["max_abs_err"], e)
+    print(f"deflate(1 MiB of random bytes, level=6, device='cuda'): "
+          f"{len(comp_r)} B, CPython zlib.decompress returns the input")
+    select_tokens_lanes("the incompressible dispatch",
+                        (r_blk, r_matches, r_nv), kw, got,
+                        lambda: lz77.select_tokens(r_blk, r_matches, r_nv,
+                                                   **kw), r, card)
     return launches, device_ms
 
 
@@ -1744,6 +1861,15 @@ def main() -> None:
     for name in ("decode_tokens", "resolve_global"):
         launches[name] = generic_launches[name]
 
+    st = records["select_tokens"]
+    turbo_ms = device_time(enc_device_ms, "select_turbo",
+                           enc_launches["select_turbo"])
+    print(f"select_tokens device a launch: bench dispatch "
+          f"{st['device_ms']:.4f} ms, incompressible dispatch "
+          f"{st['the incompressible dispatch']['device_ms']:.4f} ms; beside "
+          f"it select_turbo {turbo_ms:.4f} ms a launch (torch.profiler) "
+          f"{card}")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
     assert not loaded, f"the port pulled in {loaded}"
@@ -1777,7 +1903,8 @@ def main() -> None:
             "longest_lane_steps", "mean_lane_steps",
             "mean_warp_longest_steps", "sm_mhz", "cycles_per_token",
             "cycles_per_step", "expand_ms", "rounds_ms", "rounds",
-            "rounds_with_work", "note") if k in r})
+            "rounds_with_work", "the bench dispatch",
+            "the incompressible dispatch", "note") if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,16 @@ matches are zero except in a few lanes:
     block's end cuts to 300 positions;
   * ``empty_lane``        a lane past its block's last byte (``seg_len`` 0).
 
+``select_tokens``' chain cases (``SELECT_CHAIN_CASES``, one lane a row),
+each with the feature it stresses in the kernel's design (32 pieces walked
+from their first positions, then fix-up rounds from the true entries):
+a lane of 16,384 literals, lanes of 1,024 and 1,025 tokens, 258-byte
+matches, lanes of 0-3 positions, a match ending at the lane's end, growing
+lengths, a match at every other position, parses that never meet (a match
+of 3 everywhere: 31 fix-up rounds), a match over eight pieces and random
+lengths in 32-position pieces, some behind 32,768 context positions;
+``select_tokens_model`` is the kernel's procedure in numpy.
+
 ``resolve_turbo``: one 4 KiB chunk row with one token a byte, seeded
 non-zero literals but for a few matches:
 
@@ -388,6 +398,325 @@ def test_select_tokens_wrapper_checks_its_inputs():
         lz77.select_tokens(data, matches, nv, N=TOK_N, SEG_SIZE=3000)
     with pytest.raises(ValueError, match="multiple of SEG_SIZE"):
         lz77.select_tokens(data, matches, nv, N=TOK_N, start=TOK_N)
+
+
+# ---------------------------------------------------------------------------
+# select_tokens: chains that stress the kernel's pieces, walks and rounds
+#
+# The kernel (csrc/encode_kernels.cu) cuts a lane into 32 pieces, walks each
+# from its first position, then fixes the walks up in rounds from each
+# piece's true entry; ``select_tokens_model`` below is that procedure in
+# numpy, held against ``select_tokens_plain`` on these cases.
+
+# name -> (SEG_SIZE, start, lazy, what the case holds)
+SELECT_CHAIN_CASES = {
+    "literals_16384": (16384, 0, True,
+                       "one lane of 16,384 literals: 512-position pieces"),
+    "round_boundary": (2048, 0, True,
+                       "lanes of exactly 1,024 and 1,025 tokens"),
+    "matches_258": (4096, 0, True,
+                    "a chain of 258-byte matches, each over two pieces"),
+    "seg_len_1_2_3": (32, 0, True,
+                      "lanes of 0, 1, 2 and 3 positions, a match of 3 at "
+                      "each"),
+    "match_to_end": (1024, 0, True,
+                     "a match that ends exactly at the lane's end"),
+    "match_to_end_after_prefix": (1024, 32768, True,
+                                  "the same behind 32,768 context positions"),
+    "growing_lengths": (1024, 0, True,
+                        "strictly growing lengths: each lazy defer hands on "
+                        "to the next"),
+    "every_other_position": (1024, 0, True,
+                             "a match of 4 at every even position: a "
+                             "walk from an odd one joins after a literal"),
+    "chains_never_merge": (4096, 0, True,
+                           "a match of 3 at every position: walks from "
+                           "neighbouring positions never meet, so every "
+                           "piece's fix-up walks to its end"),
+    "chains_never_merge_after_prefix": (4096, 32768, False,
+                                        "the same, greedy, behind 32,768 "
+                                        "context positions"),
+    "skips_pieces": (512, 0, True,
+                     "a 258-byte match over eight 32-position pieces"),
+    "random_small_pieces": (1024, 0, True,
+                            "random lengths in 32-position pieces: fix-up "
+                            "walks that meet earlier fix-up walks"),
+}
+
+
+def _chain_lengths(case: str):
+    """(match lengths (B, SEG) int64, n_valid (B,)) of ``case``'s rows, one
+    lane a row, before any prefix."""
+    seg = SELECT_CHAIN_CASES[case][0]
+    ml = np.zeros((1, seg), np.int64)
+    nv = np.array([seg])
+    if case == "round_boundary":
+        ml = np.zeros((2, seg), np.int64)
+        ml[:, :512] = 4               # 128 matches, then 896 or 897 literals
+        nv = np.array([1408, 1409])
+    elif case == "matches_258":
+        ml[:] = C.MAX_MATCH
+    elif case == "seg_len_1_2_3":
+        ml = np.full((4, seg), 3, np.int64)
+        nv = np.array([0, 1, 2, 3])
+    elif case.startswith("match_to_end"):
+        ml[0, 900] = 100
+        nv = np.array([1000])
+    elif case == "growing_lengths":
+        ml[0, 10:110] = 3 + np.arange(100)
+    elif case == "every_other_position":
+        ml[0, ::2] = 4
+    elif case.startswith("chains_never_merge"):
+        ml[:] = 3
+    elif case == "skips_pieces":
+        ml[0, 5] = C.MAX_MATCH
+        nv = np.array([300])
+    elif case == "random_small_pieces":
+        rng = np.random.default_rng(1024)
+        ml = rng.integers(0, C.MAX_MATCH + 1, (4, seg))
+        ml[rng.random((4, seg)) < 0.5] = 0
+        nv = np.array([seg, seg, 700, 33])
+    return ml, nv
+
+
+@functools.cache
+def select_chain_case(case: str):
+    """(data (B, N + 8) uint8, matches (B, N) int32, n_valid (B,) int32,
+    kwargs of select_tokens) of ``case``: seeded bytes and distances, and
+    behind a prefix its ``start`` positions of seeded matches that must
+    never become tokens."""
+    seg, start, lazy, _ = SELECT_CHAIN_CASES[case]
+    ml, nv = _chain_lengths(case)
+    B = ml.shape[0]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    N = start + seg
+    data = rng.integers(0, 256, (B, N + 8), dtype=np.uint8)
+    dist = rng.integers(1, C.WINDOW_SIZE + 1, (B, N))
+    full = np.concatenate([rng.integers(3, C.MAX_MATCH + 1, (B, start)), ml],
+                          axis=1)
+    matches = ((full << 16) | dist).astype(np.int32)
+    kw = dict(N=N, SEG_SIZE=seg, lazy=lazy, start=start)
+    return data, matches, (nv + start).astype(np.int32), kw
+
+
+def select_chain_inputs(case: str):
+    """``select_chain_case`` as CPU tensors and its kwargs."""
+    data, matches, nv, kw = select_chain_case(case)
+    return (torch.from_numpy(data), torch.from_numpy(matches),
+            torch.from_numpy(nv)), kw
+
+
+@functools.cache
+def select_chain_plain(case: str):
+    """``select_tokens_plain`` of ``case`` as numpy (tv, td, count): run
+    once a process (the 16,384-position lane is 16,384 eager steps)."""
+    args, kw = select_chain_inputs(case)
+    return tuple(x.numpy() for x in lz77.select_tokens(*args, **kw))
+
+
+def check_select_chain_case(case: str, tv: np.ndarray, td: np.ndarray,
+                            count: np.ndarray) -> None:
+    """Assert the features that ``case`` fixes on select_tokens' output
+    (zeros past each count included)."""
+    past = np.arange(tv.shape[1])[None, :] >= count[:, None]
+    assert not tv[past].any() and not td[past].any()
+    toks = [list(zip(tv[i, :n].tolist(), td[i, :n].tolist()))
+            for i, n in enumerate(count.tolist())]
+    n0 = int(count[0])
+    if case == "literals_16384":
+        assert n0 == 16384 and not td[0].any()
+    elif case == "round_boundary":
+        assert count.tolist() == [1024, 1025]
+        assert all(t[0] == 4 and t[1] > 0 for t in toks[1][:128])
+    elif case == "matches_258":
+        # 15 whole matches, then the last 226 positions: each clamped match
+        # is deferred to the next position's longer raw length
+        assert [t[0] for t in toks[0][:15]] == [C.MAX_MATCH] * 15
+        assert n0 == 15 + 4096 - 15 * C.MAX_MATCH
+    elif case == "seg_len_1_2_3":
+        assert count.tolist() == [0, 1, 2, 1]
+        assert td[1, 0] == 0 and not td[2].any() and tv[3, 0] == 3
+    elif case.startswith("match_to_end"):
+        assert n0 == 901 and toks[0][-1][0] == 100 and toks[0][-1][1] > 0
+    elif case == "growing_lengths":
+        # literals up to the run's last position, then its match of 102
+        assert not td[0, :109].any() and tv[0, 109] == 102 and td[0, 109]
+        assert n0 == 110 + 1024 - 211
+    elif case == "every_other_position":
+        assert n0 == 256 and all(t[0] == 4 for t in toks[0])
+    elif case == "chains_never_merge":
+        assert n0 == 1366 and all(t[0] == 3 for t in toks[0][:1365])
+    elif case == "chains_never_merge_after_prefix":
+        assert n0 == 1366
+    elif case == "skips_pieces":
+        assert n0 == 5 + 1 + 300 - 263 and toks[0][5][0] == C.MAX_MATCH
+    elif case == "random_small_pieces":
+        assert count[3] > 0 and count.min() > 0
+
+
+def select_tokens_model(data, matches, n_valid, N: int, SEG_SIZE: int,
+                        lazy: bool = True, start: int = 0,
+                        pieces: int = 32):
+    """The select_tokens kernel's procedure in numpy -> (tv, td, count,
+    stats): stats (L, 3) int64 a lane: fix-up rounds, most walks of a
+    piece, longest speculative walk in tokens.
+
+    (1) each position's token (val | dist << 9 | 1 << 25 for a match) and
+    successor; (2) each of ``pieces`` pieces (a power of two >= 32
+    positions) walked from its first position; (3) rounds: piece p looks
+    up its exit from its assumed entry (at first the speculative exit of
+    piece p - 1): a position some walk of the piece visited has that
+    walk's exit, any other starts a new walk that stops at the piece's end
+    or at a visited position; the rounds stop when no entry changes; (4)
+    along the true chain each walk is entered once, and c is a token iff c
+    is at or past that position of its walk; (5) the rank of a token is the
+    popcount of the mark words before its own and of its word's lower
+    bits."""
+    data = np.asarray(data)
+    matches = np.asarray(matches).astype(np.int64)
+    n_valid = np.asarray(n_valid).astype(np.int64)
+    B = matches.shape[0]
+    nseg = (N - start) // SEG_SIZE
+    L = B * nseg
+    tv = np.zeros((L, SEG_SIZE), np.int32)
+    td = np.zeros((L, SEG_SIZE), np.int32)
+    count = np.zeros(L, np.int32)
+    stats = np.zeros((L, 3), np.int64)
+    for lane in range(L):
+        b, k = divmod(lane, nseg)
+        seg0 = start + k * SEG_SIZE
+        n = int(min(max(n_valid[b] - seg0, 0), SEG_SIZE))
+        if n == 0:
+            continue
+        m = matches[b, seg0:seg0 + n]
+        c = np.arange(n)
+        ml = np.minimum(m >> 16, n - c)
+        use = ml >= C.MIN_MATCH
+        if lazy:
+            ml1 = np.append(m[1:] >> 16, 0)
+            use &= ~((ml < C.MAX_MATCH) & (ml1 > ml) & (c + 1 < n))
+        tok = np.where(use, ml | (m & 0xFFFF) << 9 | 1 << 25,
+                       data[b, seg0:seg0 + n])
+        nxt = (c + np.where(use, ml, 1)).tolist()
+        marks, stats[lane] = _model_marks(nxt, n, pieces)
+        # (5): rank by the words' popcounts
+        words = np.packbits(np.append(marks, np.zeros(-n % 32, bool))
+                            .reshape(-1, 4, 8)[:, ::-1, ::-1]).view(">u4")
+        pop = np.array([bin(int(w)).count("1") for w in words], np.int64)
+        pre = np.concatenate([[0], np.cumsum(pop)[:-1]])
+        cm = np.flatnonzero(marks)
+        below = np.array([bin(int(words[x >> 5]) & ((1 << (x & 31)) - 1))
+                          .count("1") for x in cm], np.int64)
+        slot = pre[cm >> 5] + below
+        tv[lane, slot] = tok[cm] & 0x1FF
+        td[lane, slot] = (tok[cm] >> 9) & 0xFFFF
+        count[lane] = int(pop.sum())
+    return tv, td, count, stats
+
+
+def _model_marks(nxt: list, n: int, pieces: int):
+    """(2)-(4) of ``select_tokens_model`` on one lane of ``n`` positions ->
+    (marks (n,) bool, [rounds, most walks of a piece, longest speculative
+    walk])."""
+    lg = 5
+    while (pieces << lg) < n:
+        lg += 1
+    P = 1 << lg
+    ends = [min(p * P + P, n) if p * P < n else 0 for p in range(pieces)]
+    walk_id = [0] * n                  # 1: a speculative walk; 0: unvisited
+    exits = [{} for _ in range(pieces)]
+    stops = [{} for _ in range(pieces)]
+    longest = 0
+    for p in range(pieces):
+        if ends[p]:
+            e, steps = p * P, 0
+            while e < ends[p]:
+                walk_id[e] = 1
+                e, steps = nxt[e], steps + 1
+            exits[p][1] = stops[p][1] = e
+            longest = max(longest, steps)
+
+    def walk(p: int, e: int) -> int:
+        k = len(exits[p]) + 1
+        while e < ends[p] and walk_id[e] == 0:
+            walk_id[e] = k
+            e = nxt[e]
+        stops[p][k] = e
+        exits[p][k] = exits[p][walk_id[e]] if e < ends[p] else e
+        return k
+
+    out = [exits[p][1] if ends[p] else n for p in range(pieces)]
+    entry = [0] + out[:-1]
+    rounds = 0
+    while True:
+        rounds += 1
+        for p in range(pieces):
+            if entry[p] < ends[p]:
+                out[p] = exits[p][walk_id[entry[p]] or walk(p, entry[p])]
+            elif ends[p]:
+                out[p] = entry[p]
+        nxt_entry = [0] + out[:-1]
+        if all(nxt_entry[p] == entry[p] for p in range(pieces) if ends[p]):
+            break
+        entry = nxt_entry
+    marks = np.zeros(n, bool)
+    for p in range(pieces):
+        if not ends[p]:
+            continue
+        enter = {}
+        f = entry[p]
+        while f < ends[p]:
+            k = walk_id[f]
+            enter[k] = f
+            f = stops[p][k]
+        for x in range(p * P, ends[p]):
+            marks[x] = walk_id[x] in enter and x >= enter[walk_id[x]]
+    walks = max(len(e) for e in exits)
+    return marks, [rounds, walks, longest]
+
+
+@pytest.mark.parametrize("case", SELECT_CHAIN_CASES)
+def test_select_tokens_plain_gives_the_chain_cases(case):
+    check_select_chain_case(case, *select_chain_plain(case))
+
+
+@pytest.mark.parametrize("case", SELECT_CHAIN_CASES)
+def test_select_tokens_model_matches_plain_on_chain_cases(case):
+    """The kernel's procedure gives the plain version's tokens exactly; the
+    cases reach what they are there for."""
+    data, matches, nv, kw = select_chain_case(case)
+    tv, td, count, stats = select_tokens_model(data, matches, nv, **kw)
+    want = select_chain_plain(case)
+    for got, w in zip((tv, td, count), want):
+        assert np.array_equal(got, w)
+    rounds, walks, longest = stats.max(0)
+    if case.startswith("chains_never_merge"):
+        # entries settle one piece a round; a piece walks each of the three
+        # residues once, and later entries find them visited
+        assert rounds == 31 and walks == 3
+    elif case == "literals_16384":
+        assert rounds == 1 and longest == 512
+    elif case == "random_small_pieces":
+        assert walks >= 3
+
+
+def test_select_tokens_model_on_random_lanes():
+    """Random lanes of 1,024, 4,096 and 300 positions, lazy and greedy."""
+    rng = np.random.default_rng(7)
+    for seg, lazy in ((1024, True), (4096, False), (300, True)):
+        B = 3
+        ml = rng.integers(0, C.MAX_MATCH + 1, (B, seg))
+        ml[rng.random((B, seg)) < 0.6] = 0
+        matches = ((ml << 16) | rng.integers(1, 32769, (B, seg))).astype(
+            np.int32)
+        data = rng.integers(0, 256, (B, seg + 8), dtype=np.uint8)
+        nv = np.array([seg, seg // 3, 0], np.int32)
+        got = select_tokens_model(data, matches, nv, seg, seg, lazy)[:3]
+        want = lz77.select_tokens_plain(
+            torch.from_numpy(data), torch.from_numpy(matches),
+            torch.from_numpy(nv), seg, seg, lazy)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -124,3 +124,23 @@ def test_resolve_global_span_case_matches_reference(case):
     out, err = both_resolves(tokens, starts, count, out_base, total, prefix,
                              O)
     assert not err and np.array_equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# select_tokens: the JAX XLA program against the port's plain version on the
+# chain cases
+
+@pytest.mark.parametrize("case", cases.SELECT_CHAIN_CASES)
+def test_select_tokens_chain_case_matches_reference(case):
+    """Counts, and tokens in [0, count), equal the JAX ``select_tokens``'
+    exactly (the port also writes zeros past each count)."""
+    from zlibes_tpu.ops import lz77 as jlz
+
+    data, matches, nv, kw = cases.select_chain_case(case)
+    jtv, jtd, jcnt = (np.asarray(x) for x in jlz.select_tokens(
+        jnp.asarray(data), jnp.asarray(matches), jnp.asarray(nv), **kw))
+    tv, td, cnt = cases.select_chain_plain(case)
+    assert np.array_equal(cnt, jcnt)
+    valid = np.arange(tv.shape[1])[None, :] < jcnt[:, None]
+    assert np.array_equal(tv[valid], jtv[valid])
+    assert np.array_equal(td[valid], jtd[valid])

@@ -20,7 +20,8 @@ from zlibes_tpu_torch.codec import wide as wd
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
 from zlibes_tpu_torch.spec import constants as C
-from test_torch_contract_cases import check_decode_tokens, zlib_flushed
+from test_torch_contract_cases import (SELECT_CHAIN_CASES,
+                                       check_decode_tokens, zlib_flushed)
 from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
 
 torch.set_num_threads(2)
@@ -789,6 +790,18 @@ def test_select_tokens_kernel_matches_plain_on_contract_cases(lazy, start):
     for case in cases.SELECT_TOKENS_CASES:
         cases.check_select_tokens_case(case, lazy, tv.numpy(), td.numpy(),
                                        cnt.numpy())
+
+
+@pytest.mark.parametrize("case", SELECT_CHAIN_CASES)
+def test_select_tokens_kernel_matches_plain_on_chain_cases(case):
+    """The cases that stress the kernel's pieces, walks and fix-up rounds
+    (``SELECT_CHAIN_CASES``), each also holding its own features."""
+    import test_torch_contract_cases as cases
+
+    (data, matches, nv), kw = cases.select_chain_inputs(case)
+    tv, td, cnt = _tokens_both(data, matches, nv, kw["N"], kw["SEG_SIZE"],
+                               kw["lazy"], kw["start"])
+    cases.check_select_chain_case(case, tv.numpy(), td.numpy(), cnt.numpy())
 
 
 def test_select_tokens_kernel_matches_plain_on_corpus():

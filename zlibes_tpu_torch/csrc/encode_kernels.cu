@@ -159,20 +159,144 @@ select_turbo_kernel(const int32_t* __restrict__ pv,
 // split_far, and a row offset ``start`` (the width of a preset dictionary's
 // context prefix, whose positions are match sources and never tokens).
 // Reads the matcher's (len << 16) | dist and the block's bytes as they are.
+// Replaces the reference's XLA while_loop (zlibes_tpu/ops/lz77.py:295).
 //
-// One block a lane, the lane's row in shared memory as (token, next) pairs:
-// a wide token takes 26 bits (val 9 | dist 16 << 9 | match bit 25), so the
-// successor does not fit beside it in one word as in select_turbo.  (1) All
-// threads compute every position's token and successor at once, neighbouring
-// threads on neighbouring positions.  (2) Thread 0 walks the chain from
-// position 0, one 8-byte shared-memory load a step, writing token t in place
-// at slot t <= cursor.  (3) All threads store the two output rows, zeros
-// past the count.  Bound by the latency of the longest lane's chain (at most
-// ``seg`` steps, an all-literal lane); a dispatch of 16 blocks has 512 lanes,
-// all resident at once.
+// One block of 256 threads a lane.  The tokens of a lane are the chain from
+// position 0 through next[c] > c to seg_len; walking it on one thread costs
+// a dependent shared-memory load a token, up to ``seg`` of them.  Here:
+//
+// (1) Token pass: all threads compute every position's token (one word: val
+//     9 | dist 16 << 9 | match bit 25) and its successor (uint16),
+//     neighbouring threads on neighbouring positions.
+// (2) Speculative walks: the lane is cut into 32 pieces of P positions (a
+//     power of two, at least 32), and lane p of warp 0 walks piece p from
+//     its first position until it leaves the piece, keeping the positions
+//     it visits as bits in a register, a mark word (sbits) at a time.  The
+//     32 lanes step through their pieces side by side, so piece p of the
+//     successors (and of the walk ids below) lies p banks on, or every
+//     step of an all-literal lane would be a 32-way bank conflict.
+// (3) Fix-up rounds: piece p assumes it is entered where piece p - 1 was
+//     left (at first its speculative exit) and looks its exit up from
+//     there: a position a walk of the piece visited has that walk's exit;
+//     from any other it walks anew (a walk id in wid[], bits in fbits[])
+//     until it leaves the piece or meets a visited position, whose walk's
+//     exit it takes.  Exits pass to piece p + 1 by a shuffle; the rounds
+//     stop when no entry changes.  LZ parses meet again within a few
+//     tokens, so one round of a few steps is the rule; whatever the data,
+//     piece p is final after round p + 1 (at most 33 rounds) and a piece's
+//     walks visit each of its positions once (at most P steps of walking).
+// (4) Marks: along the true chain a piece's walks are entered at its entry
+//     and then at each meeting point, each walk in turn an earlier one;
+//     lane p records where the chain enters each of them, and position c is
+//     a token iff it is at or past that position of its walk: a thread a
+//     mark word.
+// (5) Rank and store: a block-wide exclusive scan of the words' popcounts
+//     gives each token its slot; each warp takes a word (32 positions) at a
+//     time, so its tokens go to consecutive slots of the output rows.
+//     Zeros past the count.
+//
+// tools/probe_select_tokens.py holds the other designs it was timed
+// against: the first design's single walk, pointer doubling over the
+// successors (ceil(log2 count) rounds of a gather a position, twice this
+// kernel's time on the bench dispatch), and speculative walks without the
+// memory of (3).  Shared memory: 7 bytes a position, two bit words a 32
+// positions, 8.6 KB of tables: 38.6 KB at 4,096, so a dispatch's 512 lanes
+// are all resident at once; 127.6 KB at 16,384 (dynamic shared memory).
+// Bound by the token pass's loads, the store, and the longest piece walk.
 
 constexpr int kTokThreads = 256;
+constexpr int kTokWarps = kTokThreads / 32;
 constexpr int kWideMatchBit = 1 << 25;
+constexpr int kMaxTokSeg = 16384;                // MAX_KERNEL_SEG
+constexpr int kMaxMarkWords = kMaxTokSeg / 32;
+constexpr int kPieces = 32;                      // a piece a lane of warp 0
+// walk ids of a piece: 1 the speculative walk, then one a fix-up round at
+// most (rounds 1..kPieces + 1 of which piece p walks in at most p + 1)
+constexpr int kWalkIds = kPieces + 2;
+
+// bytes of dynamic shared memory a lane of ``seg`` positions takes: tokens,
+// nxt[] and wid[] with a bank of skew a piece, two bit words a 32 positions
+__host__ __device__ constexpr int select_tokens_smem(int seg) {
+  return ((7 * seg + 8 * kPieces + 3) & ~3) + 8 * ((seg + 31) / 32);
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int v) {
+  const int ln = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    if (ln >= o) v += u;
+  }
+  return v;
+}
+
+// (1): every position's token into tok[c] and its successor into
+// nxt[c + 2 * (c >> lg_piece)] (no barrier)
+__device__ __forceinline__ void select_tokens_pass(
+    const uint8_t* __restrict__ d, const int32_t* __restrict__ m, int seg_len,
+    int lazy, int lg_piece, int32_t* tok, uint16_t* nxt) {
+  for (int c = threadIdx.x; c < seg_len; c += kTokThreads) {
+    const int cur = m[c];
+    int t, nx;
+    select_step<false, kWideMatchBit>(
+        cur >> 16, cur & 0xFFFF, d[c], [m, c] { return m[c + 1] >> 16; }, c,
+        seg_len, lazy, t, nx);
+    tok[c] = t;
+    nxt[c + ((c >> lg_piece) << 1)] = (uint16_t)nx;
+  }
+}
+
+// (5): each marked position's token to the slot its rank gives, in both
+// output rows, zeros past the count; the count to *count_out.  ``mark``:
+// (seg_len + 31) / 32 words, read only.  Every thread of the block calls it.
+__device__ __forceinline__ void store_marked(
+    const uint32_t* mark, const int32_t* tok, int seg, int seg_len,
+    int32_t* __restrict__ tv_row, int32_t* __restrict__ td_row,
+    int32_t* __restrict__ count_out) {
+  __shared__ int s_wpre[kMaxMarkWords];  // marks in the words before each
+  __shared__ int s_warp[kTokWarps];
+  const int tid = threadIdx.x;
+  const int nwords = (seg_len + 31) >> 5;
+  const int per = (nwords + kTokThreads - 1) / kTokThreads;
+  const int w0 = tid * per;
+  int s = 0;
+  for (int k = 0; k < per; ++k)
+    if (w0 + k < nwords) s += __popc(mark[w0 + k]);
+  const int incl = warp_inclusive_sum(s);
+  if ((tid & 31) == 31) s_warp[tid >> 5] = incl;
+  __syncthreads();
+  if (tid < 32) {
+    const int v = warp_inclusive_sum(tid < kTokWarps ? s_warp[tid] : 0);
+    if (tid < kTokWarps) s_warp[tid] = v;
+  }
+  __syncthreads();
+  int pre = incl - s + (tid >= 32 ? s_warp[(tid >> 5) - 1] : 0);
+  for (int k = 0; k < per; ++k)
+    if (w0 + k < nwords) {
+      s_wpre[w0 + k] = pre;
+      pre += __popc(mark[w0 + k]);
+    }
+  __syncthreads();
+  const int cnt = s_warp[kTokWarps - 1];
+  if (tid == 0) *count_out = cnt;
+  for (int c = tid; c < seg; c += kTokThreads) {
+    if (c < seg_len) {
+      const uint32_t m = mark[c >> 5];
+      if ((m >> (c & 31)) & 1u) {
+        const int slot = s_wpre[c >> 5] + __popc(m & ((1u << (c & 31)) - 1u));
+        // a literal has no bit above its byte, so both fields read as they
+        // lie
+        const int w = tok[c];
+        tv_row[slot] = w & 0x1FF;
+        td_row[slot] = (w >> kDistShift) & 0xFFFF;
+      }
+    }
+    if (c >= cnt) {
+      tv_row[c] = 0;
+      td_row[c] = 0;
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kTokThreads)
 select_tokens_kernel(const uint8_t* __restrict__ data, int64_t pitch,
@@ -180,47 +304,147 @@ select_tokens_kernel(const uint8_t* __restrict__ data, int64_t pitch,
                      const int32_t* __restrict__ n_valid, int N, int nseg,
                      int seg, int start, int lazy, int32_t* __restrict__ tv,
                      int32_t* __restrict__ td, int32_t* __restrict__ counts) {
-  extern __shared__ int2 tok_row[];  // seg pairs: .x token, .y next position
-  __shared__ int s_tok_count;
+  extern __shared__ __align__(16) unsigned char tok_smem[];
+  int32_t* tok = reinterpret_cast<int32_t*>(tok_smem);
+  // successors and fix-up walk ids of piece p at c + 2p and c + 4p
+  uint16_t* nxt = reinterpret_cast<uint16_t*>(tok_smem + 4 * seg);
+  uint8_t* wid = tok_smem + 6 * seg + 4 * kPieces;
+  // positions the speculative walks visited (then the marks), and those the
+  // fix-up walks visited: each word lies in one piece
+  uint32_t* sbits = reinterpret_cast<uint32_t*>(
+      tok_smem + ((7 * seg + 8 * kPieces + 3) & ~3));
+  uint32_t* fbits = sbits + (seg + 31) / 32;
+  // per piece and walk id (1: the speculative walk): where the walk left
+  // the piece, where it stopped (its exit, or the position of an earlier
+  // walk it met), and where the true chain enters it (0xFFFF: nowhere)
+  __shared__ uint16_t s_exit[kPieces][kWalkIds];
+  __shared__ uint16_t s_stop[kPieces][kWalkIds];
+  __shared__ uint16_t s_from[kPieces][kWalkIds];
+  const int tid = threadIdx.x;
+  const int ln = tid & 31;
   const int lane = blockIdx.x;
   const int b = lane / nseg;
   const int seg0 = start + (lane % nseg) * seg;
   const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
-  const int32_t* m = matches + (int64_t)b * N + seg0;
-  const uint8_t* d = data + (int64_t)b * pitch + seg0;
+  const int nwords = (seg_len + 31) >> 5;
+  int lg_piece = 5;
+  while ((kPieces << lg_piece) < seg_len) ++lg_piece;
+  const int P = 1 << lg_piece;
 
-  for (int c = threadIdx.x; c < seg_len; c += kTokThreads) {
-    const int cur = m[c];
-    int2 w;
-    select_step<false, kWideMatchBit>(
-        cur >> 16, cur & 0xFFFF, d[c], [m, c] { return m[c + 1] >> 16; }, c,
-        seg_len, lazy, w.x, w.y);
-    tok_row[c] = w;
+  select_tokens_pass(data + (int64_t)b * pitch + seg0,
+                     matches + (int64_t)b * N + seg0, seg_len, lazy, lg_piece,
+                     tok, nxt);
+  for (int w = tid; w < nwords; w += kTokThreads) {
+    sbits[w] = 0;
+    fbits[w] = 0;
   }
   __syncthreads();
 
-  if (threadIdx.x == 0) {
-    int c = 0;
-    int t = 0;
-    while (c < seg_len) {
-      const int2 w = tok_row[c];
-      tok_row[t++].x = w.x;
-      c = w.y;
+  if (tid < 32) {
+    const int p = ln;
+    const int beg = p * P;
+    const int end = beg < seg_len ? min(beg + P, seg_len) : 0;
+    const uint16_t* nx = nxt + 2 * p;  // piece p's skewed rows
+    uint8_t* wd = wid + 4 * p;
+    uint16_t* ex = s_exit[p];
+    uint16_t* st = s_stop[p];
+    int nwalk = 0;
+    if (end) {  // (2), its visits kept in a register word at a time
+      int e = beg;
+      int word = e >> 5;
+      uint32_t bits = 0;
+      while (e < end) {
+        const int n = nx[e];
+        if ((e >> 5) != word) {
+          sbits[word] = bits;
+          bits = 0;
+          word = e >> 5;
+        }
+        bits |= 1u << (e & 31);
+        e = n;
+      }
+      sbits[word] = bits;
+      nwalk = 1;
+      ex[1] = st[1] = (uint16_t)e;
     }
-    s_tok_count = t;
-    counts[lane] = t;
+    // the id of the walk of this piece that visited e (e < end), or 0
+    auto walk_of = [&](int e) -> int {
+      const uint32_t bit = 1u << (e & 31);
+      if (sbits[e >> 5] & bit) return 1;
+      return fbits[e >> 5] & bit ? wd[e] : 0;
+    };
+    // a new walk of the piece from e (unvisited) -> its id; it never meets
+    // itself, so its bits go to fbits a word at a time
+    auto walk = [&](int e) {
+      const int k = ++nwalk;
+      int met = 0;
+      int word = e >> 5;
+      uint32_t bits = 0;
+      while (e < end && (met = walk_of(e)) == 0) {
+        wd[e] = (uint8_t)k;
+        if ((e >> 5) != word) {
+          fbits[word] |= bits;
+          bits = 0;
+          word = e >> 5;
+        }
+        bits |= 1u << (e & 31);
+        e = nx[e];
+      }
+      fbits[word] |= bits;
+      st[k] = (uint16_t)e;
+      ex[k] = e < end ? ex[met] : (uint16_t)e;
+      return k;
+    };
+    // a lane past the last piece passes the lane's end on
+    int out = end ? ex[1] : seg_len;
+    int entry = __shfl_up_sync(0xffffffffu, out, 1);
+    if (p == 0) entry = 0;
+    for (;;) {  // (3)
+      if (entry < end) {
+        int k = walk_of(entry);
+        if (k == 0) k = walk(entry);
+        out = ex[k];
+      } else if (end) {
+        out = entry;  // the chain jumps over the piece
+      }
+      int next_entry = __shfl_up_sync(0xffffffffu, out, 1);
+      if (p == 0) next_entry = 0;
+      if (!__any_sync(0xffffffffu, end && next_entry != entry)) break;
+      entry = next_entry;
+    }
+    uint16_t* fr = s_from[p];  // (4)
+    for (int k = 1; k <= nwalk; ++k) fr[k] = 0xFFFF;
+    if (entry < end) {
+      int f = entry;
+      int k = walk_of(f);
+      for (;;) {
+        fr[k] = (uint16_t)f;
+        f = st[k];
+        if (f >= end) break;
+        k = walk_of(f);
+      }
+    }
+  }
+  __syncthreads();
+  // a thread a word (32 positions, one piece): the marks take the place of
+  // the speculative walks' bits
+  for (int w = tid; w < nwords; w += kTokThreads) {
+    const int lo = 32 * w;
+    const int p = lo >> lg_piece;
+    const uint16_t* fr = s_from[p];
+    const int from1 = fr[1];
+    uint32_t m = sbits[w];
+    m &= from1 <= lo ? ~0u : from1 >= lo + 32 ? 0u : ~0u << (from1 - lo);
+    for (uint32_t f = fbits[w]; f; f &= f - 1) {
+      const int i = __ffs(f) - 1;
+      if (lo + i >= fr[wid[4 * p + lo + i]]) m |= 1u << i;
+    }
+    sbits[w] = m;
   }
   __syncthreads();
 
-  const int cnt = s_tok_count;
-  int32_t* tv_row = tv + (int64_t)lane * seg;
-  int32_t* td_row = td + (int64_t)lane * seg;
-  for (int c = threadIdx.x; c < seg; c += kTokThreads) {
-    // a literal has no bit above its byte, so both fields read as they lie
-    const int w = c < cnt ? tok_row[c].x : 0;
-    tv_row[c] = w & 0x1FF;
-    td_row[c] = (w >> kDistShift) & 0xFFFF;
-  }
+  store_marked(sbits, tok, seg, seg_len, tv + (int64_t)lane * seg,
+               td + (int64_t)lane * seg, counts + lane);
 }
 
 // ---------------------------------------------------------------- fields
@@ -316,8 +540,10 @@ int zt_select_tokens(const void* data, int64_t pitch, const void* matches,
                      const void* n_valid, int N, int nseg, int seg, int start,
                      int lazy, int lanes, void* tv, void* td, void* counts,
                      void* stream) {
-  const int smem = seg * (int)sizeof(int2);
-  if (smem > 48 * 1024) {
+  if (seg <= 0 || seg > kMaxTokSeg) return (int)cudaErrorInvalidValue;
+  const int smem = select_tokens_smem(seg);
+  // the default cap of 48 KB counts the 8.6 KB of static tables too
+  if (smem > 32 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         select_tokens_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);

@@ -27,8 +27,8 @@ from .turbo_kernel import _check, _launch, _ptr, _route
 
 # greedy selection segment of the default profile (positions per lane)
 SEG = 4096
-# longest segment the select_tokens kernel takes: 8 bytes a position of one
-# block's shared memory
+# longest segment the select_tokens kernel takes: 7 bytes a position of one
+# block's shared memory, and uint16 positions
 MAX_KERNEL_SEG = 16384
 
 
@@ -205,10 +205,14 @@ def find_matches(data: torch.Tensor, n_valid: torch.Tensor, N: int,
 # (select_tokens_plain below).  On the card (select_tokens_kernel,
 # csrc/encode_kernels.cu) one block owns one lane: all threads compute every
 # position's token and successor at once into shared memory (they depend on
-# that position and the next alone), one thread follows the chain from the
-# lane's first position, all threads store the two output rows.  It is bound
-# by the latency of the longest lane's chain, at most SEG_SIZE steps.  The
-# rule itself (select_step) is shared with select_turbo's kernel.
+# that position and the next alone); the chain from the lane's first
+# position is then marked by a warp whose 32 threads each walk one piece of
+# the lane from its first position, fixed up in rounds from each piece's
+# true entry (LZ parses meet again within a few tokens, and a piece's walks
+# remember whom they met, so no position is walked twice); a scan of the
+# marks gives each token its slot.  Bound by the pass's loads, the store and
+# the longest piece walk, not by the lane's token count.  The rule itself
+# (select_step) is shared with select_turbo's kernel.
 #
 # Contract: data (B, >= N) uint8 block rows; matches (B, N) int32, each
 # ``(len << 16) | dist`` with len in 0..258; n_valid (B,) int32 bytes per
