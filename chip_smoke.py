@@ -1,9 +1,10 @@
-"""Drive the PyTorch port's inflate and encode paths once on one CUDA card.
+"""Drive the PyTorch port's inflate, encode and block-parallel paths once on
+one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
-five paths on the 3.84 MB bench corpus and its committed fixtures:
+six paths on the 3.84 MB bench corpus and its committed fixtures:
 
   * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
     kernels ``decode_turbo`` (which stages its lane windows itself) and
@@ -29,7 +30,20 @@ five paths on the 3.84 MB bench corpus and its committed fixtures:
     a seek across a block boundary, a stored block between dynamic ones,
     ``inflate_raw_indexed`` on both indexes, the scan without an index
     (``inflate_raw_scan(device="cuda")``, one lane a block) and
-    ``inflate()`` with and without the native runtime.
+    ``inflate()`` with and without the native runtime;
+  * block parallelism (``zlibes_tpu_torch.parallel``), in a NCCL world of
+    one rank on the card: ``parallel_deflate`` of the corpus dynamic,
+    fixed and turbo (with its index), each held against the reference's
+    length and SHA-256 in ``tests/golden/parallel_bench.json`` and CPython;
+    ``parallel_inflate`` of ``turbo_bench.*``, ``wide_bench.*``, the
+    generic phase's 32 KiB-flush stream and the turbo stream just written;
+    ``compress_batch`` of 256 payloads of 1-4 KiB against a 32 KiB
+    dictionary, back through CPython and ``decompress_batch``; each with
+    its launches, phases (``LAST_TIMINGS``), peak device memory and whole
+    call beside the single-device call; then a gloo world of two ranks on
+    the one card (``chip_smoke.py --parallel-rank``, two processes), whose
+    bytes must be the world of one's and where a corrupted turbo stream
+    must raise CorruptError on both ranks.
 
 For each path it holds every kernel against its plain PyTorch version at
 the path's shapes, runs the path through its public entry point on the
@@ -40,7 +54,10 @@ against its plain version on rows of 32 KiB and of 256 KiB (the kernel's
 path for rows too long for shared memory), ``select_turbo`` on the
 corpus' second dispatch (padded lanes) with ``lazy`` on and off,
 ``decode_turbo`` on 4,096 lanes of random bits and on the fixture with ``T``
-cut to 64, ``resolve_turbo`` on random tokens under unsorted starts with
+cut to 64 (and the encode kernels at the parallel path's shapes:
+``select_tokens`` in segments of 1,024 on 16 blocks of 32 KiB and behind
+the batch's 32 KiB dictionary, ``select_turbo`` and ``encode_fields`` on a
+parallel turbo dispatch), ``resolve_turbo`` on random tokens under unsorted starts with
 self-copies among them and on one chunk row alone, ``decode_wide`` on
 random bits under the fixture's tables and on the fixture with ``T`` cut to
 16, ``select_tokens`` on the corpus' second dispatch (padded blocks, a
@@ -80,7 +97,8 @@ with the index ``build_index`` makes for it.  Any failure raises.  The last
 line of standard output is one JSON object naming the device; the line
 before it is the card's name and power limit from nvidia-smi, and the line
 before that the per-kernel JSON record (``launches`` is the count of the
-path's run through the public entry point: 0 for ``lane_windows``, whose
+path's run through the public entry point, ``parallel_launches`` those of
+each call of the parallel phase: 0 for ``lane_windows``, whose
 ``note`` says where its work went; ``bound_ms`` is the larger of the bytes
 each kernel's contract moves over the card's memory rate and its
 operations over the card's peak rate; ``library_ms`` is null: no single
@@ -89,7 +107,9 @@ of ``zlibes_tpu``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -156,12 +176,26 @@ def wall_s(fn, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+class Trace(dict):
+    """Kernel name -> mean device ms a launch, averaged over the records
+    ``torch.profiler`` kept (it drops records late in a long run, so a sum
+    divided by the calls would under-count); ``records``: name -> number of
+    records; ``busy``: device-busy ms a traced call (the union of the
+    kernels' spans over the calls)."""
+
+    def __init__(self, means: dict, records: dict, busy: float):
+        super().__init__(means)
+        self.records = records
+        self.busy = busy
+
+
 def profile_pipeline(fn, card: str, runs: int = 5,
-                     quiet: bool = False) -> dict[str, float]:
-    """Trace ``runs`` calls of ``fn`` with torch.profiler; print device time
-    per kernel and the device's idle share of the traced window (nothing
-    when ``quiet``).  Returns mean device ms per call by kernel name (empty
-    when the trace holds no device activity)."""
+                     quiet: bool = False) -> Trace:
+    """Trace ``runs`` calls of ``fn`` with torch.profiler; print each
+    kernel's mean device time over its records and the number of records,
+    and the device's idle share of the traced window (only the record
+    counts when ``quiet``).  Returns a ``Trace`` (empty when the trace holds
+    no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,12 +210,12 @@ def profile_pipeline(fn, card: str, runs: int = 5,
     if not kern:
         print("profiler: the trace holds no device activity; "
               "device times not measured")
-        return {}
-    per_name: dict[str, float] = {}
+        return Trace({}, {}, 0.0)
+    per_name: dict[str, list[float]] = {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     for e in kern:
-        per_name[e.name] = (per_name.get(e.name, 0.0)
-                            + (e.time_range.end - e.time_range.start))
+        per_name.setdefault(e.name, []).append(
+            e.time_range.end - e.time_range.start)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -191,16 +225,23 @@ def profile_pipeline(fn, card: str, runs: int = 5,
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
+    trace = Trace({name: statistics.fmean(us) / 1e3
+                   for name, us in per_name.items()},
+                  {name: len(us) for name, us in per_name.items()},
+                  busy / runs / 1e3)
+    top = sorted(per_name, key=lambda k: -sum(per_name[k]))
     if quiet:
-        return {name: us / runs / 1e3 for name, us in per_name.items()}
+        print("profiler records (" + f"{runs} calls): " + ", ".join(
+            f"{name[:40]} {trace.records[name]}" for name in top[:6]))
+        return trace
     print(f"profiler ({runs} device-pipeline calls): device busy "
-          f"{busy / runs / 1e3:.4f} ms per call, idle share "
+          f"{trace.busy:.4f} ms per call, idle share "
           f"{1 - busy / window:.3f} of the {window / runs / 1e3:.4f} ms "
           f"per call between first and last kernel {card}")
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])
-    for name, us in top[:12]:
-        print(f"  device {us / runs / 1e3:.4f} ms/call  {name[:100]}")
-    return {name: us / runs / 1e3 for name, us in per_name.items()}
+    for name in top[:12]:
+        print(f"  device {trace[name]:.4f} ms a launch, mean of "
+              f"{trace.records[name]} records  {name[:100]}")
+    return trace
 
 
 def kernel_event_ms(fn, name: str, runs: int = 10) -> tuple[float, int]:
@@ -225,16 +266,18 @@ def kernel_event_ms(fn, name: str, runs: int = 10) -> tuple[float, int]:
     return statistics.fmean(us) / 1e3, len(us)
 
 
-def device_time(ms: dict, name: str, launches_per_call: int = 1) -> float:
-    """Device ms per launch of ``name``'s wrapper, from the profiler's ms per
-    traced call: the sum over the kernels named ``<name>_kernel`` or
-    ``<name>_<part>_kernel`` (resolve_wide has two a launch, ..._expand_kernel
-    and ..._walk_kernel).  A wrapper whose kernels the trace does not hold
-    fails the run."""
+def device_time(ms: Trace, name: str) -> float:
+    """Device ms a launch of ``name``'s wrapper: over the kernels named
+    ``<name>_kernel`` or ``<name>_<part>_kernel`` (resolve_wide has two a
+    launch, ..._expand_kernel and ..._walk_kernel; resolve_global an expand
+    and its rounds), the sum of each kernel's mean over its records times
+    its records per record of the wrapper's rarest kernel (one a launch).
+    A wrapper whose kernels the trace does not hold fails the run."""
     pat = re.compile(rf"\b{name}_(\w+_)?kernel\b")
-    hits = [v for k, v in ms.items() if pat.search(k)]
+    hits = [k for k in ms if pat.search(k)]
     assert hits, f"the profiler's trace holds no kernel of {name}: {sorted(ms)}"
-    return sum(hits) / launches_per_call
+    n_launch = min(ms.records[k] for k in hits)
+    return sum(ms[k] * ms.records[k] for k in hits) / n_launch
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -599,7 +642,7 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
           f"5 (host CPU beside {card})")
     device_ms = profile_pipeline(device_pipeline, card)
     if device_ms:
-        busy = sum(device_ms.values())
+        busy = device_ms.busy
         print(f"wide untraced device pipeline: device busy {busy:.4f} of "
               f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
               f"{card}")
@@ -831,7 +874,7 @@ def encode_phase(corpus: bytes, card: str,
         lambda: zlibes_tpu_torch.deflate(corpus, config=cfg, device="cuda"),
         card, runs=2)
     if device_ms:
-        busy = sum(device_ms.values())
+        busy = device_ms.busy
         print(f"encode: device busy {busy:.4f} of {call_s * 1e3:.2f} ms per "
               f"untraced deflate() call -> idle share "
               f"{1 - busy / (call_s * 1e3):.3f} {card}")
@@ -1147,12 +1190,11 @@ def general_phase(corpus: bytes, card: str,
         lambda: zlibes_tpu_torch.deflate(corpus, level=6, device="cuda"),
         card, runs=2)
     if device_ms:
-        busy = sum(device_ms.values())
+        busy = device_ms.busy
         print(f"general encode: device busy {busy:.4f} of {call_s * 1e3:.2f} "
               f"ms per untraced deflate(level=6) call -> idle share "
               f"{1 - busy / (call_s * 1e3):.3f} {card}")
-    r["device_ms"] = device_time(device_ms, "select_tokens",
-                                 launches["select_tokens"])
+    r["device_ms"] = device_time(device_ms, "select_tokens")
     print(f"select_tokens: device {r['device_ms']:.4f} ms a launch "
           f"(torch.profiler), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
           f"({r['bytes']} B), {launches['select_tokens']} launches a call, "
@@ -1581,13 +1623,13 @@ def generic_phase(corpus: bytes, card: str,
           f"medians of 5 (host CPU beside {card})")
     device_ms = profile_pipeline(device_pipeline, card)
     if device_ms:
-        busy = sum(device_ms.values())
+        busy = device_ms.busy
         print(f"generic untraced device pipeline: device busy {busy:.4f} of "
               f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
               f"{card}")
     call_ms = profile_pipeline(to_device, card, runs=3)
     if call_ms:
-        busy = sum(call_ms.values())
+        busy = call_ms.busy
         print(f"generic inflate_to_device(): device busy {busy:.4f} of "
               f"{to_device_s * 1e3:.2f} ms per untraced call -> idle share "
               f"{1 - busy / (to_device_s * 1e3):.3f} {card}")
@@ -1629,9 +1671,9 @@ def generic_phase(corpus: bytes, card: str,
         lambda: ip.inflate_raw_scan(chained, 2, device="cuda"), card, runs=2,
         quiet=True)
     if scan_ms:
-        busy = sum(scan_ms.values())
+        busy = scan_ms.busy
         n_dec = scan_launches["decode_tokens"]
-        dec = device_time(scan_ms, "decode_tokens", n_dec)
+        dec = device_time(scan_ms, "decode_tokens")
         res = device_time(scan_ms, "resolve_global")
         print(f"generic scan (inflate_raw_scan of the chained stream, "
               f"{len(blocks)} blocks): whole call {scan_s * 1e3:.2f} ms "
@@ -1640,6 +1682,423 @@ def generic_phase(corpus: bytes, card: str,
               f"{dec:.4f} a launch; share of busy {dec * n_dec / busy:.3f}),"
               f" resolve_global {res:.4f} ms {card}")
     return launches, device_ms
+
+
+# ---------------------------------------------------------------------------
+# block parallelism: zlibes_tpu_torch.parallel over torch.distributed
+
+PARALLEL_RANK_TIMEOUT = 300     # seconds a rank of the world of 2 may take
+BATCH_SEED = 11                 # numpy seed of the compress_batch payloads
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def batch_payloads(corpus: bytes) -> tuple[list[bytes], bytes]:
+    """256 payloads of 1-4 KiB cut from the corpus at seeded offsets, and a
+    32 KiB dictionary from its start: many small RPC bodies against one
+    shared dictionary."""
+    rng = np.random.default_rng(BATCH_SEED)
+    sizes = rng.integers(1024, 4097, 256)
+    offs = rng.integers(32768, len(corpus) - 4096, 256)
+    return ([corpus[o : o + s] for o, s in zip(offs, sizes)],
+            corpus[:32768])
+
+
+def hold_parallel_kernels(corpus: bytes, records: dict, card: str) -> None:
+    """The encode kernels at the shapes the parallel path gives them: the
+    first dispatch of 16 blocks of 32 KiB (``select_tokens`` in segments
+    of 1,024 for the dynamic and fixed encodes; ``select_turbo`` and
+    ``encode_fields`` for the turbo one) and the first 64 rows of the
+    dictionary batch (``select_tokens`` behind a 32 KiB prefix), each
+    against its plain version.  The decode kernels at world 1 take the
+    whole stream's lanes, the shapes the earlier phases hold."""
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+    from zlibes_tpu_torch.ops import lz77
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops.deflate_kernel import token_symbols
+    from zlibes_tpu_torch.parallel import batch as pb
+    from zlibes_tpu_torch.parallel import block_parallel as bp
+
+    N = 32768
+    rows_np, nv_np = bp._stage_rows(lambda i: corpus[i * N : (i + 1) * N],
+                                    0, bp.DISPATCH_BLOCKS, N, len(corpus))
+    rows = torch.from_numpy(rows_np).cuda()
+    nv = torch.from_numpy(nv_np).cuda()
+    matches = lz77.find_matches(rows, nv, N=N, S=bp._S, J=bp._J)
+    args, kw = (rows, matches, nv), dict(N=N, SEG_SIZE=1024)
+    err, _got, plain_ms = hold_select_tokens(
+        args, kw, "the parallel dynamic dispatch (16 x 32 KiB, SEG 1024)",
+        card)
+    ms = cuda_ms(lambda: lz77.select_tokens(*args, **kw))
+    records["select_tokens"]["max_abs_err"] = max(
+        records["select_tokens"]["max_abs_err"], err)
+    print(f"kernel select_tokens, parallel dispatch: {ms:.4f} ms (median of "
+          f"20), plain {plain_ms:.2f} ms (one run) {card}")
+
+    tm = lz77.find_matches(rows, nv, N=N, S=bp._S, J=bp._J, reset=4096,
+                           two_phase=True)
+    pv, slen = dp.select_inputs(rows, tm, nv, N)
+    toks, cnt = tk.select_turbo(pv, slen)
+    torch.cuda.synchronize()
+    toks_p, cnt_p = tk.select_turbo_plain(pv, slen)
+    assert torch.equal(toks, toks_p) and torch.equal(cnt, cnt_p), \
+        "select_turbo != plain on the parallel turbo dispatch"
+    err = max(max_abs_err(toks, toks_p), max_abs_err(cnt, cnt_p))
+    records["select_turbo"]["max_abs_err"] = max(
+        records["select_turbo"]["max_abs_err"], err)
+    print(f"kernel select_turbo, parallel turbo dispatch {list(pv.shape)}: "
+          f"exact vs plain (max_abs_err {err}), "
+          f"{cuda_ms(lambda: tk.select_turbo(pv, slen)):.4f} ms (median of "
+          f"20) {card}")
+    tv, td, cnt = dp.select_glue(rows, tm, nv, N, lazy=True)
+    _ls, _ds, valid, llf, dfq = token_symbols(tv, td, cnt, nseg=N // 512)
+    from zlibes_tpu_torch.ops.entropy import limited_lengths_pair
+
+    ll_len, d_len = (x.long().cpu().numpy() for x in limited_lengths_pair(
+        llf.sum(0), dfq.sum(0), 9))
+    ll_code, d_code = dp._encode_tables(ll_len, d_len)
+    lt, dt = (t.cuda() for t in ek.pack_tables(ll_code, ll_len, d_code,
+                                               d_len))
+    fargs = (tv.reshape(-1), td.reshape(-1), valid.int().reshape(-1), lt, dt)
+    val, nb = ek.encode_fields(*fargs)
+    torch.cuda.synchronize()
+    val_p, nb_p = ek.encode_fields_plain(*fargs)
+    assert torch.equal(val, val_p) and torch.equal(nb, nb_p), \
+        "encode_fields != plain on the parallel turbo dispatch"
+    err = max(max_abs_err(val, val_p), max_abs_err(nb, nb_p))
+    records["encode_fields"]["max_abs_err"] = max(
+        records["encode_fields"]["max_abs_err"], err)
+    print(f"kernel encode_fields, parallel turbo dispatch ({val.numel()} "
+          f"tokens): exact vs plain (max_abs_err {err}), "
+          f"{cuda_ms(lambda: ek.encode_fields(*fargs)):.4f} ms (median of 20)"
+          f" {card}")
+
+    payloads, zdict = batch_payloads(corpus)
+    P_CAP = 4096
+    brows = np.zeros((pb.ROWS_PER_DISPATCH, P_CAP + 8), np.uint8)
+    bnv = np.zeros(pb.ROWS_PER_DISPATCH, np.int32)
+    for k, p in enumerate(payloads[: pb.ROWS_PER_DISPATCH]):
+        brows[k, : len(p)] = np.frombuffer(p, np.uint8)
+        bnv[k] = len(p)
+    data = torch.cat([torch.from_numpy(np.frombuffer(zdict, np.uint8).copy())
+                      [None, :].expand(len(bnv), -1),
+                      torch.from_numpy(brows)], 1).cuda()
+    nv_full = torch.from_numpy(bnv).cuda() + 32768
+    ctx = torch.zeros(len(bnv), dtype=torch.int32, device="cuda")
+    bm = lz77.find_matches(data, nv_full, N=32768 + P_CAP, S=8, J=8,
+                           ctx_start=ctx)
+    err, _got, plain_ms = hold_select_tokens(
+        (data, bm, nv_full), dict(N=32768 + P_CAP, SEG_SIZE=1024,
+                                  start=32768),
+        "the dictionary batch's first 64 rows (behind 32 KiB)", card)
+    records["select_tokens"]["max_abs_err"] = max(
+        records["select_tokens"]["max_abs_err"], err)
+
+
+def parallel_streams(corpus: bytes) -> dict:
+    """The streams the parallel phase decodes, with their indexes: the
+    committed turbo and wide fixtures and the generic phase's CPython
+    stream with a full flush every 32 KiB (``build_index``)."""
+    import zlibes_tpu_torch
+    from test_torch_contract_cases import zlib_flushed
+    from zlibes_tpu_torch import StreamIndex
+
+    flush = zlib_flushed(corpus, 32768)
+    return dict(
+        turbo=((GOLDEN / "turbo_bench.zz").read_bytes(),
+               StreamIndex.load(GOLDEN / "turbo_bench.idx.npz")),
+        wide=((GOLDEN / "wide_bench.zz").read_bytes(),
+              StreamIndex.load(GOLDEN / "wide_bench.idx.npz")),
+        generic=(flush, zlibes_tpu_torch.build_index(flush)))
+
+
+def parallel_calls(corpus: bytes, streams: dict, mesh) -> list:
+    """The parallel phase's calls on ``mesh``: (name, call, check, the
+    kernels the call must launch)."""
+    from torch_parallel_worker import index_sha256
+    from zlibes_tpu_torch import parallel as P
+
+    fixture = json.loads((GOLDEN / "parallel_bench.json").read_text())
+    ref = fixture["corpus"]
+    assert ref["bytes_in"] == len(corpus)
+    turbo, t_index = streams["turbo"]
+    wide, w_index = streams["wide"]
+    flush, g_index = streams["generic"]
+    payloads, zdict = batch_payloads(corpus)
+
+    def held(mode):
+        def check(res):
+            comp, index = res if isinstance(res, tuple) else (res, None)
+            want = ref[mode]
+            assert len(comp) == want["length"], (mode, len(comp))
+            assert hashlib.sha256(comp).hexdigest() == want["sha256"], mode
+            assert zlib.decompress(comp) == corpus
+            if index is not None:
+                assert index_sha256(index) == want["index"]["sha256"]
+                assert index.max_tokens == want["index"]["max_tokens"]
+        return check
+
+    def back(res):
+        assert res == corpus
+
+    def batch_ok(members):
+        assert len(members) == len(payloads)
+        for m, p in zip(members, payloads):
+            assert zlib.decompressobj(zdict=zdict).decompress(m) == p
+        assert P.decompress_batch(members, zdict, device="cuda") == payloads
+
+    state = {}
+
+    def turbo_write():
+        state["turbo"] = P.parallel_deflate(corpus, mesh, turbo=True,
+                                            with_index=True)
+        return state["turbo"]
+
+    sel = ("select_tokens",)
+    turbo_in = ("decode_turbo", "resolve_turbo")
+    return [
+        ("parallel_deflate dynamic", lambda: P.parallel_deflate(corpus, mesh),
+         held("dynamic"), sel),
+        ("parallel_deflate fixed",
+         lambda: P.parallel_deflate(corpus, mesh, dynamic=False),
+         held("fixed"), sel),
+        ("parallel_deflate turbo", turbo_write, held("turbo"),
+         ("select_turbo", "encode_fields")),
+        ("parallel_inflate turbo_bench",
+         lambda: P.parallel_inflate(turbo, t_index, mesh), back, turbo_in),
+        ("parallel_inflate wide_bench",
+         lambda: P.parallel_inflate(wide, w_index, mesh), back,
+         ("decode_wide", "resolve_wide")),
+        ("parallel_inflate generic (32 KiB flushes)",
+         lambda: P.parallel_inflate(flush, g_index, mesh), back,
+         ("decode_tokens", "resolve_global")),
+        ("parallel_inflate of the turbo stream just written",
+         lambda: P.parallel_inflate(*state["turbo"], mesh), back, turbo_in),
+        ("compress_batch (256 payloads, 32 KiB dictionary)",
+         lambda: P.compress_batch(payloads, zdict, mesh=mesh), batch_ok, sel),
+    ]
+
+
+def single_device_calls(corpus: bytes, streams: dict) -> dict:
+    """The single-device call beside each parallel one: the same stream's
+    (or, for the shared-table dynamic and fixed encodes, which no
+    single-device call writes, level 6's) through the public entry
+    points; for the batch, ``compress_batch`` without a process group."""
+    import zlibes_tpu_torch
+    from zlibes_tpu_torch import CodecConfig
+    from zlibes_tpu_torch import parallel as P
+
+    turbo, t_index = streams["turbo"]
+    wide, w_index = streams["wide"]
+    flush, g_index = streams["generic"]
+    payloads, zdict = batch_payloads(corpus)
+    level6 = ("deflate(level=6)", lambda: zlibes_tpu_torch.deflate(
+        corpus, level=6, device="cuda"))
+    return {
+        "parallel_deflate dynamic": level6,
+        "parallel_deflate fixed": level6,
+        "parallel_deflate turbo": ("deflate(config=turbo)",
+                                   lambda: zlibes_tpu_torch.deflate(
+                                       corpus, config=CodecConfig.turbo(),
+                                       device="cuda")),
+        "parallel_inflate turbo_bench": (
+            "inflate(index=)", lambda: zlibes_tpu_torch.inflate(
+                turbo, index=t_index, device="cuda")),
+        "parallel_inflate wide_bench": (
+            "inflate(index=)", lambda: zlibes_tpu_torch.inflate(
+                wide, index=w_index, device="cuda")),
+        "parallel_inflate generic (32 KiB flushes)": (
+            "inflate_to_device", lambda: zlibes_tpu_torch.inflate_to_device(
+                flush, g_index, device="cuda")[0][0].cpu()),
+        "compress_batch (256 payloads, 32 KiB dictionary)": (
+            "compress_batch(mesh=None)", lambda: P.compress_batch(
+                payloads, zdict, device="cuda")),
+    }
+
+
+def parallel_phase(corpus: bytes, card: str, records: dict) -> dict:
+    """Block parallelism through ``zlibes_tpu_torch.parallel`` on the full
+    corpus: (a) a NCCL world of one on the card: the three encodes of
+    ``tests/golden/parallel_bench.json`` (the reference's lengths and
+    SHA-256), the three inflates of the earlier phases' streams and of the
+    turbo stream just written, and the dictionary batch, each with its
+    launches (counts zeroed just before the call and read just after), its
+    whole-call time beside the single-device call's, its phases and its
+    peak device memory; the encode kernels at the parallel path's shapes
+    against their plain versions; (b) a gloo world of two ranks on the one
+    card (two processes: NCCL refuses two ranks on one device), which must
+    write the same bytes and raise CorruptError on every rank for a
+    corrupted turbo stream.  Returns {kernel: {call: launches}}."""
+    import torch.distributed as dist
+    from zlibes_tpu_torch import parallel as P
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    hold_parallel_kernels(corpus, records, card)
+    per_kernel: dict = {}
+    digests = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = P.make_mesh(device="cuda")
+        assert mesh.group is not None and dist.get_backend() == "nccl"
+        streams = parallel_streams(corpus)
+        singles = single_device_calls(corpus, streams)
+        for name, call, check, kernels in parallel_calls(corpus, streams,
+                                                         mesh):
+            tk.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = call()
+            torch.cuda.synchronize()
+            launches = dict(tk.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            check(res)
+            comp = res[0] if isinstance(res, tuple) else res
+            if isinstance(comp, bytes):
+                digests[name] = hashlib.sha256(comp).hexdigest()
+            for k, n in launches.items():
+                per_kernel.setdefault(k, {})[name] = n
+            P.LAST_TIMINGS.clear()
+            call_s = wall_s(call)
+            phases = {k: (v / 5 * 1e3 if k != "dispatches" else v / 5)
+                      for k, v in P.LAST_TIMINGS.items()}
+            line = (f"parallel (NCCL world of 1) {name}: launches "
+                    f"{launches}; whole call {call_s * 1e3:.2f} ms (median of"
+                    f" 5); phases a call (ms, mean of 5): " + ", ".join(
+                        f"{k} {v:.2f}" for k, v in phases.items())
+                    + f"; peak device memory {peak / 2**20:.1f} MiB")
+            if name in singles:
+                what, single = singles[name]
+                line += (f"; beside it {what} {wall_s(single) * 1e3:.2f} ms "
+                         f"(median of 5)")
+            print(line + f" {card}")
+            trace = profile_pipeline(call, card, runs=2,
+                                     quiet=not name.startswith(
+                                         "parallel_deflate"))
+            if trace:
+                print(f"parallel {name}: device busy {trace.busy:.4f} of "
+                      f"{call_s * 1e3:.2f} ms per untraced call -> idle "
+                      f"share {1 - trace.busy / (call_s * 1e3):.3f} {card}")
+            for k in kernels:
+                assert launches.get(k), f"{name} launched no {k}"
+    finally:
+        dist.destroy_process_group()
+    parallel_world_of_two(digests, card)
+    return per_kernel
+
+
+def parallel_world_of_two(digests: dict, card: str) -> None:
+    """Two ranks of ``chip_smoke.py --parallel-rank`` in a gloo world on the
+    one card, both on ``cuda:0``: their bytes must be the world of one's,
+    and a corrupted turbo stream must raise CorruptError on both."""
+    import tempfile
+
+    addr = f"127.0.0.1:{_free_port()}"
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+             str(r), addr, out], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, env=env) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PARALLEL_RANK_TIMEOUT)[0]
+                            .decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+        ranks = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for name, sha in res["sha256"].items():
+            assert sha == digests[name], (r, name)
+        assert res["corrupt"]["raised"] == "CorruptError", (r, res)
+        print(f"parallel (gloo world of 2 on one card) rank {r} on "
+              f"{res['device']}: bytes equal the world of one's "
+              f"({', '.join(res['sha256'])}); whole call ms (one run after "
+              f"one warm-up): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in res["ms"].items())
+              + f"; corrupted turbo stream: CorruptError in "
+              f"{res['corrupt']['s']:.2f} s (own fault: "
+              f"{res['corrupt']['own']}); launches "
+              f"{res['launches']} {card}")
+    assert sorted(r["corrupt"]["own"] for r in ranks) == [False, True]
+    print(f"parallel world of 2: {wall:.1f} s wall for both processes, "
+          f"start to exit {card}")
+
+
+def parallel_rank(rank: int, addr: str, out: str) -> None:
+    """One rank of ``parallel_world_of_two``: gloo, kernels on ``cuda:0``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parallel_worker import corrupt_payload
+    from zlibes_tpu_torch import CorruptError
+    from zlibes_tpu_torch import parallel as P
+    from zlibes_tpu_torch.bench_corpus import bench_data
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{addr}", rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=PARALLEL_RANK_TIMEOUT // 2))
+    mesh = P.make_mesh(device="cuda")
+    assert mesh.device == torch.device("cuda", 0) and mesh.size == 2
+    corpus = bench_data()
+    streams = parallel_streams(corpus)
+    turbo, t_index = streams["turbo"]
+    wide, w_index = streams["wide"]
+    calls = {
+        "parallel_deflate dynamic": lambda: P.parallel_deflate(corpus, mesh),
+        "parallel_deflate turbo": lambda: P.parallel_deflate(
+            corpus, mesh, turbo=True, with_index=True),
+        "parallel_inflate turbo_bench": lambda: P.parallel_inflate(
+            turbo, t_index, mesh),
+        "parallel_inflate wide_bench": lambda: P.parallel_inflate(
+            wide, w_index, mesh),
+    }
+    res = dict(device=str(mesh.device), sha256={}, ms={}, launches={})
+    for name, call in calls.items():
+        call()
+        tk.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        res["ms"][name] = (time.perf_counter() - t0) * 1e3
+        res["launches"][name] = dict(tk.LAUNCHES)
+        got = got[0] if isinstance(got, tuple) else got
+        if name.startswith("parallel_inflate"):
+            assert got == corpus, name
+        res["sha256"][name] = hashlib.sha256(got).hexdigest()
+    bad = corrupt_payload(turbo, t_index)
+    t0 = time.perf_counter()
+    try:
+        P.parallel_inflate(bad, t_index, mesh)
+        res["corrupt"] = dict(raised=None)
+    except CorruptError as exc:
+        res["corrupt"] = dict(raised="CorruptError",
+                              own=exc.__cause__ is not None)
+    res["corrupt"]["s"] = time.perf_counter() - t0
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def main() -> None:
@@ -1816,7 +2275,7 @@ def main() -> None:
           f"{n / zlib_s / 1e9:.3f} GB/s, median of 5 (host CPU beside {card})")
     device_ms = profile_pipeline(device_pipeline, card)
     if device_ms:
-        busy = sum(device_ms.values())
+        busy = device_ms.busy
         print(f"untraced device pipeline: device busy {busy:.4f} of "
               f"{pipe_ms:.4f} ms -> idle share {1 - busy / pipe_ms:.3f} "
               f"(host launch-bound where high) {card}")
@@ -1860,10 +2319,10 @@ def main() -> None:
     generic_launches, _ = generic_phase(corpus, card, records)
     for name in ("decode_tokens", "resolve_global"):
         launches[name] = generic_launches[name]
+    par_launches = parallel_phase(corpus, card, records)
 
     st = records["select_tokens"]
-    turbo_ms = device_time(enc_device_ms, "select_turbo",
-                           enc_launches["select_turbo"])
+    turbo_ms = device_time(enc_device_ms, "select_turbo")
     print(f"select_tokens device a launch: bench dispatch "
           f"{st['device_ms']:.4f} ms, incompressible dispatch "
           f"{st['the incompressible dispatch']['device_ms']:.4f} ms; beside "
@@ -1873,10 +2332,6 @@ def main() -> None:
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
     assert not loaded, f"the port pulled in {loaded}"
-
-    # the traced deflate() call launches each encode kernel once a dispatch
-    per_call = {name: enc_launches[name] for name in
-                ("select_turbo", "encode_fields")}
 
     wide = ("decode_wide", "resolve_wide")
     encode = ("select_turbo", "select_tokens", "encode_fields")
@@ -1896,7 +2351,8 @@ def main() -> None:
             "bytes": r["bytes"], "ops": r["ops"],
             "device_ms": r["device_ms"] if "device_ms" in r else device_time(
                 {"wide": wide_device_ms, "encode": enc_device_ms}.get(
-                    group, device_ms), name, per_call.get(name, 1))})
+                    group, device_ms), name),
+            "parallel_launches": par_launches.get(name, {})})
         entries[-1].update({k: r[k] for k in (
             "wide_ms", "wide_plain_ms", "wide_device_ms", "wide_bound_ms",
             "tokens", "longest_lane_tokens", "mean_lane_tokens",
@@ -1913,4 +2369,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

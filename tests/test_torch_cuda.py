@@ -1114,3 +1114,82 @@ def test_resolve_global_kernel_gives_the_span_cases(case):
     assert torch.equal(got.cpu(), out)
     assert open_.numel() == ik.resolve_rounds(args[4]) + 1
     assert int(open_[-1]) == 0
+
+
+# ---------------------------------------------------------------------------
+# block parallelism (zlibes_tpu_torch.parallel) at world 1, on the card
+
+RAW = (GOLDEN / "raw.bin").read_bytes()
+
+
+def _parallel_modes():
+    return {"dynamic": dict(block_size=16384),
+            "fixed": dict(block_size=16384, dynamic=False),
+            "turbo": dict(block_size=16384, turbo=True, with_index=True)}
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "fixed", "turbo"])
+def test_parallel_deflate_on_card_equals_cpu(mode):
+    """parallel_deflate on a card mesh of one writes the CPU mesh's bytes
+    and index, and parallel_inflate on the card gives the input back."""
+    from zlibes_tpu_torch import parallel as P
+
+    data = RAW[:131072]
+    kw = _parallel_modes()[mode]
+    cuda, cpu = P.make_mesh(1, device="cuda"), P.make_mesh(1, device="cpu")
+    got = P.parallel_deflate(data, cuda, **kw)
+    want = P.parallel_deflate(data, cpu, **kw)
+    if mode == "turbo":
+        assert got[0] == want[0] and got[1].blocks == want[1].blocks
+        for f in ("anchor_bit", "anchor_out", "anchor_block"):
+            assert np.array_equal(getattr(got[1], f), getattr(want[1], f))
+        assert P.parallel_inflate(*got, cuda) == data
+    else:
+        assert got == want and zlib.decompress(got) == data
+
+
+def test_parallel_inflate_on_card_equals_cpu():
+    """The wide and generic paths of parallel_inflate on the card."""
+    from zlibes_tpu_torch import parallel as P
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.spec import refmodel as rm
+
+    data = RAW[:98304]
+    wide, w_index = tdp.deflate(data, with_index=True, level=1,
+                                block_size=16384, device="cpu")
+    gen, g_index = rm.deflate(data[:40000], block_size=8192, with_index=True,
+                              anchor_every=1024)
+    cuda, cpu = P.make_mesh(1, device="cuda"), P.make_mesh(1, device="cpu")
+    tk.LAUNCHES.clear()
+    assert P.parallel_inflate(wide, w_index, cuda) == data
+    assert P.parallel_inflate(gen, g_index, cuda) == data[:40000]
+    assert {k: tk.LAUNCHES[k] for k in ("decode_wide", "resolve_wide",
+                                        "decode_tokens", "resolve_global")} \
+        == dict(decode_wide=1, resolve_wide=1, decode_tokens=1,
+                resolve_global=1)
+    assert P.parallel_inflate(wide, w_index, cpu) == data
+
+
+def test_parallel_turbo_round_trip_on_card_never_takes_plain(monkeypatch):
+    """The parallel turbo encode and inflate with every plain version they
+    could reach patched to raise: the kernels carry the path."""
+    from zlibes_tpu_torch import parallel as P
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((tk, "select_turbo_plain"), (ek, "encode_fields_plain"),
+                      (tk, "decode_turbo_plain"), (tk, "resolve_turbo_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    data = RAW[:131072]
+    mesh = P.make_mesh(1, device="cuda")
+    tk.LAUNCHES.clear()
+    comp, index = P.parallel_deflate(data, mesh, block_size=16384,
+                                     turbo=True, with_index=True)
+    assert zlib.decompress(comp) == data
+    assert P.parallel_inflate(comp, index, mesh) == data
+    assert {k: tk.LAUNCHES[k] for k in ("select_turbo", "encode_fields",
+                                        "decode_turbo", "resolve_turbo")} \
+        == dict(select_turbo=1, encode_fields=1, decode_turbo=1,
+                resolve_turbo=1)

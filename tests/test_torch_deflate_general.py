@@ -415,6 +415,47 @@ def test_shared_tables_outside_turbo_names_what_is_missing():
         zlibes_tpu_torch.deflate(b"some bytes", config=cfg, device="cpu")
 
 
+def _skewed_data(seed: int = 0, n: int = 65536) -> bytes:
+    """16 literals at 0.9 (the other 240 at 0.1) and 200-257-byte copies
+    from more than 16 KiB back: long codes and far matches, which take a
+    coded token past 32 bits."""
+    rng = np.random.default_rng(seed)
+    common = rng.choice(256, 16, replace=False)
+    rare = np.setdiff1d(np.arange(256), common)
+    out = np.empty(n, np.uint8)
+    pick = rng.random(n) < 0.9
+    out[pick] = rng.choice(common, pick.sum())
+    out[~pick] = rng.choice(rare, (~pick).sum())
+    pos = 20000
+    while pos < n - 300:
+        ln = int(rng.integers(200, 258))
+        src = pos - int(rng.integers(16385, 20000))
+        out[pos : pos + ln] = out[src : src + ln]
+        pos += ln + int(rng.integers(200, 1500))
+    return out.tobytes()
+
+
+def test_shared_tables_outside_turbo_is_refused_where_reference_is_wrong():
+    """A shared-tables config outside the turbo profile: the reference packs
+    its tokens with the 32-bit turbo pack and writes a stream CPython
+    rejects; the port refuses the config; the turbo profile round-trips on
+    the same bytes."""
+    import zlibes_tpu
+
+    data = _skewed_data()
+    cfg = dict(seg_size=512, shared_tables=True)
+    with pytest.raises(NotImplementedError, match="fields above 32 bits"):
+        zlibes_tpu_torch.deflate(data, config=zlibes_tpu_torch.CodecConfig(
+            **cfg), block_size=32768, device="cpu")
+    wrong = zlibes_tpu.deflate(data, config=JaxCodecConfig(**cfg),
+                               block_size=32768)
+    with pytest.raises(zlib.error, match="incorrect data check"):
+        zlib.decompress(wrong)
+    out = zlibes_tpu_torch.deflate(data, config=zlibes_tpu_torch.CodecConfig
+                                   .turbo(), block_size=32768, device="cpu")
+    assert zlib.decompress(out) == data
+
+
 def test_dispatches_do_not_change_the_bytes():
     """Two, three and sixteen blocks a dispatch (the last dispatch ragged or
     padded) give one stream and one index."""

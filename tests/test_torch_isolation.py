@@ -89,6 +89,27 @@ for name in ("zlibes_tpu_torch.ops.inflate_kernel",
 from zlibes_tpu_torch.runtime import native
 if native.available():
     assert zt.inflate(zlib.compress(data, 6), device="cpu") == data
+# block parallelism at world 1 (no process group): both encodes, the three
+# inflates, the dictionary batch and the multi-host helpers
+from zlibes_tpu_torch import parallel as P
+mesh = P.make_mesh(1, device="cpu")
+pcomp, pindex = P.parallel_deflate(data, mesh, block_size=4096, turbo=True,
+                                   with_index=True)
+assert zlib.decompress(pcomp) == data
+assert P.parallel_inflate(pcomp, pindex, mesh) == data
+assert P.parallel_inflate(wide, windex, mesh) == data
+assert P.parallel_inflate(host, hindex, mesh) == data
+assert zlib.decompress(P.parallel_deflate(data, mesh, block_size=4096,
+                                          dynamic=False)) == data
+members = P.compress_batch([data[:300], data[300:900]], data[-2000:],
+                           device="cpu")
+assert P.decompress_batch(members, data[-2000:],
+                          device="cpu") == [data[:300], data[300:900]]
+assert P.multihost.host_shard(4) == (0, 4)
+for name in ("zlibes_tpu_torch.parallel.block_parallel",
+             "zlibes_tpu_torch.parallel.batch",
+             "zlibes_tpu_torch.parallel.multihost"):
+    assert name in names, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
 assert not bad, bad
@@ -133,7 +154,8 @@ def test_import_pattern_catches_what_it_should():
 
 @pytest.mark.parametrize("path", ["tests/test_torch_cuda.py",
                                   "tests/test_torch_fixed_streams.py",
-                                  "tests/test_torch_contract_cases.py"])
+                                  "tests/test_torch_contract_cases.py",
+                                  "tests/torch_parallel_worker.py"])
 def test_card_tests_import_neither_jax_nor_reference_package(path):
     assert not _IMPORT.search((ROOT / path).read_text())
 

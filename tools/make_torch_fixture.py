@@ -5,27 +5,91 @@ that runs it on a GPU has no JAX, so the bench-sized streams its decoder is
 measured on are made here, once, by the JAX package's encoder on the CPU
 backend:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--parallel]
 
 Writes, from the bench corpus:
 
   * ``tests/golden/turbo_bench.{zz,idx.npz}`` — ``CodecConfig.turbo()``;
   * ``tests/golden/wide_bench.{zz,idx.npz}`` — ``CodecConfig.from_level(6)``
-    (zlib's default level: the default-profile stream with wide anchors).
+    (zlib's default level: the default-profile stream with wide anchors);
+  * ``tests/golden/parallel_bench.json`` — the length and SHA-256 of what
+    the JAX package's ``parallel_deflate`` writes on an 8-device CPU mesh
+    in three modes (dynamic, ``dynamic=False``, ``turbo=True,
+    with_index=True``, each at its default ``block_size``) for the whole
+    corpus, and at ``block_size=16384`` for the first 131,072 bytes of
+    ``tests/golden/raw.bin``, with the SHA-256 of the turbo index's arrays
+    (``tests/torch_parallel_worker.py: index_sha256``).  ``--parallel``
+    writes this file alone (~40 s).
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import sys
 import zlib as pyzlib
 from pathlib import Path
 
+# the reference's parallel_deflate runs on an 8-device virtual CPU mesh (as
+# in tests/conftest.py); XLA reads the flag once, before its first client
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS",
+                                                                ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_force_host_platform_device_count=8")
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
 from tools.make_bench_fixture import bench_data  # noqa: E402
+from torch_parallel_worker import (  # noqa: E402
+    PREFIX, PREFIX_MODES, RAW, index_sha256)
+
+# the full-corpus modes of parallel_bench.json: parallel_deflate's defaults
+# (block_size 32768) but for the mode's own arguments
+FULL_MODES = {
+    "dynamic": {},
+    "fixed": dict(dynamic=False),
+    "turbo": dict(turbo=True, with_index=True),
+}
+
+
+def parallel_digests() -> dict:
+    """What the reference's parallel_deflate writes, mode by mode."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from zlibes_tpu.parallel import make_mesh, parallel_deflate
+
+    mesh = make_mesh(8)
+    assert mesh.devices.size == 8
+    out = {"mesh": 8}
+    for what, data, modes in (("corpus", bench_data(), FULL_MODES),
+                              ("prefix", RAW[:PREFIX], PREFIX_MODES)):
+        entry = {"bytes_in": len(data)}
+        for mode, kw in modes.items():
+            res = parallel_deflate(data, mesh, **kw)
+            comp, index = res if isinstance(res, tuple) else (res, None)
+            assert pyzlib.decompress(comp) == data
+            rec = dict(args=kw, length=len(comp),
+                       sha256=hashlib.sha256(comp).hexdigest())
+            if index is not None:
+                rec["index"] = dict(
+                    sha256=index_sha256(index), blocks=len(index.blocks),
+                    anchors=int(index.anchor_bit.size),
+                    max_tokens=int(index.max_tokens))
+            entry[mode] = rec
+            print(f"parallel_deflate {what} {mode}: {len(data)} B -> "
+                  f"{len(comp)} B")
+        out[what] = entry
+    return out
 
 
 def main() -> None:
+    path = ROOT / "tests" / "golden" / "parallel_bench.json"
+    path.write_text(json.dumps(parallel_digests(), indent=1) + "\n")
+    if "--parallel" in sys.argv[1:]:
+        return
     from zlibes_tpu.codec import deflate_pipeline as dp
     from zlibes_tpu.config import CodecConfig
 

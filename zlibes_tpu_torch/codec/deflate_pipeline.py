@@ -67,7 +67,7 @@ from ..spec.refmodel import (
 )
 
 from ..ops import turbo_kernel as tk
-from ..ops.adler32 import adler32_device
+from ..ops.adler32 import adler32_device, adler_partials, adler_value
 from ..ops.deflate_kernel import (
     gather_compressed,
     pack_payload,
@@ -209,9 +209,10 @@ def _or_bits(buf: np.ndarray, bit_off: int, value: int, nbits: int) -> None:
 # ---------------------------------------------------------------------------
 # device stages of one dispatch
 
-def adler_terms(dev_bytes: torch.Tensor, n_valid: torch.Tensor):
-    """Per-2048-byte-chunk Adler-32 partial sums of the block rows:
-    A = sum d_j mod m, B = sum j*d_j mod m -> (A, B) (Bp * N/2048,) int64.
+def adler_terms(dev_bytes: torch.Tensor, n_valid: torch.Tensor,
+                chunk: int = _ADLER_CHUNK):
+    """Per-``chunk``-byte Adler-32 partial sums of the block rows:
+    A = sum d_j mod m, B = sum j*d_j mod m -> (A, B) (Bp * N/chunk,) int64.
     The host combines them (the s2 term of a chunk at offset o is
     (n - o)*A - B), so the trailer needs no pass of its own."""
     Bp, Npad = dev_bytes.shape
@@ -219,8 +220,8 @@ def adler_terms(dev_bytes: torch.Tensor, n_valid: torch.Tensor):
     d = dev_bytes[:, :N].long()
     pos = torch.arange(N, device=d.device)
     d = torch.where(pos[None, :] < n_valid.long()[:, None], d, 0)
-    dd = d.reshape(Bp, N // _ADLER_CHUNK, _ADLER_CHUNK)
-    jj = torch.arange(_ADLER_CHUNK, device=d.device)
+    dd = d.reshape(Bp, N // chunk, chunk)
+    jj = torch.arange(chunk, device=d.device)
     return (dd.sum(2) % _M).reshape(-1), ((dd * jj).sum(2) % _M).reshape(-1)
 
 
@@ -346,9 +347,10 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         b_c = h[-nt:]
         offs = ((np.arange(nt, dtype=np.int64) // nchunks + d0) * N
                 + (np.arange(nt, dtype=np.int64) % nchunks) * _ADLER_CHUNK)
-        s1_sum += int(a_c.sum())
-        s2_sum += int((((n - offs) % _M) * a_c - b_c).sum())
-    stats.adler = (((n + s2_sum) % _M) << 16) | ((1 + s1_sum) % _M)
+        s1, s2 = adler_partials(a_c, b_c, offs, n)
+        s1_sum += int(s1)
+        s2_sum += int(s2)
+    stats.adler = adler_value(s1_sum, s2_sum, n)
 
     # --- host side of the entropy stage: header bits and canonical codes
     with stats.timer("entropy"):

@@ -220,6 +220,15 @@ def inflate_raw_wide(data: bytes, index: StreamIndex,
     """
     plan = WidePlan.build(data, index, device)
     rows = run_wide(plan, check=check) if plan.coded else None
+    return wide_output(plan, rows, data)
+
+
+def wide_output(plan: WidePlan, rows: torch.Tensor | None,
+                data: bytes) -> torch.Tensor:
+    """The stream's output on the plan's device from the coded blocks' rows
+    (``run_wide``'s, or None without coded blocks): the rows flattened when
+    they tile the output, else the rows and the stored blocks' payloads
+    spliced into one tensor."""
     if plan.contiguous:
         return rows.reshape(-1)[: plan.total_out]
     out = torch.empty(plan.total_out, dtype=torch.uint8,

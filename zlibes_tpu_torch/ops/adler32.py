@@ -8,7 +8,11 @@ byte offset o with digits d_j (j local),
     s2 += (n - o) * sum(d_j) - sum(j * d_j)          (mod 65521)
 
 so the checksum is two reductions over (chunks, CHUNK) plus a combine over
-chunks, accumulated in int64.
+chunks, accumulated in int64.  The combine is a sum, so chunks held by
+different ranks combine by summing each rank's partials
+(``adler_partials``) and finishing once (``adler_value``): the shard
+combine of ``zlibes_tpu/parallel/block_parallel.py:88-110, 147-156``, whose
+int32-safe ``_modsum`` / ``_mulmod`` int64 makes unnecessary.
 """
 from __future__ import annotations
 
@@ -32,7 +36,24 @@ def adler32_device(data: torch.Tensor) -> torch.Tensor:
     b_c = (d * j).sum(1)                # < 255 * 4096^2 / 2 per chunk
     offs = torch.arange(a_c.numel(), dtype=torch.int64,
                         device=data.device) * _CHUNK
-    terms = ((n - offs) % ADLER_MOD) * (a_c % ADLER_MOD) - b_c % ADLER_MOD
-    s1 = (1 + a_c.sum()) % ADLER_MOD
-    s2 = (n + terms.sum()) % ADLER_MOD
-    return (s2 << 16) | s1
+    return adler_value(*adler_partials(a_c, b_c, offs, n), n)
+
+
+def adler_partials(a_c: torch.Tensor, b_c: torch.Tensor, offs: torch.Tensor,
+                   n_total) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s1, s2) partials, mod 65521, of chunks with digit sums ``a_c``,
+    weighted sums ``b_c`` (sum of j * d_j, j local) and first byte at
+    ``offs`` of an input of ``n_total`` bytes, summed over the last axis
+    (int64 tensors or numpy arrays; ``n_total`` an int or an array that
+    broadcasts).  Partials of disjoint chunks add up, mod 65521, to those
+    of their union."""
+    s1 = a_c.sum(-1) % ADLER_MOD
+    s2 = (((n_total - offs) % ADLER_MOD) * (a_c % ADLER_MOD)
+          - b_c % ADLER_MOD).sum(-1) % ADLER_MOD
+    return s1, s2
+
+
+def adler_value(s1p, s2p, n_total):
+    """The Adler-32 of ``n_total`` bytes from the (s1, s2) partials of all
+    its chunks (ints or int64 tensors)."""
+    return (((n_total + s2p) % ADLER_MOD) << 16) | ((1 + s1p) % ADLER_MOD)

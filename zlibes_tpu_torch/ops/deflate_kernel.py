@@ -4,9 +4,10 @@ Counterpart of ``zlibes_tpu/ops/deflate_kernel.py``: symbols and per-block
 histograms of the selected tokens (``token_symbols``); the general
 encoder's payload pack under per-block tables into per-block word buffers
 (``pack_payload``) and the read of their used words
-(``gather_compressed``); and the turbo profile's pack straight into a
-compacted stream image (``pack_payload_turbo_dense``) around the
-``encode_fields`` kernel.
+(``gather_compressed``); and the turbo profile's pack around the
+``encode_fields`` kernel, straight into a compacted stream image
+(``pack_payload_turbo_dense``) or, for the block-parallel encoder, into
+per-block word buffers (``pack_payload_turbo``).
 
 Every array is in lane order: lane ``l`` of a dispatch is row ``l`` of an
 (L, T) array, segment ``l % nseg`` of block ``l // nseg``.  Coded words are
@@ -237,6 +238,34 @@ def pack_rows_turbo(tv, td, valid, lt, dt, hdr_bits, nseg: int, R: int):
     carry.scatter_(1, slot, torch.where(is_end, c1, 0))
     rows = main[:, :R] | torch.nn.functional.pad(carry[:, :R - 1], (1, 0))
     return rows, lane_tot, lane_bit0, payload_end, split_bit, split_out
+
+
+def pack_payload_turbo(tv, td, valid, lt, dt, hdr_bits, nseg: int, W: int,
+                       R: int):
+    """Turbo pack into per-block W-word buffers (``pack_payload_turbo``,
+    zlibes_tpu/ops/deflate_kernel.py:487), the block-parallel encoder's:
+    each lane's row of ``pack_rows_turbo`` added at its block's buffer from
+    the lane's first stream word (the one word two lanes share holds
+    disjoint bits of each, so adding is OR-ing), words past W dropped.
+
+    tv, td (L, T) int32 tokens, valid (L, T) bool, lt (288,) / dt (32,)
+    int32 packed tables, hdr_bits (B,) header bits per block, left free at
+    the front of its buffer.  Returns (words (B, W) int64 holding 32-bit
+    words, payload_end (B,), lane_bit0, split_bit, split_out (L,))."""
+    L = tv.shape[0]
+    B = L // nseg
+    dev = tv.device
+    rows, _tot, lane_bit0, payload_end, split_bit, split_out = \
+        pack_rows_turbo(tv, td, valid, lt, dt, hdr_bits, nseg, R)
+    blk1 = torch.arange(L, device=dev) // nseg
+    OOB = B * W
+    idx = (blk1 * W + (lane_bit0 >> 5))[:, None] \
+        + torch.arange(R, device=dev)[None, :]
+    idx = torch.where(idx < (blk1 * W + W)[:, None], idx, OOB)
+    words = torch.zeros(OOB + 1, dtype=torch.long, device=dev)
+    words.index_add_(0, idx.reshape(-1), rows.reshape(-1))
+    return (words[:OOB].reshape(B, W), payload_end, lane_bit0, split_bit,
+            split_out)
 
 
 def pack_payload_turbo_dense(tv, td, valid, lt, dt, hdr_bits, eob_len: int,

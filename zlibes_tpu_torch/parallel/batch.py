@@ -1,0 +1,175 @@
+"""Batch compression with a shared preset dictionary, over the mesh (the
+port of ``zlibes_tpu/parallel/batch.py``).
+
+Many small related payloads (documents, rows, RPC bodies), each its own
+zlib member that references one shared dictionary (RFC 1950 FDICT):
+
+  * payload rows split over the ranks, rank r the rows [r*Bd, (r+1)*Bd);
+  * every rank holds the dictionary's last 32 KiB, which every row's
+    matcher sees as a context prefix;
+  * match, select, pack (fixed Huffman) and each payload's Adler-32 run on
+    the rank's device, in dispatches of at most ``ROWS_PER_DISPATCH`` rows;
+    the host frames each member (FDICT header + trailer), and the members
+    are gathered to every rank.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..codec.deflate_pipeline import _encode_tables, _or_bits, adler_terms
+from ..ops.adler32 import adler_partials, adler_value
+from ..ops.deflate_kernel import pack_payload, token_symbols
+from ..ops.lz77 import find_matches, select_tokens
+from ..spec import constants as C
+from ..spec.refmodel import adler32 as adler32_host
+from .block_parallel import (
+    _FIXED_D_LEN,
+    _FIXED_LL_LEN,
+    Mesh,
+    _all_gather,
+    _fixed_tables,
+    _gather_ragged,
+    _phase,
+    _span,
+    make_mesh,
+)
+
+_DICT = C.WINDOW_SIZE  # context prefix size (dictionary tail)
+# payload rows a dispatch: bounds the matcher's device memory; the bytes do
+# not depend on it
+ROWS_PER_DISPATCH = 64
+
+
+def _batch_step(dict_row: torch.Tensor, dict_start: int, rows: torch.Tensor,
+                n_valid: torch.Tensor, P_CAP: int, SEG_SIZE: int, W: int):
+    """Fixed-Huffman encode of payload rows (B, P_CAP + 8) uint8 behind the
+    dictionary's tail ``dict_row`` (32 KiB, left-padded; ``dict_start`` its
+    first real byte, below which nothing is a match source), the
+    reference's ``_batch_step`` body (batch.py:38) -> (words (B, W),
+    payload_end (B,), adler (B,) each payload's Adler-32), on the rows'
+    device."""
+    B = rows.shape[0]
+    dev = rows.device
+    N = _DICT + P_CAP
+    nseg = P_CAP // SEG_SIZE
+    data = torch.cat([dict_row[None, :].expand(B, _DICT), rows], 1)
+    nv_full = n_valid + _DICT
+    ctx = torch.full((B,), dict_start, dtype=torch.int32, device=dev)
+    matches = find_matches(data, nv_full, N=N, S=8, J=8, ctx_start=ctx)
+    tv, td, cnt = select_tokens(data, matches, nv_full, N=N,
+                                SEG_SIZE=SEG_SIZE, start=_DICT)
+    lsym, dsym, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
+    tables = tuple(t.to(dev) for t in _fixed_tables(B))
+    hdr = torch.full((B,), 3, dtype=torch.long, device=dev)
+    en = torch.ones(B, dtype=torch.bool, device=dev)
+    words, payload_end, _b0 = pack_payload(tv, td, lsym, dsym, valid,
+                                           *tables, hdr, en, nseg=nseg, W=W)
+    # each payload is its own zlib member: per-row Adler-32
+    chunk = min(2048, P_CAP)
+    a_c, b_c = adler_terms(rows, n_valid, chunk)
+    offs = torch.arange(P_CAP // chunk, device=dev) * chunk
+    nv = n_valid.long()[:, None]
+    s1, s2 = adler_partials(a_c.reshape(B, -1), b_c.reshape(B, -1), offs, nv)
+    return words, payload_end, adler_value(s1, s2, nv[:, 0])
+
+
+def compress_batch(payloads: list[bytes], dictionary: bytes,
+                   mesh: Mesh | None = None, seg_size: int = 1024, *,
+                   device: torch.device | str = "cuda") -> list[bytes]:
+    """Compress many payloads against one shared dictionary -> one FDICT
+    zlib member a payload, on every rank of the mesh (a world of one on
+    ``device`` when ``mesh`` is None), each decodable with
+    ``inflate(member, dictionary=dictionary)`` or any zlib's
+    ``decompressobj(zdict=...)``.  Payloads are padded to one power-of-two
+    row and split over the ranks."""
+    if mesh is None:
+        mesh = make_mesh(1, device=device)
+    if not payloads:
+        return []
+    dev = mesh.device
+    dict_tail = np.zeros(_DICT, np.uint8)
+    dt = np.frombuffer(bytes(dictionary[-_DICT:]), np.uint8)
+    dict_tail[_DICT - dt.size :] = dt
+
+    pmax = max(len(p) for p in payloads)
+    P_CAP = max(seg_size, 1 << (max(pmax, 1) - 1).bit_length())
+    if P_CAP % seg_size:
+        raise ValueError("seg_size must divide the payload row size")
+    nb = len(payloads)
+    lo, hi, per = _span(nb, mesh)
+    W = (15 * P_CAP + 4096) // 32
+    handles = []
+    with _phase("host_stage"):
+        dict_row = torch.from_numpy(dict_tail).to(dev)
+    for r0 in range(lo, hi, ROWS_PER_DISPATCH):
+        r1 = min(hi, r0 + ROWS_PER_DISPATCH)
+        with _phase("host_stage"):
+            rows = np.zeros((r1 - r0, P_CAP + 8), np.uint8)
+            n_valid = np.zeros(r1 - r0, np.int32)
+            for k, p in enumerate(payloads[r0:r1]):
+                rows[k, : len(p)] = np.frombuffer(bytes(p), np.uint8)
+                n_valid[k] = len(p)
+        with _phase("dispatch"):
+            words, pe, adler = _batch_step(
+                dict_row, _DICT - dt.size, torch.from_numpy(rows).to(dev),
+                torch.from_numpy(n_valid).to(dev), P_CAP, seg_size, W)
+            w = torch.where(words >= 1 << 31, words - (1 << 32), words)
+            handles.append(torch.cat([pe.long(), adler.long(),
+                                      w.reshape(-1)]))
+    with _phase("readback"):
+        blob = (torch.cat(handles).cpu().numpy() if handles
+                else np.zeros(0, np.int64))
+
+    ll_code, _ = _encode_tables(_FIXED_LL_LEN, _FIXED_D_LEN)
+    eob_code = int(ll_code[C.END_OF_BLOCK])
+    eob_len = int(_FIXED_LL_LEN[C.END_OF_BLOCK])
+    dictid = adler32_host(dictionary).to_bytes(4, "big")
+    flg_base = 0x78 * 256 + 0x20 + (2 << 6)
+    flg = 0x20 + (2 << 6) + (31 - flg_base % 31) % 31
+    header = bytes([0x78, flg]) + dictid
+
+    own = []
+    with _phase("host_splice"):
+        pos = 0
+        for r0 in range(lo, hi, ROWS_PER_DISPATCH):
+            B = min(hi, r0 + ROWS_PER_DISPATCH) - r0
+            pe = blob[pos : pos + B]
+            adler_np = blob[pos + B : pos + 2 * B]
+            words_np = blob[pos + 2 * B : pos + 2 * B + B * W].astype(
+                np.int32).reshape(B, W)
+            pos += 2 * B + B * W
+            for i in range(B):
+                end_bits = int(pe[i])
+                nbytes = (end_bits + eob_len + 7) // 8
+                buf = words_np[i].view(np.uint8)[: nbytes + 4].copy()
+                buf[0] |= 1 | (C.BTYPE_FIXED << 1)  # BFINAL=1, fixed block
+                _or_bits(buf, end_bits, eob_code, eob_len)
+                body = buf[: (end_bits + eob_len + 7) // 8].tobytes()
+                own.append(header + body + int(adler_np[i]).to_bytes(4, "big"))
+
+    # members to every rank: their lengths, then their bytes
+    lens = np.zeros(per, np.int64)
+    lens[: len(own)] = [len(m) for m in own]
+    all_lens = [x.cpu().numpy() for x in
+                _all_gather(mesh, torch.from_numpy(lens))]
+    mine = torch.from_numpy(np.frombuffer(b"".join(own), np.uint8).copy())
+    parts = _gather_ragged(mesh, mine, [int(x.sum()) for x in all_lens])
+    members = []
+    for part, ls in zip(parts, all_lens):
+        blob = part.cpu().numpy().tobytes()
+        offs = np.concatenate([[0], np.cumsum(ls)])
+        members += [blob[offs[k] : offs[k + 1]] for k in range(ls.size)
+                    if ls[k]]
+    return members[:nb]
+
+
+def decompress_batch(members: list[bytes], dictionary: bytes, *,
+                     device: torch.device | str = "cuda") -> list[bytes]:
+    """Inverse of ``compress_batch``: each member through the port's
+    ``inflate(dictionary=)`` (the native runtime on the host when it is
+    there, else the scan on ``device``)."""
+    from ..codec import inflate_pipeline as ip
+
+    return [ip.inflate(m, dictionary=dictionary, device=device)
+            for m in members]
