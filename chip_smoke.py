@@ -49,7 +49,14 @@ For each path it holds every kernel against its plain PyTorch version at
 the path's shapes, runs the path through its public entry point on the
 card with the launch counts set to 0 just before and read just after,
 times the kernels and the pipeline with CUDA events and torch.profiler,
-and (inflate) probes corrupted streams.  ``resolve_wide`` is also held
+and (inflate) probes corrupted streams.  From the profiler trace of the
+turbo and the level-6 ``deflate()`` calls it reads the encoder's named
+stage spans (``zlibes.match``, ``zlibes.select``, ``zlibes.symbols`` and,
+turbo only, ``zlibes.pack``: ``zlibes_tpu_torch.config.trace``) and prints
+for each its count a call, the device ms a call of the work launched
+inside it and the device range the profiler annotates with its name; a
+call that enters another span, or an expected one other than once a
+dispatch, fails the run.  ``resolve_wide`` is also held
 against its plain version on rows of 32 KiB and of 256 KiB (the kernel's
 path for rows too long for shared memory), ``select_turbo`` on the
 corpus' second dispatch (padded lanes) with ``lazy`` on and off,
@@ -133,6 +140,10 @@ HBM_BYTES_PER_S = 3.35e12
 # numpy.random.default_rng seed of the incompressible encode (1 MiB)
 INCOMPRESSIBLE_SEED = 0
 OPS_PER_S = 67e12
+# the spans each encoder enters once a dispatch (tests/test_torch_trace.py)
+TURBO_SPANS = ("zlibes.match", "zlibes.select", "zlibes.symbols",
+               "zlibes.pack")
+GENERAL_SPANS = ("zlibes.match", "zlibes.select", "zlibes.symbols")
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -181,12 +192,51 @@ class Trace(dict):
     ``torch.profiler`` kept (it drops records late in a long run, so a sum
     divided by the calls would under-count); ``records``: name -> number of
     records; ``busy``: device-busy ms a traced call (the union of the
-    kernels' spans over the calls)."""
+    kernels' spans over the calls); ``spans``: the encoder's named stage
+    spans (``zlibes.*``, ``zlibes_tpu_torch.config.trace``), name ->
+    ``(count, device_ms, range_ms)`` a call: how often the host entered it,
+    the device time of the work launched inside it, and the device range
+    the profiler annotates with its name, gaps included (None when the
+    trace holds no such range)."""
 
-    def __init__(self, means: dict, records: dict, busy: float):
+    def __init__(self, means: dict, records: dict, busy: float,
+                 spans: dict):
         super().__init__(means)
         self.records = records
         self.busy = busy
+        self.spans = spans
+
+
+def is_span(e) -> bool:
+    """Whether a trace event is one of the encoder's named stage spans."""
+    return e.name.startswith("zlibes.")
+
+
+def stage_spans(events, runs: int) -> dict:
+    """Name -> (count, device ms, annotated device range ms), each a call,
+    of the ``zlibes.*`` spans among a trace's events.  A span's device ms
+    is the time of the device records (kernels, copies, fills) whose
+    runtime call (``cudaLaunchKernel``, ...) the host made inside it: the
+    profiler links a kernel launched through ``ctypes`` to no operator."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events
+            if is_span(e) and e.device_type == DeviceType.CPU]
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    work = [(launched[e.id], e.time_range.end - e.time_range.start)
+            for e in events if e.device_type == DeviceType.CUDA
+            and not is_span(e) and e.id in launched]
+    out = {}
+    for name in sorted({e.name for e in host}):
+        mine = [e.time_range for e in host if e.name == name]
+        dev = sum(us for t, us in work
+                  if any(r.start <= t <= r.end for r in mine))
+        ranges = [e.time_range.end - e.time_range.start for e in events
+                  if e.name == name and e.device_type == DeviceType.CUDA]
+        out[name] = (len(mine) / runs, dev / runs / 1e3,
+                     sum(ranges) / runs / 1e3 if ranges else None)
+    return out
 
 
 def profile_pipeline(fn, card: str, runs: int = 5,
@@ -206,11 +256,15 @@ def profile_pipeline(fn, card: str, runs: int = 5,
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    stages = stage_spans(events, runs)
+    # the device ranges of the stage spans are annotations, not kernels
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and not is_span(e)]
     if not kern:
         print("profiler: the trace holds no device activity; "
               "device times not measured")
-        return Trace({}, {}, 0.0)
+        return Trace({}, {}, 0.0, stages)
     per_name: dict[str, list[float]] = {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     for e in kern:
@@ -228,7 +282,7 @@ def profile_pipeline(fn, card: str, runs: int = 5,
     trace = Trace({name: statistics.fmean(us) / 1e3
                    for name, us in per_name.items()},
                   {name: len(us) for name, us in per_name.items()},
-                  busy / runs / 1e3)
+                  busy / runs / 1e3, stages)
     top = sorted(per_name, key=lambda k: -sum(per_name[k]))
     if quiet:
         print("profiler records (" + f"{runs} calls): " + ", ".join(
@@ -242,6 +296,23 @@ def profile_pipeline(fn, card: str, runs: int = 5,
         print(f"  device {trace[name]:.4f} ms a launch, mean of "
               f"{trace.records[name]} records  {name[:100]}")
     return trace
+
+
+def span_report(what: str, trace: Trace, names: tuple, dispatches: int,
+                card: str) -> None:
+    """Print each stage span's count and device ms a ``deflate()`` call of
+    a traced encode; fail unless the call entered each of ``names`` once a
+    dispatch and no other ``zlibes.*`` span."""
+    got = {name: count for name, (count, _, _) in trace.spans.items()}
+    want = {name: dispatches for name in names}
+    assert got == want, f"{what}: stage spans a call {got} != {want}"
+    for name in names:
+        count, dev, rng = trace.spans[name]
+        print(f"span {name} ({what}): {count:g} a deflate() call "
+              f"({dispatches} dispatches), device {dev:.4f} ms a call (the "
+              f"device work launched inside it), annotated device range "
+              + (f"{rng:.4f} ms" if rng is not None else "not in the trace")
+              + f" {card}")
 
 
 def kernel_event_ms(fn, name: str, runs: int = 10) -> tuple[float, int]:
@@ -873,6 +944,8 @@ def encode_phase(corpus: bytes, card: str,
     device_ms = profile_pipeline(
         lambda: zlibes_tpu_torch.deflate(corpus, config=cfg, device="cuda"),
         card, runs=2)
+    span_report("turbo encode", device_ms, TURBO_SPANS, stats.dispatches,
+                card)
     if device_ms:
         busy = device_ms.busy
         print(f"encode: device busy {busy:.4f} of {call_s * 1e3:.2f} ms per "
@@ -1189,6 +1262,8 @@ def general_phase(corpus: bytes, card: str,
     device_ms = profile_pipeline(
         lambda: zlibes_tpu_torch.deflate(corpus, level=6, device="cuda"),
         card, runs=2)
+    span_report("level-6 encode", device_ms, GENERAL_SPANS, -(-nblocks // Bp),
+                card)
     if device_ms:
         busy = device_ms.busy
         print(f"general encode: device busy {busy:.4f} of {call_s * 1e3:.2f} "

@@ -52,6 +52,9 @@ assert zt.inflate(comp, index=index, device="cpu") == data
 assert zt.inflate_range(comp, index, 4090, 20, device="cpu") == data[4090:4110]
 (out, off, n), = zt.inflate_to_device(comp, index, device="cpu")
 assert out[:n].numpy().tobytes() == data
+from zlibes_tpu_torch.config import trace
+with trace("zlibes.match"):
+    pass
 for name in ("zlibes_tpu_torch.ops.lz77",
              "zlibes_tpu_torch.ops.deflate_kernel",
              "zlibes_tpu_torch.codec.deflate_pipeline",

@@ -55,7 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats
+from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats, trace
 from ..ops import huffman
 from ..spec import constants as C
 from ..spec.refmodel import (
@@ -283,11 +283,11 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         dev_bytes = torch.from_numpy(blk_bytes).to(dev)
         dev_nv = torch.from_numpy(n_valid).to(dev)
         ad_a, ad_b = adler_terms(dev_bytes, dev_nv)
-        with stats.timer("match"):
+        with stats.timer("match"), trace("zlibes.match"):
             matches = find_matches(dev_bytes, dev_nv, N=N, S=cfg.probe_words,
                                    J=cfg.candidates, reset=cfg.chunk_reset,
                                    two_phase=True)
-        with stats.timer("select"):
+        with stats.timer("select"), trace("zlibes.select"):
             tv, td, cnt = select_glue(dev_bytes, matches, dev_nv, N,
                                       cfg.lazy)
         return tv, td, cnt, n_valid, ad_a, ad_b
@@ -305,7 +305,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     nt = Bp * nchunks
     for d0, d1 in spans:
         tv, td, cnt, n_valid, ad_a, ad_b = run_dispatch(d0, d1)
-        with stats.timer("symbols"):
+        with stats.timer("symbols"), trace("zlibes.symbols"):
             _ls, _ds, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
                                                             nseg=nseg)
         # per-block histograms give the host each block's exact payload bits
@@ -401,7 +401,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         else:
             tv, td, cnt, _nv, _aa, _ab = run_dispatch(d0, d1)
             _ls, _ds, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
-        with stats.timer("pack"):
+        with stats.timer("pack"), trace("zlibes.pack"):
             dense, pe, lb, sb, so = pack_payload_turbo_dense(
                 tv, td, valid, lt, dt,
                 torch.from_numpy(hdr_bits_arr).to(dev), eob_len,
@@ -659,7 +659,7 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
         dev_bytes = torch.from_numpy(blk_bytes).to(dev)
         dev_nv = torch.from_numpy(n_valid).to(dev) + CTX
         ctx_dev = torch.from_numpy(ctx_np).to(dev) if CTX else None
-        with stats.timer("match"):
+        with stats.timer("match"), trace("zlibes.match"):
             if cfg.candidates > 0:
                 matches = find_matches(dev_bytes, dev_nv, N=CTX + N,
                                        S=cfg.probe_words, J=cfg.candidates,
@@ -668,11 +668,11 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
             else:       # literals only
                 matches = torch.zeros((Bp, CTX + N), dtype=torch.int32,
                                       device=dev)
-        with stats.timer("select"):
+        with stats.timer("select"), trace("zlibes.select"):
             tv, td, cnt = select_tokens(dev_bytes, matches, dev_nv,
                                         N=CTX + N, SEG_SIZE=SEG_SIZE,
                                         lazy=cfg.lazy, start=CTX)
-        with stats.timer("symbols"):
+        with stats.timer("symbols"), trace("zlibes.symbols"):
             lsym, dsym, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
                                                                nseg=nseg)
         with stats.timer("readback"):

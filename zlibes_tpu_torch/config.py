@@ -1,4 +1,4 @@
-"""Codec configuration and per-call statistics.
+"""Codec configuration, per-call statistics and named stage spans.
 
 The port's own copy of ``zlibes_tpu/config.py``: the same knobs, as a
 frozen dataclass, with a level→preset mapping so ``level=`` behaves like
@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
+
+from torch.profiler import record_function
 
 from .spec import constants as C
 
@@ -144,6 +146,14 @@ class _StageTimer:
         self.stats.stage_s[self.stage] = self.stats.stage_s.get(
             self.stage, 0.0) + time.perf_counter() - self.t0
         return False
+
+
+def trace(name: str):
+    """A named profiler span around a stage (``zlibes.match``, ...): a
+    user annotation with its device time in a ``torch.profiler`` trace,
+    and an NVTX range under ``torch.autograd.profiler.emit_nvtx``.  With
+    no profiler running it costs the host a few microseconds."""
+    return record_function(name)
 
 
 def config_from_reference(obj) -> CodecConfig:
