@@ -4,7 +4,7 @@ one CUDA card.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
-six paths on the 3.84 MB bench corpus and its committed fixtures:
+seven paths on the 3.84 MB bench corpus and its committed fixtures:
 
   * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
     kernels ``decode_turbo`` (which stages its lane windows itself) and
@@ -31,6 +31,17 @@ six paths on the 3.84 MB bench corpus and its committed fixtures:
     ``inflate_raw_indexed`` on both indexes, the scan without an index
     (``inflate_raw_scan(device="cuda")``, one lane a block) and
     ``inflate()`` with and without the native runtime;
+  * shared-table encode outside the turbo profile: ``deflate(corpus,
+    config=...)`` for ``shared_full``, ``shared_turbo15`` and
+    ``shared_seg1024`` (``tests/shared_tables_cases.py``), kernels
+    ``select_tokens`` (``split_far`` off on 512-byte lanes, on on
+    1,024-byte lanes) or ``select_turbo`` (``split_far`` off), and
+    ``encode_fields`` (fields of up to 48 bits); each stream and index
+    must equal ``tests/golden/shared_bench.json``'s digests, and come back
+    through CPython, ``inflate(index=)``, ``inflate()``, ``inflate_range``
+    and ``inflate_to_device`` (kernels ``decode_tokens`` and
+    ``resolve_global``); the same on the two 64 KiB buffers whose coded
+    tokens pass 32 bits; each kernel variant against its plain version;
   * block parallelism (``zlibes_tpu_torch.parallel``), in a NCCL world of
     one rank on the card: ``parallel_deflate`` of the corpus dynamic,
     fixed and turbo (with its index), each held against the reference's
@@ -105,7 +116,8 @@ line of standard output is one JSON object naming the device; the line
 before it is the card's name and power limit from nvidia-smi, and the line
 before that the per-kernel JSON record (``launches`` is the count of the
 path's run through the public entry point, ``parallel_launches`` those of
-each call of the parallel phase: 0 for ``lane_windows``, whose
+each call of the parallel phase, ``shared_launches`` those of each
+shared-tables config's ``deflate``: 0 for ``lane_windows``, whose
 ``note`` says where its work went; ``bound_ms`` is the larger of the bytes
 each kernel's contract moves over the card's memory rate and its
 operations over the card's peak rate; ``library_ms`` is null: no single
@@ -1760,6 +1772,306 @@ def generic_phase(corpus: bytes, card: str,
 
 
 # ---------------------------------------------------------------------------
+# the shared-table encoder outside the turbo profile
+
+def shared_dispatch(data: bytes, cfg):
+    """The first dispatch of ``data`` under the shared-tables config
+    ``cfg`` on the card, as the pipeline makes it: block rows, valid
+    counts and the matches."""
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops.lz77 import find_matches
+
+    N, Bp = cfg.block_size, cfg.blocks_per_dispatch
+    arr = np.frombuffer(data, np.uint8)
+    blk_np, nv_np = dp.block_rows(arr, 0, min(Bp, -(-arr.size // N)), N, Bp)
+    blk = torch.from_numpy(blk_np).cuda()
+    nv = torch.from_numpy(nv_np).cuda()
+    return blk, nv, find_matches(blk, nv, N=N, S=cfg.probe_words,
+                                 J=cfg.candidates, reset=cfg.chunk_reset,
+                                 two_phase=cfg.max_code_bits <= 9)
+
+
+def random_far_matches(B: int, N: int, max_dist: int, seed: int):
+    """(B, N + 8) random bytes, (B, N) random packed matches of 0-258 bytes
+    to ``max_dist`` back (40% none), a fifth of them long (131-258) and
+    farther than 2048 where ``max_dist`` allows, and (B,) valid counts."""
+    g = torch.Generator().manual_seed(seed)
+    data = torch.randint(0, 256, (B, N + 8), generator=g, dtype=torch.uint8)
+    ml = torch.randint(0, 259, (B, N), generator=g)
+    ml = torch.where(torch.rand((B, N), generator=g) < 0.4, 0, ml)
+    dist = torch.randint(1, max_dist + 1, (B, N), generator=g)
+    far = torch.rand((B, N), generator=g) < 0.2
+    ml = torch.where(far, torch.randint(131, 259, (B, N), generator=g), ml)
+    dist = torch.where(far, torch.randint(2049, max_dist + 1, (B, N),
+                                          generator=g), dist)
+    nv = torch.full((B,), N, dtype=torch.int32)
+    nv[-1] = N // 3
+    return data, ((ml << 16) | dist).int(), nv
+
+
+def hold_shared_kernels(corpus: bytes, configs: dict, records: dict,
+                        card: str) -> None:
+    """The kernel variants the shared-table configs launch, against their
+    plain versions with max_abs_err 0, at the corpus' first dispatch of
+    each config (the main path's shapes) and on random matches with far
+    long ones: ``select_turbo`` with ``split_far`` off (``shared_turbo15``),
+    ``select_tokens`` with ``split_far`` on and 1,024-byte lanes
+    (``shared_seg1024``) and on 512-byte lanes (``shared_full``), and
+    ``encode_fields`` on fields over 32 bits (``shared_full`` on the skewed
+    buffer).  Adds each variant's numbers to its kernel's record."""
+    from shared_tables_cases import skewed_data
+
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.inflate_pipeline import _block_code_lengths
+    from zlibes_tpu_torch.ops import deflate_kernel as dk
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+    from zlibes_tpu_torch.ops import lz77
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    # -- select_turbo, split_far off
+    cfg = configs["shared_turbo15"]
+    N = cfg.block_size
+    blk, nv, matches = shared_dispatch(corpus, cfg)
+    pv, slen = dp.select_inputs(blk, matches, nv, N)
+    toks, cnt = tk.select_turbo(pv, slen, split_far=False)
+    torch.cuda.synchronize()
+    toks_p, cnt_p = tk.select_turbo_plain(pv, slen, True, False)
+    assert torch.equal(toks, toks_p) and torch.equal(cnt, cnt_p), \
+        "select_turbo(split_far=False) != plain on the shared_turbo15 dispatch"
+    err = max(max_abs_err(cnt, cnt_p), max_abs_err(toks, toks_p))
+    data_r, m_r, nv_r = random_far_matches(2, N, 4095, 21)
+    pv_r, slen_r = dp.select_inputs(data_r.cuda(), m_r.cuda(), nv_r.cuda(),
+                                    N)
+    for lazy in (True, False):
+        got = tk.select_turbo(pv_r, slen_r, lazy=lazy, split_far=False)
+        torch.cuda.synchronize()
+        want = tk.select_turbo_plain(pv_r, slen_r, lazy, False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"select_turbo(split_far=False) != plain on random ({lazy=})"
+        err = max([err] + [max_abs_err(a, b) for a, b in zip(got, want)])
+        t = got[0]
+        ml = t & tk.TOK_VAL_MASK
+        far = (t & tk.TOK_MATCH_BIT) != 0
+        far &= ((t >> tk.TOK_DIST_SHIFT) & tk.TOK_DIST_MASK) > 2048
+        assert bool((far & (ml > 130)).any()), "no far long match kept whole"
+    n_tok = int(cnt.sum())
+    records["select_turbo"]["split_far off"] = dict(
+        config="shared_turbo15", max_abs_err=err,
+        ms=cuda_ms(lambda: tk.select_turbo(pv, slen, split_far=False)),
+        plain_ms=cuda_ms(lambda: tk.select_turbo_plain(pv, slen, True,
+                                                       False),
+                         runs=3, warmup=1),
+        shape=list(toks.shape), tokens=n_tok,
+        **bound(nbytes(pv, slen, toks, cnt),
+                25 * pv.numel() + 4 * n_tok))
+    records["select_turbo"]["max_abs_err"] = max(
+        records["select_turbo"]["max_abs_err"], err)
+
+    # -- select_tokens, split_far on (1,024-byte lanes) and off (512)
+    for name, what in (("shared_seg1024", "split_far on, seg 1024"),
+                       ("shared_full", "split_far off, seg 512")):
+        cfg = configs[name]
+        N, SEG = cfg.block_size, cfg.seg_size
+        split_far = cfg.max_code_bits <= 9
+        kw = dict(N=N, SEG_SIZE=SEG, lazy=cfg.lazy, split_far=split_far)
+        blk, nv, matches = shared_dispatch(corpus, cfg)
+        err, (tv, td, cnt), plain_ms = hold_select_tokens(
+            (blk, matches, nv), kw, f"the {name} dispatch", card)
+        data_r, m_r, nv_r = random_far_matches(2, N, 32768, 22)
+        for lazy in (True, False):
+            e, (rtv, rtd, _), _ = hold_select_tokens(
+                (data_r.cuda(), m_r.cuda(), nv_r.cuda()),
+                dict(kw, lazy=lazy), f"random far matches, SEG {SEG}, "
+                f"split_far={split_far}, lazy={lazy}", card)
+            err = max(err, e)
+            capped = bool(((rtv == 130) & (rtd > 2048)).any())
+            kept = bool(((rtv > 130) & (rtd > 2048)).any())
+            assert kept != split_far and (capped or not split_far), \
+                (name, capped, kept)
+        n_tok = int(cnt.sum())
+        records["select_tokens"][what] = dict(
+            config=name, max_abs_err=err,
+            ms=cuda_ms(lambda: lz77.select_tokens(blk, matches, nv, **kw)),
+            plain_ms=plain_ms, plain_runs=1, shape=list(tv.shape),
+            tokens=n_tok,
+            **bound(nbytes(matches, nv, tv, td, cnt) + matches.numel(),
+                    20 * matches.numel() + 4 * n_tok))
+        records["select_tokens"]["max_abs_err"] = max(
+            records["select_tokens"]["max_abs_err"], err)
+
+    # -- encode_fields on fields over 32 bits: shared_full's tables and
+    # tokens on the skewed buffer, and at the corpus' first dispatch
+    cfg = configs["shared_full"]
+    N, SEG = cfg.block_size, cfg.seg_size
+    err = 0
+    wide_fields = {}
+    for what, data in (("the skewed buffer", skewed_data()),
+                       ("the corpus", corpus)):
+        comp, index = dp.deflate(data, with_index=True, config=cfg,
+                                 device="cuda")
+        ll, dl = _block_code_lengths(comp, index.blocks[0])
+        ll_code, d_code = dp._encode_tables(ll, dl)
+        lt, dt = (t.cuda() for t in ek.pack_tables(ll_code, ll, d_code, dl))
+        blk, nv, matches = shared_dispatch(data, cfg)
+        tv, td, cnt = lz77.select_tokens(blk, matches, nv, N=N, SEG_SIZE=SEG,
+                                         lazy=cfg.lazy)
+        _, _, valid, _, _ = dk.token_symbols(tv, td, cnt, nseg=N // SEG)
+        f_args = (tv.reshape(-1), td.reshape(-1), valid.int().reshape(-1),
+                  lt, dt)
+        val, nb = ek.encode_fields(*f_args)
+        torch.cuda.synchronize()
+        val_p, nb_p = ek.encode_fields_plain(*f_args)
+        assert torch.equal(val, val_p) and torch.equal(nb, nb_p), \
+            f"encode_fields != plain on {what}"
+        err = max(err, max_abs_err(val, val_p), max_abs_err(nb, nb_p))
+        wide = int((nb > 32).sum())
+        print(f"kernel encode_fields on shared_full's tables and tokens of "
+              f"{what}: exact vs plain, {wide} fields over 32 bits (widest "
+              f"{int(nb.max())}) of {int(valid.sum())} {card}")
+        if what == "the skewed buffer":
+            assert wide > 0, "no field over 32 bits on the skewed buffer"
+        wide_fields[what] = wide
+    records["encode_fields"]["fields over 32 bits"] = dict(
+        config="shared_full", max_abs_err=err, wide_fields=wide_fields,
+        ms=cuda_ms(lambda: ek.encode_fields(*f_args)),
+        plain_ms=cuda_ms(lambda: ek.encode_fields_plain(*f_args), runs=10),
+        shape=list(val.shape),
+        # read: three int32 a token and the tables; written: the int64
+        # field and the int32 count; ~60 operations a token
+        **bound(nbytes(*f_args, val, nb), 60 * val.numel()))
+    records["encode_fields"]["max_abs_err"] = max(
+        records["encode_fields"]["max_abs_err"], err)
+    for name in ("select_turbo", "select_tokens", "encode_fields"):
+        for what, r in records[name].items():
+            if isinstance(r, dict) and "config" in r:
+                print(f"kernel {name} ({what}, {r['config']}): exact vs plain "
+                      f"(max_abs_err {r['max_abs_err']}), kernel "
+                      f"{r['ms']:.4f} ms (median of 20), plain "
+                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"by {r['bound_by']}, shape {r['shape']} {card}")
+
+
+def shared_round_trips(comp: bytes, index, data: bytes, what: str) -> dict:
+    """``comp`` and its index back to ``data`` through CPython,
+    ``inflate(index=)``, ``inflate()`` without an index, a seek across the
+    first block boundary (or the middle) and ``inflate_to_device``, all on
+    the card; returns the launch counts of the ``inflate_to_device``
+    call."""
+    import zlibes_tpu_torch
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    assert zlib.decompress(comp) == data, f"CPython refuses {what}"
+    assert zlibes_tpu_torch.inflate(comp, index=index, device="cuda") == data
+    assert zlibes_tpu_torch.inflate(comp, device="cuda") == data
+    edge = index.blocks[0].out_len if len(index.blocks) > 2 else len(data) // 2
+    lo = max(0, edge - 2500)
+    assert zlibes_tpu_torch.inflate_range(comp, index, lo, 5000,
+                                          device="cuda") == data[lo:lo + 5000]
+    tk.LAUNCHES.clear()
+    spans = zlibes_tpu_torch.inflate_to_device(comp, index, device="cuda")
+    launches = dict(tk.LAUNCHES)
+    out = bytearray(len(data))
+    for t, off, n in spans:
+        assert t.is_cuda
+        out[off:off + n] = t[:n].cpu().numpy().tobytes()
+    assert bytes(out) == data, f"inflate_to_device({what}) != the input"
+    assert launches.get("decode_tokens", 0) >= 1 and \
+        launches.get("resolve_global", 0) >= 1, launches
+    return launches
+
+
+def shared_phase(corpus: bytes, card: str, records: dict) -> dict:
+    """The shared-table encoder outside the turbo profile, for the three
+    configs of ``tests/shared_tables_cases.py``: ``deflate(corpus,
+    config=...)`` on the card with the launch counts set to 0 just before
+    and read just after, the stream and its index held against
+    ``tests/golden/shared_bench.json``, the round trips (CPython,
+    ``inflate(index=)``, ``inflate()``, ``inflate_range``,
+    ``inflate_to_device``, whose group decode launches ``decode_tokens`` and
+    ``resolve_global``); the same on the two buffers that take coded tokens
+    past 32 bits; whole-call times and each kernel's device ms a launch.
+    Then the kernel variants against their plain versions
+    (``hold_shared_kernels``).  Returns {config: launch counts of its
+    ``deflate`` run}."""
+    from shared_tables_cases import SHARED_CONFIGS, far_copy_data, skewed_data
+    from torch_parallel_worker import index_sha256
+
+    import zlibes_tpu_torch
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+
+    gold = json.loads((GOLDEN / "shared_bench.json").read_text())
+    buffers = {"skewed": skewed_data(), "far_copies": far_copy_data()}
+    select = {"shared_full": "select_tokens",
+              "shared_turbo15": "select_turbo",
+              "shared_seg1024": "select_tokens"}
+    out_launches = {}
+    for name, cfg in SHARED_CONFIGS.items():
+        want = gold[name]
+        fields = {f: getattr(cfg, f) for f in want["config"]}
+        assert fields == want["config"], (name, fields)
+        nblocks = -(-len(corpus) // cfg.block_size)
+        dispatches = -(-nblocks // cfg.blocks_per_dispatch)
+        tk.LAUNCHES.clear()
+        out = zlibes_tpu_torch.deflate(corpus, config=cfg, device="cuda")
+        launches = dict(tk.LAUNCHES)
+        g = want["corpus"]
+        assert (len(out), hashlib.sha256(out).hexdigest()) == \
+            (g["length"], g["sha256"]), f"{name}: != shared_bench.json"
+        # phase 1 keeps its tokens (the corpus is within
+        # phase1_cache_blocks): one select and one encode_fields a dispatch
+        assert nblocks <= cfg.phase1_cache_blocks
+        assert launches == {select[name]: dispatches,
+                            "encode_fields": dispatches}, (name, launches)
+        comp, index = dp.deflate(corpus, with_index=True, config=cfg,
+                                 device="cuda")
+        assert comp == out and not index.turbo and not index.wide
+        assert index_sha256(index) == g["index"]["sha256"], name
+        assert index.max_tokens == g["index"]["max_tokens"], name
+        to_dev = shared_round_trips(out, index, corpus, f"{name} corpus")
+        print(f"shared {name}: deflate(corpus, config=..., device='cuda') "
+              f"{len(out)} B (ratio {len(out) / len(corpus):.4f}), stream and "
+              f"index equal shared_bench.json (digests from {g['source']}, "
+              f"widest token {g['widest_token_bits']} bits); launches a call "
+              f"{launches} ({dispatches} dispatches); CPython, "
+              f"inflate(index=), inflate(), inflate_range and "
+              f"inflate_to_device ({to_dev}) return the corpus")
+        for what, data in buffers.items():
+            b = want[what]
+            comp, idx = dp.deflate(data, with_index=True, config=cfg,
+                                   device="cuda")
+            assert (len(comp), hashlib.sha256(comp).hexdigest(),
+                    index_sha256(idx)) == (b["length"], b["sha256"],
+                                           b["index"]["sha256"]), \
+                f"{name} {what}: != shared_bench.json"
+            shared_round_trips(comp, idx, data, f"{name} {what}")
+            print(f"shared {name} on {what} ({len(data)} B): {len(comp)} B "
+                  f"equal to shared_bench.json (digests from {b['source']}, "
+                  f"widest token {b['widest_token_bits']} bits), round trips "
+                  f"byte-exact")
+        call_s = wall_s(lambda: zlibes_tpu_torch.deflate(
+            corpus, config=cfg, device="cuda"), runs=3)
+        dev_s = wall_s(lambda: zlibes_tpu_torch.inflate_to_device(
+            out, index, device="cuda"), runs=3)
+        trace = profile_pipeline(lambda: zlibes_tpu_torch.deflate(
+            corpus, config=cfg, device="cuda"), card, runs=1, quiet=True)
+        kms = {k: device_time(trace, k) for k in launches}
+        busy = trace.busy
+        print(f"shared {name}: whole deflate() call {call_s * 1e3:.2f} ms -> "
+              f"{len(corpus) / call_s / 1e9:.4f} GB/s of input (median of "
+              f"3), device busy {busy:.4f} ms a call (idle share "
+              f"{1 - busy / (call_s * 1e3):.3f}); device ms a launch "
+              + ", ".join(f"{k} {v:.4f}" for k, v in kms.items())
+              + f"; inflate_to_device() {dev_s * 1e3:.2f} ms (median of 3) "
+              f"{card}")
+        for k, v in kms.items():
+            records[k].setdefault("shared_device_ms", {})[name] = v
+        out_launches[name] = launches
+    hold_shared_kernels(corpus, SHARED_CONFIGS, records, card)
+    return out_launches
+
+
+# ---------------------------------------------------------------------------
 # block parallelism: zlibes_tpu_torch.parallel over torch.distributed
 
 PARALLEL_RANK_TIMEOUT = 300     # seconds a rank of the world of 2 may take
@@ -2394,6 +2706,7 @@ def main() -> None:
     generic_launches, _ = generic_phase(corpus, card, records)
     for name in ("decode_tokens", "resolve_global"):
         launches[name] = generic_launches[name]
+    shared_launches = shared_phase(corpus, card, records)
     par_launches = parallel_phase(corpus, card, records)
 
     st = records["select_tokens"]
@@ -2427,7 +2740,9 @@ def main() -> None:
             "device_ms": r["device_ms"] if "device_ms" in r else device_time(
                 {"wide": wide_device_ms, "encode": enc_device_ms}.get(
                     group, device_ms), name),
-            "parallel_launches": par_launches.get(name, {})})
+            "parallel_launches": par_launches.get(name, {}),
+            "shared_launches": {cfg: n.get(name, 0)
+                                for cfg, n in shared_launches.items()}})
         entries[-1].update({k: r[k] for k in (
             "wide_ms", "wide_plain_ms", "wide_device_ms", "wide_bound_ms",
             "tokens", "longest_lane_tokens", "mean_lane_tokens",
@@ -2435,7 +2750,9 @@ def main() -> None:
             "mean_warp_longest_steps", "sm_mhz", "cycles_per_token",
             "cycles_per_step", "expand_ms", "rounds_ms", "rounds",
             "rounds_with_work", "the bench dispatch",
-            "the incompressible dispatch", "note") if k in r})
+            "the incompressible dispatch", "note", "split_far off",
+            "split_far on, seg 1024", "split_far off, seg 512",
+            "fields over 32 bits", "shared_device_ms") if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

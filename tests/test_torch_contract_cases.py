@@ -556,13 +556,14 @@ def check_select_chain_case(case: str, tv: np.ndarray, td: np.ndarray,
 
 def select_tokens_model(data, matches, n_valid, N: int, SEG_SIZE: int,
                         lazy: bool = True, start: int = 0,
-                        pieces: int = 32):
+                        split_far: bool = False, pieces: int = 32):
     """The select_tokens kernel's procedure in numpy -> (tv, td, count,
     stats): stats (L, 3) int64 a lane: fix-up rounds, most walks of a
     piece, longest speculative walk in tokens.
 
     (1) each position's token (val | dist << 9 | 1 << 25 for a match) and
-    successor; (2) each of ``pieces`` pieces (a power of two >= 32
+    successor (``split_far`` cuts a match of 131 bytes or more at a distance
+    above 2048 to 130); (2) each of ``pieces`` pieces (a power of two >= 32
     positions) walked from its first position; (3) rounds: piece p looks
     up its exit from its assumed entry (at first the speculative exit of
     piece p - 1): a position some walk of the piece visited has that
@@ -591,6 +592,8 @@ def select_tokens_model(data, matches, n_valid, N: int, SEG_SIZE: int,
         m = matches[b, seg0:seg0 + n]
         c = np.arange(n)
         ml = np.minimum(m >> 16, n - c)
+        if split_far:
+            ml = np.where((ml >= 131) & ((m & 0xFFFF) >= 2049), 130, ml)
         use = ml >= C.MIN_MATCH
         if lazy:
             ml1 = np.append(m[1:] >> 16, 0)

@@ -666,6 +666,152 @@ def test_deflate_on_card_equals_cpu_and_fixture(corpus, fixture_stream,
 
 
 # ---------------------------------------------------------------------------
+# the shared-table encoder outside the turbo profile: the kernel variants
+# its configs launch, and each config's card output against its CPU output
+
+def _far_packed(L: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """select_turbo inputs: (L, 512) packed positions with matches of 0-258
+    bytes to 4,095 back, a fifth of them long and farther than 2048, and
+    (L,) segment lengths of 0-512."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (L, tk.SEL_SEG)
+    ml = torch.randint(0, 259, shape, generator=g)
+    ml = torch.where(torch.rand(shape, generator=g) < 0.4, 0, ml)
+    dist = torch.randint(1, 4096, shape, generator=g)
+    far = torch.rand(shape, generator=g) < 0.2
+    ml = torch.where(far, torch.randint(131, 259, shape, generator=g), ml)
+    dist = torch.where(far, torch.randint(2049, 4096, shape, generator=g),
+                       dist)
+    lit = torch.randint(0, 256, shape, generator=g)
+    pv = (dist | (ml << tk.SEL_LEN_SHIFT) | (lit << tk.SEL_LIT_SHIFT)).int()
+    slen = torch.randint(0, tk.SEL_SEG + 1, (L,), generator=g,
+                         dtype=torch.int32)
+    return pv, slen
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+@pytest.mark.parametrize("split_far", [False, True])
+def test_select_turbo_kernel_matches_plain_either_split_far(split_far, lazy):
+    """Both instances of the kernel on far long matches: with split_far off
+    some stay over 130 bytes, with it on none does."""
+    pv, slen = _far_packed(1024, 41)
+    toks, cnt = tk.select_turbo(pv.cuda(), slen.cuda(), lazy=lazy,
+                                split_far=split_far)
+    torch.cuda.synchronize()
+    toks_p, cnt_p = tk.select_turbo_plain(pv, slen, lazy, split_far)
+    assert _same(cnt, cnt_p) and _same(toks, toks_p)
+    t = toks_p
+    far = (((t & tk.TOK_MATCH_BIT) != 0)
+           & (((t >> tk.TOK_DIST_SHIFT) & tk.TOK_DIST_MASK) > 2048))
+    assert bool((far & ((t & tk.TOK_VAL_MASK) > 130)).any()) != split_far
+
+
+@pytest.mark.parametrize("seg", [512, 1024, 4096])
+@pytest.mark.parametrize("lazy", [True, False])
+def test_select_tokens_kernel_matches_plain_with_split_far(seg, lazy):
+    """Random matches to 32 KiB back, a fifth long and farther than 2048:
+    the split_far instance cuts each to 130 bytes, as its plain version
+    does."""
+    from zlibes_tpu_torch.ops import lz77
+
+    g = torch.Generator().manual_seed(seg + lazy)
+    B, N = 2, 32768
+    data = torch.randint(0, 256, (B, N + 8), generator=g, dtype=torch.uint8)
+    ml = torch.randint(0, 259, (B, N), generator=g)
+    ml = torch.where(torch.rand((B, N), generator=g) < 0.4, 0, ml)
+    dist = torch.randint(1, 32769, (B, N), generator=g)
+    far = torch.rand((B, N), generator=g) < 0.2
+    ml = torch.where(far, torch.randint(131, 259, (B, N), generator=g), ml)
+    dist = torch.where(far, torch.randint(2049, 32769, (B, N), generator=g),
+                       dist)
+    m = ((ml << 16) | dist).int()
+    nv = torch.tensor([N, N // 3], dtype=torch.int32)
+    kw = dict(N=N, SEG_SIZE=seg, lazy=lazy, split_far=True)
+    tv, td, cnt = lz77.select_tokens(data.cuda(), m.cuda(), nv.cuda(), **kw)
+    torch.cuda.synchronize()
+    tv_p, td_p, cnt_p = lz77.select_tokens_plain(data, m, nv, **kw)
+    assert _same(cnt, cnt_p) and _same(tv, tv_p) and _same(td, td_p)
+    assert bool(((tv_p == 130) & (td_p > 2048)).any())
+    assert not bool(((tv_p > 130) & (td_p > 2048)).any())
+
+
+def test_encode_fields_kernel_matches_plain_on_fields_over_32_bits():
+    """15-bit codes on the longest lengths at the farthest distances: fields
+    of 33-48 bits, mixed with literals and short matches."""
+    from shared_tables_cases import deep_tables
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+
+    ll_len, d_len = deep_tables()
+    ll_code, d_code = tdp._encode_tables(ll_len, d_len)
+    lt, dt = (t.cuda() for t in ek.pack_tables(ll_code, ll_len, d_code,
+                                               d_len))
+    g = torch.Generator().manual_seed(43)
+    n = 1 << 20
+    tv = torch.randint(3, 259, (n,), generator=g, dtype=torch.int32)
+    td = torch.randint(1, 32769, (n,), generator=g, dtype=torch.int32)
+    wide = torch.rand(n, generator=g) < 0.5
+    tv = torch.where(wide, torch.randint(227, 258, (n,), generator=g,
+                                         dtype=torch.int32), tv)
+    td = torch.where(wide, torch.randint(16385, 32769, (n,), generator=g,
+                                         dtype=torch.int32), td)
+    lit = torch.rand(n, generator=g) < 0.2
+    tv = torch.where(lit, tv % 256, tv)
+    td = torch.where(lit, 0, td)
+    en = (torch.rand(n, generator=g) < 0.9).int()
+    _fields_both(tv.cuda(), td.cuda(), en.cuda(), lt, dt)
+    _, nb = ek.encode_fields_plain(tv, td, en, lt.cpu(), dt.cpu())
+    assert int(nb.max()) == 48 and int((nb > 32).sum()) > n // 4
+
+
+@pytest.mark.parametrize("buffer", ["raw", "skewed", "far_copies"])
+@pytest.mark.parametrize("name", ["shared_full", "shared_turbo15",
+                                  "shared_seg1024"])
+def test_shared_config_on_card_equals_cpu(name, buffer, monkeypatch):
+    """Each shared-tables config on the card, through its kernels and no
+    plain version: the CPU run's stream and index, and the stream decodes
+    back through the group decode on the card."""
+    import dataclasses
+
+    from shared_tables_cases import (SHARED_CONFIGS, far_copy_data,
+                                     skewed_data)
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import encode_kernel as ek
+    from zlibes_tpu_torch.ops import lz77
+
+    data = {"raw": lambda: (GOLDEN / "raw.bin").read_bytes()[:2 * 32768
+                                                            + 777],
+            "skewed": skewed_data, "far_copies": far_copy_data}[buffer]()
+    cfg = dataclasses.replace(SHARED_CONFIGS[name], blocks_per_dispatch=2)
+    cpu, cpu_idx = tdp.deflate(data, with_index=True, config=cfg,
+                               block_size=32768, device="cpu")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, fn in ((tk, "select_turbo_plain"), (ek, "encode_fields_plain"),
+                    (lz77, "select_tokens_plain")):
+        monkeypatch.setattr(mod, fn, plain)
+    tk.LAUNCHES.clear()
+    out, idx = tdp.deflate(data, with_index=True, config=cfg,
+                           block_size=32768, device="cuda")
+    select = "select_turbo" if name == "shared_turbo15" else "select_tokens"
+    assert tk.LAUNCHES[select] >= 1 and tk.LAUNCHES["encode_fields"] >= 1
+    assert out == cpu and idx.blocks == cpu_idx.blocks
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(idx, f), getattr(cpu_idx, f)), f
+    assert (idx.turbo, idx.chunk_reset, idx.max_tokens) == \
+        (cpu_idx.turbo, cpu_idx.chunk_reset, cpu_idx.max_tokens)
+    assert zlib.decompress(out) == data
+    tk.LAUNCHES.clear()
+    spans = zlibes_tpu_torch.inflate_to_device(out, idx, device="cuda")
+    assert tk.LAUNCHES["decode_tokens"] >= 1
+    assert tk.LAUNCHES["resolve_global"] >= 1
+    got = b"".join(t[:n].cpu().numpy().tobytes() for t, _, n in spans)
+    assert got == data
+
+
+# ---------------------------------------------------------------------------
 # the contract cases of test_torch_contract_cases.py, kernel versus plain,
 # and the shapes beside the bench's
 

@@ -32,6 +32,7 @@ from zlibes_tpu_torch.ops import deflate_kernel as dk
 from zlibes_tpu_torch.ops import lz77
 from zlibes_tpu_torch.spec import constants as C
 
+from shared_tables_cases import skewed_data as _skewed_data
 from test_matcher import CASES, _verify_matches
 
 torch.set_num_threads(2)
@@ -409,44 +410,32 @@ def test_public_deflate_rejects_a_bad_level_and_a_foreign_config():
 
 
 def test_shared_tables_outside_turbo_names_what_is_missing():
+    """A shared-tables config outside the turbo profile (15-bit codes)
+    encodes: the stream round-trips through CPython and the port, under a
+    non-turbo index."""
     cfg = dataclasses.replace(zlibes_tpu_torch.CodecConfig.turbo(),
                               max_code_bits=15)
-    with pytest.raises(NotImplementedError, match="fields above 32 bits"):
-        zlibes_tpu_torch.deflate(b"some bytes", config=cfg, device="cpu")
-
-
-def _skewed_data(seed: int = 0, n: int = 65536) -> bytes:
-    """16 literals at 0.9 (the other 240 at 0.1) and 200-257-byte copies
-    from more than 16 KiB back: long codes and far matches, which take a
-    coded token past 32 bits."""
-    rng = np.random.default_rng(seed)
-    common = rng.choice(256, 16, replace=False)
-    rare = np.setdiff1d(np.arange(256), common)
-    out = np.empty(n, np.uint8)
-    pick = rng.random(n) < 0.9
-    out[pick] = rng.choice(common, pick.sum())
-    out[~pick] = rng.choice(rare, (~pick).sum())
-    pos = 20000
-    while pos < n - 300:
-        ln = int(rng.integers(200, 258))
-        src = pos - int(rng.integers(16385, 20000))
-        out[pos : pos + ln] = out[src : src + ln]
-        pos += ln + int(rng.integers(200, 1500))
-    return out.tobytes()
+    data = b"some bytes, and some more bytes, and some bytes"
+    comp, index = tdp.deflate(data, with_index=True, config=cfg,
+                              device="cpu")
+    assert zlib.decompress(comp) == data
+    assert zlibes_tpu_torch.inflate(comp, index=index, device="cpu") == data
+    assert not index.turbo and index.chunk_reset == 4096
 
 
 def test_shared_tables_outside_turbo_is_refused_where_reference_is_wrong():
-    """A shared-tables config outside the turbo profile: the reference packs
-    its tokens with the 32-bit turbo pack and writes a stream CPython
-    rejects; the port refuses the config; the turbo profile round-trips on
-    the same bytes."""
+    """A shared-tables config outside the turbo profile on data whose coded
+    tokens pass 32 bits: the reference packs them with its 32-bit field and
+    writes a stream CPython rejects; the port keeps the whole field and its
+    stream round-trips, as does the turbo profile's on the same bytes."""
     import zlibes_tpu
 
     data = _skewed_data()
     cfg = dict(seg_size=512, shared_tables=True)
-    with pytest.raises(NotImplementedError, match="fields above 32 bits"):
-        zlibes_tpu_torch.deflate(data, config=zlibes_tpu_torch.CodecConfig(
-            **cfg), block_size=32768, device="cpu")
+    out = zlibes_tpu_torch.deflate(data, config=zlibes_tpu_torch.CodecConfig(
+        **cfg), block_size=32768, device="cpu")
+    assert zlib.decompress(out) == data
+    assert zlibes_tpu_torch.inflate(out, device="cpu") == data
     wrong = zlibes_tpu.deflate(data, config=JaxCodecConfig(**cfg),
                                block_size=32768)
     with pytest.raises(zlib.error, match="incorrect data check"):

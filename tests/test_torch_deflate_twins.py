@@ -163,16 +163,12 @@ def test_stats_reuse_across_configs():
 
 
 def test_shared_tables_block_size_validation():
-    """The twin of tests/test_config.py's test, under CodecConfig.turbo()
-    where the reference's takes CodecConfig(seg_size=512,
-    shared_tables=True): the port refuses that config outright
-    (NotImplementedError: the reference packs it with the 32-bit turbo
-    pack, whose bytes can be wrong; test_torch_deflate_general.py::
-    test_shared_tables_outside_turbo_is_refused_where_reference_is_wrong),
-    so the block-size check is reached through the turbo profile."""
+    """The twin of tests/test_config.py's test, under the reference's own
+    config, CodecConfig(seg_size=512, shared_tables=True)."""
+    cfg = CodecConfig(seg_size=512, shared_tables=True)
     with pytest.raises(ValueError, match="multiple of 2048"):
-        zlibes_tpu_torch.deflate(RAW[:4096], config=CodecConfig.turbo(),
-                                 block_size=1536, device="cpu")
+        zlibes_tpu_torch.deflate(RAW[:4096], config=cfg, block_size=1536,
+                                 device="cpu")
 
 
 def test_index_sidecar_roundtrip(tmp_path):

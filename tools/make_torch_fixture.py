@@ -1,11 +1,11 @@
 """Generate the committed bench fixtures (streams + sidecar indexes).
 
-The PyTorch port (``zlibes_tpu_torch``) has no encoder yet, and the machine
-that runs it on a GPU has no JAX, so the bench-sized streams its decoder is
-measured on are made here, once, by the JAX package's encoder on the CPU
-backend:
+The machine that runs the PyTorch port (``zlibes_tpu_torch``) on a GPU has
+no JAX, so the bench-sized streams and digests the port is held against
+there are made here, once, by the JAX package's encoder on the CPU backend
+(and, where that encoder is wrong, by the port's CPU run):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--parallel]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--parallel | --shared]
 
 Writes, from the bench corpus:
 
@@ -19,7 +19,19 @@ Writes, from the bench corpus:
     corpus, and at ``block_size=16384`` for the first 131,072 bytes of
     ``tests/golden/raw.bin``, with the SHA-256 of the turbo index's arrays
     (``tests/torch_parallel_worker.py: index_sha256``).  ``--parallel``
-    writes this file alone (~40 s).
+    writes this file alone (~40 s);
+  * ``tests/golden/shared_bench.json`` — for each shared-tables config of
+    ``tests/shared_tables_cases.py`` (``shared_full``, ``shared_turbo15``,
+    ``shared_seg1024``), the length and SHA-256 of the stream that
+    ``deflate(data, config=...)`` writes at the default block size, and of
+    its index's arrays, for the corpus and for the buffers of 64 KiB that
+    take coded tokens past 32 bits (``skewed_data``, ``far_copy_data``).
+    Where every coded token fits 32 bits (the port's ``encode_fields``
+    says so) the digests are the JAX package's, and the port's CPU run
+    must equal it; elsewhere the reference's 32-bit field writes wrong
+    bytes, and the digests are the port's CPU run's, held against CPython
+    (``"source"`` says which).  ``--shared`` writes this file alone
+    (~90 s).
 """
 from __future__ import annotations
 
@@ -85,7 +97,62 @@ def parallel_digests() -> dict:
     return out
 
 
+def shared_digests() -> dict:
+    """The digests of ``shared_bench.json``, config by config."""
+    import dataclasses
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from zlibes_tpu.codec import deflate_pipeline as jdp
+    from zlibes_tpu.config import CodecConfig as JaxCodecConfig
+
+    from shared_tables_cases import (SHARED_CONFIGS, far_copy_data,
+                                     skewed_data, widest_token)
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+
+    inputs = {"corpus": bench_data(), "skewed": skewed_data(),
+              "far_copies": far_copy_data()}
+    out = {}
+    for name, cfg in SHARED_CONFIGS.items():
+        entry = {"config": {f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(cfg)}}
+        # two blocks a dispatch keep the CPU runs small; the bytes do not
+        # depend on it
+        cfg = dataclasses.replace(cfg, blocks_per_dispatch=2)
+        for what, data in inputs.items():
+            with widest_token() as widest:
+                comp, index = tdp.deflate(data, with_index=True, config=cfg,
+                                          device="cpu")
+            assert pyzlib.decompress(comp) == data
+            source = "port"
+            if widest[0] <= 32:
+                jcfg = JaxCodecConfig(**{f.name: getattr(cfg, f.name)
+                                         for f in dataclasses.fields(cfg)})
+                jcomp, jindex = jdp.deflate(data, with_index=True,
+                                            config=jcfg)
+                assert jcomp == comp and \
+                    index_sha256(jindex) == index_sha256(index), (name, what)
+                source = "zlibes_tpu"
+            entry[what] = dict(
+                bytes_in=len(data), length=len(comp),
+                sha256=hashlib.sha256(comp).hexdigest(), source=source,
+                widest_token_bits=widest[0],
+                index=dict(sha256=index_sha256(index),
+                           blocks=len(index.blocks),
+                           anchors=int(index.anchor_bit.size),
+                           max_tokens=int(index.max_tokens)))
+            print(f"{name} {what}: {len(data)} B -> {len(comp)} B, widest "
+                  f"token {widest[0]} bits, digests from {source}")
+        out[name] = entry
+    return out
+
+
 def main() -> None:
+    if "--shared" in sys.argv[1:]:
+        path = ROOT / "tests" / "golden" / "shared_bench.json"
+        path.write_text(json.dumps(shared_digests(), indent=1) + "\n")
+        return
     path = ROOT / "tests" / "golden" / "parallel_bench.json"
     path.write_text(json.dumps(parallel_digests(), indent=1) + "\n")
     if "--parallel" in sys.argv[1:]:

@@ -3,7 +3,8 @@
 // Includes the port's encode_kernels.cu as it stands (its select_step,
 // token pass, store_marked and the committed zt_select_tokens come along)
 // and adds other ways of marking a lane's token chain, each behind a
-// launcher with zt_select_tokens' signature:
+// launcher with zt_select_tokens' signature (split_far off: the variants
+// are of the general encoder's instance, and take no other value):
 //
 //   zp_select_tokens_walk     the first design: thread 0 follows the chain
 //                             from position 0, one dependent shared-memory
@@ -105,8 +106,9 @@ select_tokens_doubling_kernel(const uint8_t* __restrict__ data, int64_t pitch,
   const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
   const int nwords = (seg_len + 31) >> 5;
 
-  select_tokens_pass(data + (int64_t)b * pitch + seg0,
-                     matches + (int64_t)b * N + seg0, seg_len, lazy, 31, tok, J);
+  select_tokens_pass<false>(data + (int64_t)b * pitch + seg0,
+                            matches + (int64_t)b * N + seg0, seg_len,
+                            lazy, 31, tok, J);
   for (int w = tid; w < nwords; w += kTokThreads) mark[w] = w == 0 ? 1u : 0u;
   __syncthreads();
   // marks are only ever set, and only on the chain: a mark seen in the round
@@ -162,8 +164,9 @@ select_tokens_spec_kernel(const uint8_t* __restrict__ data, int64_t pitch,
   const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
   const int nwords = (seg_len + 31) >> 5;
 
-  select_tokens_pass(data + (int64_t)b * pitch + seg0,
-                     matches + (int64_t)b * N + seg0, seg_len, lazy, 31, tok, nxt);
+  select_tokens_pass<false>(data + (int64_t)b * pitch + seg0,
+                            matches + (int64_t)b * N + seg0, seg_len,
+                            lazy, 31, tok, nxt);
   for (int w = tid; w < nwords; w += kTokThreads) {
     spec[w] = 0;
     fix[w] = 0;
@@ -260,8 +263,9 @@ select_tokens_jacobi_kernel(const uint8_t* __restrict__ data, int64_t pitch,
   const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
   const int nwords = (seg_len + 31) >> 5;
 
-  select_tokens_pass(data + (int64_t)b * pitch + seg0,
-                     matches + (int64_t)b * N + seg0, seg_len, lazy, 31, tok, nxt);
+  select_tokens_pass<false>(data + (int64_t)b * pitch + seg0,
+                            matches + (int64_t)b * N + seg0, seg_len,
+                            lazy, 31, tok, nxt);
   for (int w = tid; w < nwords; w += kTokThreads) {
     spec[w] = 0;
     fix[w] = 0;
@@ -362,8 +366,9 @@ select_tokens_dbytes_kernel(const uint8_t* __restrict__ data, int64_t pitch,
   const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
   const int nwords = (seg_len + 31) >> 5;
 
-  select_tokens_pass(data + (int64_t)b * pitch + seg0,
-                     matches + (int64_t)b * N + seg0, seg_len, lazy, 31, tok, J);
+  select_tokens_pass<false>(data + (int64_t)b * pitch + seg0,
+                            matches + (int64_t)b * N + seg0, seg_len,
+                            lazy, 31, tok, J);
   for (int c = tid; c < seg_len; c += kTokThreads) markb[c] = c == 0;
   __syncthreads();
   if (seg_len > 0 && J[0] < seg_len) {
@@ -415,8 +420,9 @@ select_tokens_floor_kernel(const uint8_t* __restrict__ data, int64_t pitch,
   const int seg0 = start + (lane % nseg) * seg;
   const int seg_len = min(max(n_valid[b] - seg0, 0), seg);
   const int nwords = (seg_len + 31) >> 5;
-  select_tokens_pass(data + (int64_t)b * pitch + seg0,
-                     matches + (int64_t)b * N + seg0, seg_len, lazy, 31, tok, J);
+  select_tokens_pass<false>(data + (int64_t)b * pitch + seg0,
+                            matches + (int64_t)b * N + seg0, seg_len,
+                            lazy, 31, tok, J);
   for (int w = tid; w < nwords; w += kTokThreads) mark[w] = w == 0 ? 1u : 0u;
   __syncthreads();
   if (kStore) {
@@ -430,9 +436,10 @@ select_tokens_floor_kernel(const uint8_t* __restrict__ data, int64_t pitch,
 template <typename Kernel>
 int launch_variant(Kernel kernel, int smem, const void* data, int64_t pitch,
                    const void* matches, const void* n_valid, int N, int nseg,
-                   int seg, int start, int lazy, int lanes, void* tv,
-                   void* td, void* counts, void* stream) {
-  if (seg <= 0 || seg > kMaxTokSeg) return (int)cudaErrorInvalidValue;
+                   int seg, int start, int lazy, int split_far, int lanes,
+                   void* tv, void* td, void* counts, void* stream) {
+  if (seg <= 0 || seg > kMaxTokSeg || split_far)
+    return (int)cudaErrorInvalidValue;
   if (smem > 40 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -449,70 +456,45 @@ int launch_variant(Kernel kernel, int smem, const void* data, int64_t pitch,
 
 extern "C" {
 
-int zp_select_tokens_walk(const void* data, int64_t pitch, const void* matches,
-                          const void* n_valid, int N, int nseg, int seg,
-                          int start, int lazy, int lanes, void* tv, void* td,
-                          void* counts, void* stream) {
-  return launch_variant(select_tokens_walk_kernel, 8 * seg, data, pitch,
-                        matches, n_valid, N, nseg, seg, start, lazy, lanes,
-                        tv, td, counts, stream);
+// every launcher takes zt_select_tokens' arguments
+#define ZP_ARGS                                                          \
+  const void *data, int64_t pitch, const void *matches,                  \
+      const void *n_valid, int N, int nseg, int seg, int start, int lazy, \
+      int split_far, int lanes, void *tv, void *td, void *counts,        \
+      void *stream
+#define ZP_PASS                                                          \
+  data, pitch, matches, n_valid, N, nseg, seg, start, lazy, split_far,   \
+      lanes, tv, td, counts, stream
+
+int zp_select_tokens_walk(ZP_ARGS) {
+  return launch_variant(select_tokens_walk_kernel, 8 * seg, ZP_PASS);
 }
 
-int zp_select_tokens_jacobi(const void* data, int64_t pitch,
-                            const void* matches, const void* n_valid, int N,
-                            int nseg, int seg, int start, int lazy, int lanes,
-                            void* tv, void* td, void* counts, void* stream) {
-  return launch_variant(select_tokens_jacobi_kernel, spec_smem(seg), data,
-                        pitch, matches, n_valid, N, nseg, seg, start, lazy,
-                        lanes, tv, td, counts, stream);
+int zp_select_tokens_jacobi(ZP_ARGS) {
+  return launch_variant(select_tokens_jacobi_kernel, spec_smem(seg), ZP_PASS);
 }
 
-int zp_select_tokens_dbytes(const void* data, int64_t pitch,
-                            const void* matches, const void* n_valid, int N,
-                            int nseg, int seg, int start, int lazy, int lanes,
-                            void* tv, void* td, void* counts, void* stream) {
-  return launch_variant(select_tokens_dbytes_kernel, dbytes_smem(seg), data,
-                        pitch, matches, n_valid, N, nseg, seg, start, lazy,
-                        lanes, tv, td, counts, stream);
+int zp_select_tokens_dbytes(ZP_ARGS) {
+  return launch_variant(select_tokens_dbytes_kernel, dbytes_smem(seg), ZP_PASS);
 }
 
-int zp_select_tokens_floor(const void* data, int64_t pitch,
-                           const void* matches, const void* n_valid, int N,
-                           int nseg, int seg, int start, int lazy, int lanes,
-                           void* tv, void* td, void* counts, void* stream) {
-  return launch_variant(select_tokens_floor_kernel<1>,
-                        doubling_smem(seg), data, pitch, matches,
-                        n_valid, N, nseg, seg, start, lazy, lanes, tv, td,
-                        counts, stream);
+int zp_select_tokens_floor(ZP_ARGS) {
+  return launch_variant(select_tokens_floor_kernel<1>, doubling_smem(seg),
+                        ZP_PASS);
 }
 
-int zp_select_tokens_pass(const void* data, int64_t pitch,
-                          const void* matches, const void* n_valid, int N,
-                          int nseg, int seg, int start, int lazy, int lanes,
-                          void* tv, void* td, void* counts, void* stream) {
-  return launch_variant(select_tokens_floor_kernel<0>,
-                        doubling_smem(seg), data, pitch, matches,
-                        n_valid, N, nseg, seg, start, lazy, lanes, tv, td,
-                        counts, stream);
+int zp_select_tokens_pass(ZP_ARGS) {
+  return launch_variant(select_tokens_floor_kernel<0>, doubling_smem(seg),
+                        ZP_PASS);
 }
 
-int zp_select_tokens_doubling(const void* data, int64_t pitch,
-                              const void* matches, const void* n_valid, int N,
-                              int nseg, int seg, int start, int lazy,
-                              int lanes, void* tv, void* td, void* counts,
-                              void* stream) {
+int zp_select_tokens_doubling(ZP_ARGS) {
   return launch_variant(select_tokens_doubling_kernel, doubling_smem(seg),
-                        data, pitch, matches, n_valid, N, nseg, seg, start,
-                        lazy, lanes, tv, td, counts, stream);
+                        ZP_PASS);
 }
 
-int zp_select_tokens_spec(const void* data, int64_t pitch, const void* matches,
-                          const void* n_valid, int N, int nseg, int seg,
-                          int start, int lazy, int lanes, void* tv, void* td,
-                          void* counts, void* stream) {
-  return launch_variant(select_tokens_spec_kernel, spec_smem(seg), data,
-                        pitch, matches, n_valid, N, nseg, seg, start, lazy,
-                        lanes, tv, td, counts, stream);
+int zp_select_tokens_spec(ZP_ARGS) {
+  return launch_variant(select_tokens_spec_kernel, spec_smem(seg), ZP_PASS);
 }
 
 #ifdef ZP_PHASES

@@ -48,7 +48,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "tools" / "probe_select_tokens.cu"
 OUT = ROOT / "build" / "probe_select_tokens"
 
-_KERNEL = """__global__ void __launch_bounds__(kTokThreads)
+_KERNEL = """template <bool kSplitFar>
+__global__ void __launch_bounds__(kTokThreads)
 select_tokens_kernel("""
 # clock64() of thread 0 at each phase boundary, and the fix-up rounds
 _PHASES = [
@@ -235,7 +236,7 @@ def main() -> None:
 
         def launch(fn) -> None:
             rc = fn(data.data_ptr(), data.shape[1], matches.data_ptr(),
-                    nv.data_ptr(), N, N // seg, seg, 0, 1, L, tv.data_ptr(),
+                    nv.data_ptr(), N, N // seg, seg, 0, 1, 0, L, tv.data_ptr(),
                     td.data_ptr(), cnt.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")

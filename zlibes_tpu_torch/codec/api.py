@@ -55,8 +55,9 @@ def deflate(data: bytes, *, backend: str = "device",
     ``config`` (a ``CodecConfig``) overrides it; with neither the default
     config (level 6) encodes.  ``CodecConfig.turbo(...)`` selects the turbo
     profile (shared tables, 512-byte segments, 4 KiB window resets, codes
-    of at most 9 bits); any other shared-tables config raises
-    NotImplementedError, a config of another class TypeError.
+    of at most 9 bits); every other shared-tables config encodes through
+    the same shared-table encoder, with coded fields of up to 48 bits.  A
+    config of another class raises TypeError.
     ``dictionary=`` supplies a preset dictionary (RFC 1950 §2.2).
     ``stats`` (a ``CodecStats``) collects per-call observability.
 

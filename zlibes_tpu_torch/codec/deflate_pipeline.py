@@ -26,29 +26,36 @@ A preset dictionary's last 32 KiB ride in front of the first block's row as
 a context prefix the matcher may copy from and the selector never
 tokenizes.  Level 0 (``force_stored``) writes stored blocks on the host.
 
-**Turbo** (``_deflate_turbo``: ``CodecConfig.turbo()`` without a
+**Shared tables** (``_deflate_turbo``: every config with
+``shared_tables``, ``CodecConfig.turbo()`` among them, without a
 dictionary):
 
-  phase 1  match finding under a 4 KiB window reset -> ``select_turbo``
-           (CUDA kernel) over 512-byte segment lanes -> symbols and
-           per-block histograms, and Adler-32 partial sums; after every
-           dispatch, the stream-wide length-limited code lengths
-           (package-merge on the device) ride the same single readback;
+  phase 1  match finding (under the config's window reset) -> token
+           selection over ``seg_size``-byte segment lanes: ``select_turbo``
+           (CUDA kernel) at the turbo geometry of 512-byte lanes and a
+           4 KiB reset, ``select_tokens`` (CUDA kernel) at any other; far
+           long matches cut at 130 bytes (``split_far``) when codes have at
+           most 9 bits -> symbols and per-block histograms, and Adler-32
+           partial sums; after every dispatch, the stream-wide
+           length-limited code lengths (package-merge on the device) ride
+           the same single readback;
   host     one dynamic header (identical but for BFINAL) and the shared
            canonical codes;
-  phase 2  ``encode_fields`` (CUDA kernel) and the pack into a compacted
-           stream image per dispatch, one readback for all dispatches;
+  phase 2  ``encode_fields`` (CUDA kernel: coded fields of up to 48 bits)
+           and the pack into a compacted stream image per dispatch, one
+           readback for all dispatches;
   host     splice headers, EOB codes, empty stored sync blocks and the
-           paired 512-byte anchors into the stream and its StreamIndex.
+           paired anchors (each segment's start and its first token at or
+           past byte 256) into the stream and its StreamIndex, a turbo
+           index for the turbo profile's geometry and codes.
 
-The turbo encode reads the device back twice.  Beyond
+The shared-table encode reads the device back twice.  Beyond
 ``cfg.phase1_cache_blocks`` blocks phase 2 runs match and select again
 instead of keeping phase 1's tokens; the bytes are the same.  Every stage
-is integer work, so the bytes equal the JAX package's, on any device.
-
-A shared-tables config that is not the turbo profile (another segment
-size or window reset, codes above 9 bits) raises NotImplementedError: the
-shared-table pack is ported for fields of at most 32 bits only.
+is integer work, so the bytes equal the JAX package's, on any device,
+wherever every coded token fits 32 bits.  Where one does not (codes above
+9 bits with a far match), the reference's 32-bit pack writes bytes that
+CPython rejects; the port keeps the whole field.
 """
 from __future__ import annotations
 
@@ -100,13 +107,6 @@ def _own_config(cfg: CodecConfig | None) -> CodecConfig:
             f"not zlibes_tpu_torch.CodecConfig; convert it with "
             f"zlibes_tpu_torch.config.config_from_reference")
     return cfg
-
-
-def _is_turbo(cfg: CodecConfig) -> bool:
-    """Shared tables, 512-byte segments, a 4 KiB window reset and codes of
-    at most 9 bits: what ``_deflate_turbo`` encodes."""
-    return (cfg.shared_tables and cfg.seg_size == 512
-            and cfg.chunk_reset == 4096 and cfg.max_code_bits <= 9)
 
 
 # ---------------------------------------------------------------------------
@@ -244,13 +244,14 @@ def select_inputs(dev_bytes: torch.Tensor, matches: torch.Tensor,
 
 
 def select_glue(dev_bytes: torch.Tensor, matches: torch.Tensor,
-                n_valid: torch.Tensor, N: int, lazy: bool):
+                n_valid: torch.Tensor, N: int, lazy: bool,
+                split_far: bool = True):
     """Select tokens per 512-byte lane (``select_turbo``) and unpack them to
     (tv, td, cnt) (``_select_turbo_glue``,
     zlibes_tpu/codec/deflate_pipeline.py:214), in lane order: no
     word-planes."""
     pv, slen = select_inputs(dev_bytes, matches, n_valid, N)
-    toks, cnt = tk.select_turbo(pv, slen, lazy=lazy)
+    toks, cnt = tk.select_turbo(pv, slen, lazy=lazy, split_far=split_far)
     is_m = (toks & tk.TOK_MATCH_BIT) != 0
     tv = toks & tk.TOK_VAL_MASK
     td = torch.where(is_m, (toks >> tk.TOK_DIST_SHIFT) & tk.TOK_DIST_MASK, 0)
@@ -267,6 +268,25 @@ def block_rows(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int):
     return blk_bytes, n_valid
 
 
+def _row_width(cfg: CodecConfig) -> int:
+    """Word slots of a segment lane's row in the shared-table pack: its
+    coded bits, up to 31 bits of offset into the first word, and 2 spare.
+
+    ``cfg.pack_row_width()`` counts ``max_code_bits`` bits a byte.  A
+    literal costs at most that; a match of L bytes at most 2 codes + 5
+    length-extra bits (none for L <= 10) + the distance-extra bits.  At 15
+    bits a byte costs at most 15: a 3-byte match costs at most 15 + 0 + 15
+    + 13 = 43 <= 45 bits, a match of 227-257 bytes 48 bits.  Below 13-bit
+    codes a 3-byte match can cost more than 3 codes (9 bits: 9 + 9 + 13 =
+    31 > 27, or 9 + 9 + 10 = 28 with distances under a 4 KiB reset), so
+    the row is sized for lanes of 3-byte matches where they cost more."""
+    c = cfg.max_code_bits
+    reset = cfg.chunk_reset
+    far = min(13, reset.bit_length() - 3) if reset else 13
+    bits = max(c * cfg.seg_size, -(-cfg.seg_size * (2 * c + far) // 3))
+    return max(cfg.pack_row_width(), -(-((bits + 31) // 32 + 2) // 8) * 8)
+
+
 def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
                    stats: CodecStats, dev: torch.device):
     """Shared-table encode: one stream-wide length-limited table pair and
@@ -277,6 +297,11 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     nseg = N // SEG_SIZE
     Bp = cfg.blocks_per_dispatch
     keep_tokens = nblocks <= cfg.phase1_cache_blocks
+    # as in the reference: with codes of at most 9 bits (the turbo decode's)
+    # match candidates are ranked in two phases, and far long matches are
+    # cut so that no coded token passes 32 bits
+    short_codes = cfg.max_code_bits <= 9
+    turbo_lanes = SEG_SIZE == tk.SEL_SEG and cfg.chunk_reset == 4096
 
     def run_dispatch(d0: int, d1: int):
         blk_bytes, n_valid = block_rows(arr, d0, d1, N, Bp)
@@ -286,10 +311,15 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         with stats.timer("match"), trace("zlibes.match"):
             matches = find_matches(dev_bytes, dev_nv, N=N, S=cfg.probe_words,
                                    J=cfg.candidates, reset=cfg.chunk_reset,
-                                   two_phase=True)
+                                   two_phase=short_codes)
         with stats.timer("select"), trace("zlibes.select"):
-            tv, td, cnt = select_glue(dev_bytes, matches, dev_nv, N,
-                                      cfg.lazy)
+            if turbo_lanes:     # distances fit 12 bits
+                tv, td, cnt = select_glue(dev_bytes, matches, dev_nv, N,
+                                          cfg.lazy, split_far=short_codes)
+            else:
+                tv, td, cnt = select_tokens(dev_bytes, matches, dev_nv, N=N,
+                                            SEG_SIZE=SEG_SIZE, lazy=cfg.lazy,
+                                            split_far=short_codes)
         return tv, td, cnt, n_valid, ad_a, ad_b
 
     # --- phase 1: every dispatch queued before one readback
@@ -369,7 +399,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     anchor_out: list[int] = []
     anchor_block: list[int] = []
     stream_bit = 0
-    R = cfg.pack_row_width(SEG_SIZE)
+    R = _row_width(cfg)
     if hb0 // 32 + 3 > _F or hb1 // 32 + 3 > _F:
         raise RuntimeError("dynamic header exceeds the filler budget")
     L_ = Bp * nseg
@@ -491,7 +521,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         np.asarray(anchor_out, np.int64),
         np.asarray(anchor_block, np.int32),
         chunk_reset=cfg.chunk_reset,
-        turbo=True,
+        turbo=turbo_lanes and short_codes,
         max_tokens=max_tokens,
     )
     return body, index
@@ -839,12 +869,6 @@ def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
     if cfg.force_stored:
         return _stored_stream(arr, stats)
     if cfg.shared_tables and not dictionary:
-        if not _is_turbo(cfg):
-            raise NotImplementedError(
-                f"config {cfg}: shared tables are encoded for the turbo "
-                f"profile only (seg_size 512, chunk_reset 4096, "
-                f"max_code_bits <= 9); the shared-table pack of coded "
-                f"fields above 32 bits is not ported")
         if N % _ADLER_CHUNK:
             raise ValueError(
                 f"shared-tables encode requires block_size to be a multiple "

@@ -51,8 +51,9 @@ __device__ __forceinline__ void select_step(int ml, int dist, int lit,
   next = c + (use ? ml : 1);
 }
 
-// select_turbo: 512-position lanes, distances of 12 bits, split_far on (the
-// turbo profile's codes have at most 9 bits).
+// select_turbo: 512-position lanes, distances of 12 bits; split_far on for
+// the turbo profile (codes of at most 9 bits), off for a shared-tables
+// config with longer codes (the template flag kSplitFar).
 //
 // A block of 128 threads owns 8 segment lanes and keeps their rows in 16 KB
 // of shared memory.  (1) It copies the rows in with one 16-byte load per
@@ -74,15 +75,17 @@ constexpr int kTokMask = (1 << kNextShift) - 1;
 
 // token | next << 22 of position c, given its packed value and the next
 // position's
+template <bool kSplitFar>
 __device__ __forceinline__ int turbo_step(int cur, int nxt, int c,
                                           int seg_end, int lazy) {
   int tok, next;
-  select_step<true, kMatchBit>(
+  select_step<kSplitFar, kMatchBit>(
       (cur >> kLenShift) & 511, cur & 0xFFF, (cur >> kLitShift) & 0xFF,
       [nxt] { return (nxt >> kLenShift) & 511; }, c, seg_end, lazy, tok, next);
   return tok | (int)((unsigned)next << kNextShift);
 }
 
+template <bool kSplitFar>
 __global__ void __launch_bounds__(kSelThreads)
 select_turbo_kernel(const int32_t* __restrict__ pv,
                     const int32_t* __restrict__ seg_len, int lanes, int lazy,
@@ -113,10 +116,10 @@ select_turbo_kernel(const int32_t* __restrict__ pv,
     // successor, as in the plain version's clamp
     const int after = reinterpret_cast<const int32_t*>(rows[r])[min(c + 4,
                                                                     kSeg - 1)];
-    packed[r].x = turbo_step(cur.x, cur.y, c, seg_end, lazy);
-    packed[r].y = turbo_step(cur.y, cur.z, c + 1, seg_end, lazy);
-    packed[r].z = turbo_step(cur.z, cur.w, c + 2, seg_end, lazy);
-    packed[r].w = turbo_step(cur.w, after, c + 3, seg_end, lazy);
+    packed[r].x = turbo_step<kSplitFar>(cur.x, cur.y, c, seg_end, lazy);
+    packed[r].y = turbo_step<kSplitFar>(cur.y, cur.z, c + 1, seg_end, lazy);
+    packed[r].z = turbo_step<kSplitFar>(cur.z, cur.w, c + 2, seg_end, lazy);
+    packed[r].w = turbo_step<kSplitFar>(cur.w, after, c + 3, seg_end, lazy);
   }
   __syncthreads();
 #pragma unroll
@@ -154,10 +157,14 @@ select_turbo_kernel(const int32_t* __restrict__ pv,
   }
 }
 
-// select_tokens: the general encoder's selection (levels 1-9).  Lanes of a
-// run-time length ``seg`` (4,096 by default), distances to 32,768, no
-// split_far, and a row offset ``start`` (the width of a preset dictionary's
-// context prefix, whose positions are match sources and never tokens).
+// select_tokens: the general encoder's selection (levels 1-9), and the
+// shared-table encoder's outside the turbo profile's 512/4096 geometry.
+// Lanes of a run-time length ``seg`` (4,096 by default), distances to
+// 32,768, split_far as the template flag kSplitFar (on for a shared-tables
+// config with codes of at most 9 bits, off elsewhere: the general
+// encoder's instance is unchanged), and a row offset ``start`` (the width
+// of a preset dictionary's context prefix, whose positions are match
+// sources and never tokens).
 // Reads the matcher's (len << 16) | dist and the block's bytes as they are.
 // Replaces the reference's XLA while_loop (zlibes_tpu/ops/lz77.py:295).
 //
@@ -232,13 +239,14 @@ __device__ __forceinline__ int warp_inclusive_sum(int v) {
 
 // (1): every position's token into tok[c] and its successor into
 // nxt[c + 2 * (c >> lg_piece)] (no barrier)
+template <bool kSplitFar>
 __device__ __forceinline__ void select_tokens_pass(
     const uint8_t* __restrict__ d, const int32_t* __restrict__ m, int seg_len,
     int lazy, int lg_piece, int32_t* tok, uint16_t* nxt) {
   for (int c = threadIdx.x; c < seg_len; c += kTokThreads) {
     const int cur = m[c];
     int t, nx;
-    select_step<false, kWideMatchBit>(
+    select_step<kSplitFar, kWideMatchBit>(
         cur >> 16, cur & 0xFFFF, d[c], [m, c] { return m[c + 1] >> 16; }, c,
         seg_len, lazy, t, nx);
     tok[c] = t;
@@ -298,6 +306,7 @@ __device__ __forceinline__ void store_marked(
   }
 }
 
+template <bool kSplitFar>
 __global__ void __launch_bounds__(kTokThreads)
 select_tokens_kernel(const uint8_t* __restrict__ data, int64_t pitch,
                      const int32_t* __restrict__ matches,
@@ -331,9 +340,9 @@ select_tokens_kernel(const uint8_t* __restrict__ data, int64_t pitch,
   while ((kPieces << lg_piece) < seg_len) ++lg_piece;
   const int P = 1 << lg_piece;
 
-  select_tokens_pass(data + (int64_t)b * pitch + seg0,
-                     matches + (int64_t)b * N + seg0, seg_len, lazy, lg_piece,
-                     tok, nxt);
+  select_tokens_pass<kSplitFar>(data + (int64_t)b * pitch + seg0,
+                                matches + (int64_t)b * N + seg0, seg_len,
+                                lazy, lg_piece, tok, nxt);
   for (int w = tid; w < nwords; w += kTokThreads) {
     sbits[w] = 0;
     fbits[w] = 0;
@@ -449,6 +458,11 @@ select_tokens_kernel(const uint8_t* __restrict__ data, int64_t pitch,
 
 // ---------------------------------------------------------------- fields
 // One thread per token; the packed code | len << 16 tables in shared memory.
+// The field is kept whole: a litlen code, up to 5 length-extra bits, a
+// distance code and up to 13 distance-extra bits make up to 48 bits once
+// codes reach 15 bits (15 + 5 + 15 + 13), so it leaves as a 64-bit word.
+// Its low 32 bits are the reference kernel's 32-bit field, which drops
+// what lies at bit 32 or above.
 
 __device__ __forceinline__ int bitlen(int x, int kmax) {
   // floor(log2(x)) + 1 for x >= 1 (1 for x <= 1), saturating at kmax + 1
@@ -473,7 +487,7 @@ __global__ void encode_fields_kernel(const int32_t* __restrict__ tv_g,
                                      const int32_t* __restrict__ en_g,
                                      const int32_t* __restrict__ lt_g,
                                      const int32_t* __restrict__ dt_g,
-                                     int64_t n, int32_t* __restrict__ val_out,
+                                     int64_t n, int64_t* __restrict__ val_out,
                                      int32_t* __restrict__ nb_out) {
   __shared__ int32_t lt[kLitlenSyms];
   __shared__ int32_t dt[kDistSyms];
@@ -513,13 +527,12 @@ __global__ void encode_fields_kernel(const int32_t* __restrict__ tv_g,
   uint32_t dist_ev = ism ? (uint32_t)(d1 - base_d) : 0u;
 
   // the combined field, LSB-first: litlen code, length extra, dist code,
-  // dist extra; a field starting at bit 32 or later is dropped
+  // dist extra (n123 <= 35, so every shift stays inside the word)
   int n12 = n1 + len_en;
   int n123 = n12 + n3;
-  uint32_t val = code1 | (len_ev << n1);
-  if (n12 < 32) val |= code3 << n12;
-  if (n123 < 32) val |= dist_ev << n123;
-  val_out[i] = (int32_t)val;
+  uint64_t val = (uint64_t)code1 | ((uint64_t)len_ev << n1) |
+                 ((uint64_t)code3 << n12) | ((uint64_t)dist_ev << n123);
+  val_out[i] = (int64_t)val;
   nb_out[i] = n123 + dist_en;
 }
 
@@ -528,9 +541,11 @@ __global__ void encode_fields_kernel(const int32_t* __restrict__ tv_g,
 extern "C" {
 
 int zt_select_turbo(const void* pv, const void* seg_len, int lanes, int lazy,
-                    void* toks, void* counts, void* stream) {
+                    int split_far, void* toks, void* counts, void* stream) {
   unsigned blocks = (unsigned)((lanes + kSelLanes - 1) / kSelLanes);
-  select_turbo_kernel<<<blocks, kSelThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = split_far ? select_turbo_kernel<true>
+                          : select_turbo_kernel<false>;
+  kernel<<<blocks, kSelThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pv, (const int32_t*)seg_len, lanes, lazy,
       (int32_t*)toks, (int32_t*)counts);
   return (int)cudaGetLastError();
@@ -538,19 +553,19 @@ int zt_select_turbo(const void* pv, const void* seg_len, int lanes, int lazy,
 
 int zt_select_tokens(const void* data, int64_t pitch, const void* matches,
                      const void* n_valid, int N, int nseg, int seg, int start,
-                     int lazy, int lanes, void* tv, void* td, void* counts,
-                     void* stream) {
+                     int lazy, int split_far, int lanes, void* tv, void* td,
+                     void* counts, void* stream) {
   if (seg <= 0 || seg > kMaxTokSeg) return (int)cudaErrorInvalidValue;
+  auto kernel = split_far ? select_tokens_kernel<true>
+                          : select_tokens_kernel<false>;
   const int smem = select_tokens_smem(seg);
   // the default cap of 48 KB counts the 8.6 KB of static tables too
   if (smem > 32 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
-        select_tokens_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return (int)rc;
   }
-  select_tokens_kernel<<<(unsigned)lanes, kTokThreads, smem,
-                         (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)lanes, kTokThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)data, pitch, (const int32_t*)matches,
       (const int32_t*)n_valid, N, nseg, seg, start, lazy, (int32_t*)tv,
       (int32_t*)td, (int32_t*)counts);
@@ -564,7 +579,7 @@ int zt_encode_fields(const void* tv, const void* td, const void* en,
   unsigned blocks = (unsigned)((n + threads - 1) / threads);
   encode_fields_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)tv, (const int32_t*)td, (const int32_t*)en,
-      (const int32_t*)lt, (const int32_t*)dt, n, (int32_t*)val, (int32_t*)nb);
+      (const int32_t*)lt, (const int32_t*)dt, n, (int64_t*)val, (int32_t*)nb);
   return (int)cudaGetLastError();
 }
 

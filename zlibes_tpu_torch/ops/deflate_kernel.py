@@ -4,10 +4,11 @@ Counterpart of ``zlibes_tpu/ops/deflate_kernel.py``: symbols and per-block
 histograms of the selected tokens (``token_symbols``); the general
 encoder's payload pack under per-block tables into per-block word buffers
 (``pack_payload``) and the read of their used words
-(``gather_compressed``); and the turbo profile's pack around the
-``encode_fields`` kernel, straight into a compacted stream image
-(``pack_payload_turbo_dense``) or, for the block-parallel encoder, into
-per-block word buffers (``pack_payload_turbo``).
+(``gather_compressed``); and the shared-table encoder's pack around the
+``encode_fields`` kernel (any shared-tables config, fields of up to 48
+bits), straight into a compacted stream image
+(``pack_payload_turbo_dense``) or, for the block-parallel turbo encoder,
+into per-block word buffers (``pack_payload_turbo``).
 
 Every array is in lane order: lane ``l`` of a dispatch is row ``l`` of an
 (L, T) array, segment ``l % nseg`` of block ``l // nseg``.  Coded words are
@@ -186,7 +187,8 @@ def gather_compressed(words_flat: torch.Tensor,
 
 def pack_rows_turbo(tv, td, valid, lt, dt, hdr_bits, nseg: int, R: int):
     """Coded fields placed into per-lane word rows (``_pack_rows_turbo``,
-    zlibes_tpu/ops/deflate_kernel.py:386).
+    zlibes_tpu/ops/deflate_kernel.py:386), fields of up to 48 bits whole
+    (the reference's pack takes the low 32 bits of each).
 
     Returns (rows (L, R) int64: word j of lane l's coded bits, relative to
     the lane's first stream word lane_bit0 >> 5; lane_tot (L,) bits;
@@ -199,7 +201,7 @@ def pack_rows_turbo(tv, td, valid, lt, dt, hdr_bits, nseg: int, R: int):
     dev = tv.device
     val, nb = encode_fields(tv.reshape(-1), td.reshape(-1),
                             valid.int().reshape(-1), lt, dt)
-    val = val.long().reshape(L, T) & _MASK32
+    val = val.reshape(L, T)
     tb = torch.where(valid, nb.reshape(L, T), 0).long()
 
     lane_tot = tb.sum(1)
@@ -218,25 +220,33 @@ def pack_rows_turbo(tv, td, valid, lt, dt, hdr_bits, nseg: int, R: int):
     split_bit = torch.where(cond, within, _BIGS).min(1).values
     split_out = torch.where(cond, wout, _BIGS).min(1).values
 
+    # a field of up to 48 bits at bit sh (< 32) of its word slot dw spans up
+    # to three words: c0 in dw, c1 in dw + 1, c2 in dw + 2
     en = valid & (tb > 0)
     rel = within + (lane_bit0 & 31)[:, None]     # bit offset within lane row
     dw = torch.where(en, rel >> 5, _BIGK)        # word slot
     sh = rel & 31
-    c0 = torch.where(en, (val << sh) & _MASK32, 0)
-    c1 = torch.where(en, (val >> (31 - sh)) >> 1, 0)
+    lo = (val & _MASK32) << sh                   # < 2^63
+    hi = (val >> 32) << sh                       # < 2^47
+    c0 = torch.where(en, lo & _MASK32, 0)
+    c1 = torch.where(en, (lo >> 32) | (hi & _MASK32), 0)
+    c2 = torch.where(en, hi >> 32, 0)
 
+    # the tokens starting in one word slot are a run; only the run's last
+    # token reaches past the slot.  A wide token can leave the next slot
+    # without a run of its own, so the run ends hold distinct, not
+    # consecutive, slots: word j is the c0 sum of run j, the c1 of run j - 1
+    # and the c2 of run j - 2, each 0 where there is no such run
     prev = torch.nn.functional.pad(dw, (1, 0), value=-1)[:, :T]
     acc = _segmented_sum(c0, dw > prev)
     nxt = torch.nn.functional.pad(dw, (0, 1), value=1 << 30)[:, 1:]
     is_end = (nxt > dw) & en
-    # tokens' word slots advance by <= 1 (every coded token fits 32 bits),
-    # so the run ends carry word slots 0..nwords-1, each once
     slot = torch.where(is_end, dw, R).clamp(max=R)
-    main = torch.zeros((L, R + 1), dtype=torch.long, device=dev)
-    main.scatter_(1, slot, torch.where(is_end, acc, 0))
-    carry = torch.zeros((L, R + 1), dtype=torch.long, device=dev)
-    carry.scatter_(1, slot, torch.where(is_end, c1, 0))
-    rows = main[:, :R] | torch.nn.functional.pad(carry[:, :R - 1], (1, 0))
+    rows = torch.zeros((L, R), dtype=torch.long, device=dev)
+    for k, part in enumerate((acc, c1, c2)):
+        words = torch.zeros((L, R + 1), dtype=torch.long, device=dev)
+        words.scatter_(1, slot, torch.where(is_end, part, 0))
+        rows[:, k:] |= words[:, :R - k]
     return rows, lane_tot, lane_bit0, payload_end, split_bit, split_out
 
 

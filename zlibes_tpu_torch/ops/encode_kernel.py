@@ -2,16 +2,23 @@
 
 Counterpart of ``zlibes_tpu/ops/encode_kernel.py``.  ``encode_fields``
 turns each token into its combined coded field, LSB-first: litlen code,
-length extra bits, dist code, dist extra bits (at most 32 bits in the turbo
-profile), and the field's bit count.
+length extra bits, dist code, dist extra bits, and the field's bit count.
+
+A field has up to 48 bits (a 15-bit litlen code, 5 length-extra bits, a
+15-bit dist code, 13 dist-extra bits); it stays within 32 bits only under
+the turbo profile's 9-bit codes, far-match cap and 4 KiB window.  The
+reference's kernel keeps the low 32 bits and drops the rest, so the
+shared-table encode it feeds writes wrong bytes wherever a token is wider.
+Here ``val`` is int64 and holds the whole field; its low 32 bits are the
+reference's ``val`` for every token.
 
 Replaces encode_fields (zlibes_tpu/ops/encode_kernel.py:110, kernel
 _encfields_kernel :52).  The TPU kernel serves the table lookups with
 banked vreg gathers from sublane-replicated (256, 384) table tiles.  On the
 card it is one thread per token (``csrc/encode_kernels.cu``): the 288 + 32
 packed table entries sit in shared memory, symbols and extra bits are
-integer arithmetic, and each thread reads 12 B and writes 8 B.  It is bound
-by that memory traffic, ~20 B a token.
+integer arithmetic, and each thread reads 12 B and writes 12 B.  It is
+bound by that memory traffic, ~24 B a token.
 
 The wrapper launches the kernel for CUDA tensors and runs the plain
 PyTorch version for CPU tensors; any other device raises.  Launches count
@@ -29,8 +36,6 @@ from ..spec import constants as C
 from .symbol_math import dist_extra, dist_symbol, len_extra, len_symbol
 from .turbo_kernel import _check, _launch, _ptr, _route
 
-_MASK32 = (1 << 32) - 1
-
 
 def pack_tables(ll_code, ll_len, d_code, d_len) -> tuple[torch.Tensor,
                                                           torch.Tensor]:
@@ -45,11 +50,6 @@ def pack_tables(ll_code, ll_len, d_code, d_len) -> tuple[torch.Tensor,
 
     return (pack(ll_code, ll_len, C.NUM_LITLEN_SYMBOLS),
             pack(d_code, d_len, C.NUM_DIST_SYMBOLS))
-
-
-def _to_int32(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).int()
 
 
 def encode_fields_plain(tv, td, en, lt, dt):
@@ -73,18 +73,20 @@ def encode_fields_plain(tv, td, en, lt, dt):
     dist_ev = torch.where(ism, de_v, 0)
     n12 = n1 + len_en
     n123 = n12 + n3
-    val = code1 | (len_ev << n1)
-    val |= torch.where(n12 < 32, code3 << n12.clamp(max=31), 0)
-    val |= torch.where(n123 < 32, dist_ev << n123.clamp(max=31), 0)
-    return _to_int32(val & _MASK32), (n123 + dist_en).int()
+    val = code1 | (len_ev << n1) | (code3 << n12) | (dist_ev << n123)
+    return val, (n123 + dist_en).int()
 
 
 def encode_fields(tv: torch.Tensor, td: torch.Tensor, en: torch.Tensor,
                   lt: torch.Tensor, dt: torch.Tensor):
     """tv, td (n,) int32 token values and distances (0 for a literal),
     en (n,) int32 validity, lt (288,) / dt (32,) int32 packed
-    ``code | len << 16`` -> (val (n,) int32, the coded field's 32 bits;
-    nb (n,) int32 its bit count, 0 where not ``en``)."""
+    ``code | len << 16`` (lengths of at most 15 bits) -> (val (n,) int64,
+    the whole coded field, below bit 48; nb (n,) int32 its bit count, 0
+    where not ``en``).  Where ``en`` is 0, ``val`` holds the litlen table's
+    code for ``tv`` clamped to 0..287, as the reference's does; the low 32
+    bits of ``val`` equal the reference kernel's int32 ``val`` (taken as
+    unsigned) on every token."""
     dev = tv.device
     n = tv.numel()
     for name, t, m in (("tv", tv, n), ("td", td, n), ("en", en, n),
@@ -93,7 +95,7 @@ def encode_fields(tv: torch.Tensor, td: torch.Tensor, en: torch.Tensor,
         _check(t, name, torch.int32, (m,), dev)
     if not _route(tv):
         return encode_fields_plain(tv, td, en, lt, dt)
-    val = torch.empty(n, dtype=torch.int32, device=dev)
+    val = torch.empty(n, dtype=torch.int64, device=dev)
     nb = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         _launch("encode_fields", dev, _ptr(tv), _ptr(td), _ptr(en), _ptr(lt),

@@ -218,13 +218,17 @@ def find_matches(data: torch.Tensor, n_valid: torch.Tensor, N: int,
 # ``(len << 16) | dist`` with len in 0..258; n_valid (B,) int32 bytes per
 # row, ``start`` included.  Lane k of block b covers positions
 # [start + k*SEG_SIZE, start + (k+1)*SEG_SIZE) clipped to n_valid[b]; a match
-# is clamped at the lane's end.  Returns (tv, td (L, SEG_SIZE) int32: token j
-# of lane l at column j, a match as (length, distance), a literal as (byte,
-# 0), zeros past the count; count (L,) int32), L = B * (N - start) // SEG_SIZE.
+# is clamped at the lane's end, and then, with ``split_far`` (the reference's,
+# which the shared-table encoder sets for codes of at most 9 bits), a match of
+# 131 bytes or more at a distance above 2048 is cut to 130.  Returns (tv, td
+# (L, SEG_SIZE) int32: token j of lane l at column j, a match as (length,
+# distance), a literal as (byte, 0), zeros past the count; count (L,) int32),
+# L = B * (N - start) // SEG_SIZE.
 
 def select_tokens_plain(data: torch.Tensor, matches: torch.Tensor,
                         n_valid: torch.Tensor, N: int, SEG_SIZE: int = SEG,
-                        lazy: bool = True, start: int = 0):
+                        lazy: bool = True, start: int = 0,
+                        split_far: bool = False):
     B = matches.shape[0]
     nseg = (N - start) // SEG_SIZE
     L = B * nseg
@@ -247,6 +251,8 @@ def select_tokens_plain(data: torch.Tensor, matches: torch.Tensor,
         pb = m[blk, cs]
         ml = torch.minimum(pb >> 16, seg_end - c)
         dist = pb & 0xFFFF
+        if split_far:
+            ml = torch.where((ml >= 131) & (dist >= 2049), 130, ml)
         use = ml >= C.MIN_MATCH
         if lazy:
             ml1 = m[blk, (cs + 1).clamp(max=N - 1)] >> 16
@@ -262,11 +268,13 @@ def select_tokens_plain(data: torch.Tensor, matches: torch.Tensor,
 
 def select_tokens(data: torch.Tensor, matches: torch.Tensor,
                   n_valid: torch.Tensor, N: int, SEG_SIZE: int = SEG,
-                  lazy: bool = True, start: int = 0):
+                  lazy: bool = True, start: int = 0,
+                  split_far: bool = False):
     """Greedy (+ one-step lazy) token cover of every segment lane ->
     (tv, td (L, SEG_SIZE) int32, count (L,) int32); see the contract
     above.  ``start`` > 0 is the width of a preset dictionary's context
-    prefix: bytes below it are match sources and never tokens."""
+    prefix: bytes below it are match sources and never tokens.
+    ``split_far`` caps far long matches at 130 bytes."""
     dev = matches.device
     B = matches.shape[0]
     _check(matches, "matches", torch.int32, (B, N), dev)
@@ -280,7 +288,7 @@ def select_tokens(data: torch.Tensor, matches: torch.Tensor,
                          f"multiple of SEG_SIZE ({SEG_SIZE})")
     if not _route(matches):
         return select_tokens_plain(data, matches, n_valid, N, SEG_SIZE, lazy,
-                                   start)
+                                   start, split_far)
     if SEG_SIZE > MAX_KERNEL_SEG:
         raise ValueError(f"the select_tokens kernel takes SEG_SIZE up to "
                          f"{MAX_KERNEL_SEG}, got {SEG_SIZE}")
@@ -293,6 +301,6 @@ def select_tokens(data: torch.Tensor, matches: torch.Tensor,
         _launch("select_tokens", dev, _ptr(data),
                 ctypes.c_int64(data.shape[1]), _ptr(matches), _ptr(n_valid),
                 *(ctypes.c_int(int(v)) for v in (N, nseg, SEG_SIZE, start,
-                                                 lazy, L)),
+                                                 lazy, split_far, L)),
                 _ptr(tv), _ptr(td), _ptr(count))
     return tv, td, count

@@ -468,7 +468,10 @@ def resolve_turbo(toks: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
 # number of valid positions of each lane (at most 512; a larger value counts
 # as 512).  Tokens are ``ml | dist << 9 |
 # TOK_MATCH_BIT`` for a match and the literal byte otherwise; slots at or
-# past a lane's count are 0.
+# past a lane's count are 0.  ``split_far`` (the reference's, on for codes
+# of at most 9 bits) caps a match of 131 bytes or more at a distance above
+# 2048 at 130 bytes, after the clamp at the lane's end; the kernel is
+# instantiated for both.
 
 # packed per-position value: dist(12) | len(9 @12) | literal(8 @21)
 SEL_LEN_SHIFT = 12
@@ -477,7 +480,8 @@ SEL_SEG = SEG_SPAN
 
 
 def select_turbo_plain(pv: torch.Tensor, seg_len: torch.Tensor,
-                       lazy: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+                       lazy: bool = True, split_far: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     L, SEG = pv.shape
     dev = pv.device
     pv = pv.long()
@@ -495,7 +499,8 @@ def select_turbo_plain(pv: torch.Tensor, seg_len: torch.Tensor,
         dist = cur & 0xFFF
         lit = (cur >> SEL_LIT_SHIFT) & 0xFF
         ml = torch.minimum(ml, seg_end - c)
-        ml = torch.where((ml >= 131) & (dist >= 2049), 130, ml)
+        if split_far:
+            ml = torch.where((ml >= 131) & (dist >= 2049), 130, ml)
         use = ml >= C.MIN_MATCH
         if lazy:
             nxt = pv.gather(1, (cs + 1).clamp(max=SEG - 1)[:, None])[:, 0]
@@ -512,22 +517,24 @@ def select_turbo_plain(pv: torch.Tensor, seg_len: torch.Tensor,
 
 
 def select_turbo(pv: torch.Tensor, seg_len: torch.Tensor,
-                 lazy: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+                 lazy: bool = True, split_far: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """pv (L, 512) int32 packed positions, seg_len (L,) int32 valid
     positions per lane -> (tokens (L, 512) int32 in the turbo token
-    packing, 0 past each count; counts (L,) int32).  Turbo profile only:
-    distances fit 12 bits (the 4 KiB window reset), and matches farther
-    than 2048 bytes are capped at 130 (the reference's ``split_far``, on
-    for codes of at most 9 bits)."""
+    packing, 0 past each count; counts (L,) int32).  Distances must fit 12
+    bits (a 4 KiB window reset); with ``split_far`` (the default, as for
+    the turbo profile's codes of at most 9 bits) matches farther than 2048
+    bytes are capped at 130."""
     dev = pv.device
     L = pv.shape[0]
     _check(pv, "pv", torch.int32, (L, SEL_SEG), dev)
     _check(seg_len, "seg_len", torch.int32, (L,), dev)
     if not _route(pv):
-        return select_turbo_plain(pv, seg_len, lazy)
+        return select_turbo_plain(pv, seg_len, lazy, split_far)
     toks = torch.empty((L, SEL_SEG), dtype=torch.int32, device=dev)
     count = torch.empty(L, dtype=torch.int32, device=dev)
     if L:
         _launch("select_turbo", dev, _ptr(pv), _ptr(seg_len), ctypes.c_int(L),
-                ctypes.c_int(int(lazy)), _ptr(toks), _ptr(count))
+                ctypes.c_int(int(lazy)), ctypes.c_int(int(split_far)),
+                _ptr(toks), _ptr(count))
     return toks, count

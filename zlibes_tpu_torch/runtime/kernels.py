@@ -36,9 +36,9 @@ _SIGNATURES = {
     "zt_decode_wide": [_P, _I64, _P, _INT, _P, _P, _P, _P, _P, _INT, _INT,
                        _INT, _P, _P, _P, _P],
     "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P, _P],
-    "zt_select_turbo": [_P, _P, _INT, _INT, _P, _P, _P],
+    "zt_select_turbo": [_P, _P, _INT, _INT, _INT, _P, _P, _P],
     "zt_select_tokens": [_P, _I64, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
-                         _P, _P, _P, _P],
+                         _INT, _P, _P, _P, _P],
     "zt_encode_fields": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
     "zt_decode_tokens": [_P, _I64, _P, _P, _INT, _P, _P, _P, _P, _P, _INT,
                          _INT, _P, _P, _P, _P, _P, _P, _P],
