@@ -62,12 +62,14 @@ card with the launch counts set to 0 just before and read just after,
 times the kernels and the pipeline with CUDA events and torch.profiler,
 and (inflate) probes corrupted streams.  From the profiler trace of the
 turbo and the level-6 ``deflate()`` calls it reads the encoder's named
-stage spans (``zlibes.match``, ``zlibes.select``, ``zlibes.symbols`` and,
-turbo only, ``zlibes.pack``: ``zlibes_tpu_torch.config.trace``) and prints
-for each its count a call, the device ms a call of the work launched
-inside it and the device range the profiler annotates with its name; a
-call that enters another span, or an expected one other than once a
-dispatch, fails the run.  ``resolve_wide`` is also held
+stage spans (``zlibes_tpu_torch.config.trace``: ``zlibes.match``,
+``zlibes.select``, ``zlibes.symbols``, ``zlibes.pack`` and ``zlibes.upload``
+a dispatch, the general encoder's ``zlibes.tables``, ``zlibes.splice`` and
+readbacks a dispatch too, and the call's root ``zlibes.deflate`` with its
+other stages) and prints for each its count a call, the device ms a call
+of the work launched inside it and the device range the profiler
+annotates with its name; a call that enters another span, or an expected
+one other than as often as its dispatches say, fails the run.  ``resolve_wide`` is also held
 against its plain version on rows of 32 KiB and of 256 KiB (the kernel's
 path for rows too long for shared memory), ``select_turbo`` on the
 corpus' second dispatch (padded lanes) with ``lazy`` on and off,
@@ -152,10 +154,19 @@ HBM_BYTES_PER_S = 3.35e12
 # numpy.random.default_rng seed of the incompressible encode (1 MiB)
 INCOMPRESSIBLE_SEED = 0
 OPS_PER_S = 67e12
-# the spans each encoder enters once a dispatch (tests/test_torch_trace.py)
-TURBO_SPANS = ("zlibes.match", "zlibes.select", "zlibes.symbols",
-               "zlibes.pack")
-GENERAL_SPANS = ("zlibes.match", "zlibes.select", "zlibes.symbols")
+# the spans each encoder enters a dispatch, and once a call besides
+# (tests/test_torch_trace.py; the general encoder's third readback is that
+# of a dispatch with a coded block, every dispatch of the corpus)
+TURBO_SPANS = {"zlibes.match": 1, "zlibes.select": 1, "zlibes.symbols": 1,
+               "zlibes.pack": 1, "zlibes.upload": 1}
+TURBO_CALL_SPANS = {"zlibes.deflate": 1, "zlibes.entropy": 2,
+                    "zlibes.readback": 2, "zlibes.upload": 1,
+                    "zlibes.splice": 1}
+GENERAL_SPANS = {"zlibes.match": 1, "zlibes.select": 1, "zlibes.symbols": 1,
+                 "zlibes.upload": 2, "zlibes.readback": 3, "zlibes.tables": 1,
+                 "zlibes.pack": 1, "zlibes.splice": 1}
+GENERAL_CALL_SPANS = {"zlibes.deflate": 1, "zlibes.adler": 1,
+                      "zlibes.upload": 1, "zlibes.readback": 1}
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -310,15 +321,18 @@ def profile_pipeline(fn, card: str, runs: int = 5,
     return trace
 
 
-def span_report(what: str, trace: Trace, names: tuple, dispatches: int,
-                card: str) -> None:
+def span_report(what: str, trace: Trace, per_dispatch: dict, per_call: dict,
+                dispatches: int, card: str) -> None:
     """Print each stage span's count and device ms a ``deflate()`` call of
-    a traced encode; fail unless the call entered each of ``names`` once a
-    dispatch and no other ``zlibes.*`` span."""
+    a traced encode; fail unless the call entered each span of
+    ``per_dispatch`` as often as it says a dispatch, those of ``per_call``
+    as often a call besides, and no other ``zlibes.*`` span."""
     got = {name: count for name, (count, _, _) in trace.spans.items()}
-    want = {name: dispatches for name in names}
+    want = {name: k * dispatches for name, k in per_dispatch.items()}
+    for name, k in per_call.items():
+        want[name] = want.get(name, 0) + k
     assert got == want, f"{what}: stage spans a call {got} != {want}"
-    for name in names:
+    for name in sorted(want):
         count, dev, rng = trace.spans[name]
         print(f"span {name} ({what}): {count:g} a deflate() call "
               f"({dispatches} dispatches), device {dev:.4f} ms a call (the "
@@ -956,8 +970,8 @@ def encode_phase(corpus: bytes, card: str,
     device_ms = profile_pipeline(
         lambda: zlibes_tpu_torch.deflate(corpus, config=cfg, device="cuda"),
         card, runs=2)
-    span_report("turbo encode", device_ms, TURBO_SPANS, stats.dispatches,
-                card)
+    span_report("turbo encode", device_ms, TURBO_SPANS, TURBO_CALL_SPANS,
+                stats.dispatches, card)
     if device_ms:
         busy = device_ms.busy
         print(f"encode: device busy {busy:.4f} of {call_s * 1e3:.2f} ms per "
@@ -1274,8 +1288,8 @@ def general_phase(corpus: bytes, card: str,
     device_ms = profile_pipeline(
         lambda: zlibes_tpu_torch.deflate(corpus, level=6, device="cuda"),
         card, runs=2)
-    span_report("level-6 encode", device_ms, GENERAL_SPANS, -(-nblocks // Bp),
-                card)
+    span_report("level-6 encode", device_ms, GENERAL_SPANS,
+                GENERAL_CALL_SPANS, -(-nblocks // Bp), card)
     if device_ms:
         busy = device_ms.busy
         print(f"general encode: device busy {busy:.4f} of {call_s * 1e3:.2f} "

@@ -62,7 +62,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats, trace
+from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats, span, trace
 from ..ops import huffman
 from ..spec import constants as C
 from ..spec.refmodel import (
@@ -305,14 +305,15 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
 
     def run_dispatch(d0: int, d1: int):
         blk_bytes, n_valid = block_rows(arr, d0, d1, N, Bp)
-        dev_bytes = torch.from_numpy(blk_bytes).to(dev)
-        dev_nv = torch.from_numpy(n_valid).to(dev)
+        with trace("zlibes.upload"):
+            dev_bytes = torch.from_numpy(blk_bytes).to(dev)
+            dev_nv = torch.from_numpy(n_valid).to(dev)
         ad_a, ad_b = adler_terms(dev_bytes, dev_nv)
-        with stats.timer("match"), trace("zlibes.match"):
+        with trace("zlibes.match", stats.stage_s):
             matches = find_matches(dev_bytes, dev_nv, N=N, S=cfg.probe_words,
                                    J=cfg.candidates, reset=cfg.chunk_reset,
                                    two_phase=short_codes)
-        with stats.timer("select"), trace("zlibes.select"):
+        with trace("zlibes.select", stats.stage_s):
             if turbo_lanes:     # distances fit 12 bits
                 tv, td, cnt = select_glue(dev_bytes, matches, dev_nv, N,
                                           cfg.lazy, split_far=short_codes)
@@ -335,7 +336,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     nt = Bp * nchunks
     for d0, d1 in spans:
         tv, td, cnt, n_valid, ad_a, ad_b = run_dispatch(d0, d1)
-        with stats.timer("symbols"), trace("zlibes.symbols"):
+        with trace("zlibes.symbols", stats.stage_s):
             _ls, _ds, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
                                                             nseg=nseg)
         # per-block histograms give the host each block's exact payload bits
@@ -349,7 +350,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
             kept[d0] = (tv, td, valid)
         stats.dispatches += 1
     # the shared code lengths, built on the device, ride the same readback
-    with stats.timer("entropy"):
+    with trace("zlibes.entropy", stats.stage_s):
         ll_tot = sum(ll_parts)
         ll_tot[C.END_OF_BLOCK] += nblocks
         ll_d, d_d = limited_lengths_pair(ll_tot.clamp(max=1 << 28),
@@ -357,7 +358,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
                                          cfg.max_code_bits)
         handles.append(ll_d.long())
         handles.append(d_d.long())
-    with stats.timer("readback"):
+    with trace("zlibes.readback", stats.stage_s):
         hist_all = torch.cat(handles).cpu().numpy()
     ll_len = hist_all[-(nh + nd) : -nd]
     d_len = hist_all[-nd:]
@@ -383,13 +384,15 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     stats.adler = adler_value(s1_sum, s2_sum, n)
 
     # --- host side of the entropy stage: header bits and canonical codes
-    with stats.timer("entropy"):
+    with trace("zlibes.entropy", stats.stage_s):
         hdr0, hb0 = _dynamic_header(ll_len, d_len, 0)
         hdr1, hb1 = _dynamic_header(ll_len, d_len, 1)
         ll_code, d_code = _encode_tables(ll_len, d_len)
         eob_code = int(ll_code[C.END_OF_BLOCK])
         eob_len = int(ll_len[C.END_OF_BLOCK])
-    lt, dt = (t.to(dev) for t in pack_tables(ll_code, ll_len, d_code, d_len))
+    tables = pack_tables(ll_code, ll_len, d_code, d_len)
+    with trace("zlibes.upload"):
+        lt, dt = (t.to(dev) for t in tables)
 
     # --- phase 2: pack every dispatch to its compacted stream image, one
     # readback for all; the phase-1 histograms size each block exactly
@@ -431,18 +434,18 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         else:
             tv, td, cnt, _nv, _aa, _ab = run_dispatch(d0, d1)
             _ls, _ds, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
-        with stats.timer("pack"), trace("zlibes.pack"):
+        with trace("zlibes.pack", stats.stage_s):
             dense, pe, lb, sb, so = pack_payload_turbo_dense(
                 tv, td, valid, lt, dt,
                 torch.from_numpy(hdr_bits_arr).to(dev), eob_len,
                 nseg=nseg, R=R, F=_F)
             handles2.append(torch.cat([torch.cat([pe, lb, sb, so]).int(),
                                        dense[:total_pad]]))
-    with stats.timer("readback"):
+    with trace("zlibes.readback", stats.stage_s):
         blob = torch.cat(handles2).cpu().numpy()
 
     # --- host: splice headers, EOB codes, sync blocks and anchors
-    with stats.timer("splice"):
+    with trace("zlibes.splice", stats.stage_s):
         pos = 0
         for k, (d0, d1) in enumerate(spans):
             pe_h, blk_off, total_pad = layout[k]
@@ -686,10 +689,11 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
         B = d1 - d0
         stats.dispatches += 1
         blk_bytes, n_valid, ctx_np = general_rows(arr, d0, d1, N, Bp, dict_np)
-        dev_bytes = torch.from_numpy(blk_bytes).to(dev)
-        dev_nv = torch.from_numpy(n_valid).to(dev) + CTX
-        ctx_dev = torch.from_numpy(ctx_np).to(dev) if CTX else None
-        with stats.timer("match"), trace("zlibes.match"):
+        with trace("zlibes.upload"):
+            dev_bytes = torch.from_numpy(blk_bytes).to(dev)
+            dev_nv = torch.from_numpy(n_valid).to(dev) + CTX
+            ctx_dev = torch.from_numpy(ctx_np).to(dev) if CTX else None
+        with trace("zlibes.match", stats.stage_s):
             if cfg.candidates > 0:
                 matches = find_matches(dev_bytes, dev_nv, N=CTX + N,
                                        S=cfg.probe_words, J=cfg.candidates,
@@ -698,33 +702,34 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
             else:       # literals only
                 matches = torch.zeros((Bp, CTX + N), dtype=torch.int32,
                                       device=dev)
-        with stats.timer("select"), trace("zlibes.select"):
+        with trace("zlibes.select", stats.stage_s):
             tv, td, cnt = select_tokens(dev_bytes, matches, dev_nv,
                                         N=CTX + N, SEG_SIZE=SEG_SIZE,
                                         lazy=cfg.lazy, start=CTX)
-        with stats.timer("symbols"), trace("zlibes.symbols"):
+        with trace("zlibes.symbols", stats.stage_s):
             lsym, dsym, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
                                                                nseg=nseg)
-        with stats.timer("readback"):
+        with trace("zlibes.readback", stats.stage_s):
             freq_np = torch.cat([ll_freq.reshape(-1),
                                  d_freq.reshape(-1)]).cpu().numpy()
         ll_freq_np = freq_np[: Bp * nh].reshape(Bp, nh)
         d_freq_np = freq_np[Bp * nh :].reshape(Bp, nd)
 
         # --- host: each block's coding choice and tables
-        with stats.timer("tables"):
+        with trace("zlibes.tables", stats.stage_s):
             plans, tables = dispatch_tables(arr, d0, d1, N, Bp, ll_freq_np,
                                             d_freq_np)
-            t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en = (
-                t.to(dev) for t in tables)
+            with trace("zlibes.upload"):
+                t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en = (
+                    t.to(dev) for t in tables)
 
         # --- device: the payload pack, with the wide index's sub-anchors
-        with stats.timer("pack"):
+        with trace("zlibes.pack", stats.stage_s):
             words, payload_end, lane_bit0, sub_bit, sub_out = pack_payload(
                 tv, td, lsym, dsym, valid,
                 t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en,
                 nseg=nseg, W=W, sub_every=WIDE_SUB)
-        with stats.timer("readback"):
+        with trace("zlibes.readback", stats.stage_s):
             meta_np = torch.cat([payload_end, lane_bit0, sub_bit.reshape(-1),
                                  sub_out.reshape(-1)]).cpu().numpy()
         payload_end_np = meta_np[:Bp]
@@ -744,7 +749,7 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
             flat_idx = np.concatenate(
                 [np.arange(used_words[i], dtype=np.int64) + i * W
                  for i in range(B)])
-            with stats.timer("readback"):
+            with trace("zlibes.readback", stats.stage_s):
                 dense = gather_compressed(
                     words.reshape(-1),
                     torch.from_numpy(flat_idx).to(dev)).cpu().numpy()
@@ -752,7 +757,7 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
             dense = np.zeros(0, np.int32)
 
         # --- host: splice the blocks
-        with stats.timer("splice"):
+        with trace("zlibes.splice", stats.stage_s):
             for i in range(B):
                 bi = d0 + i
                 plan = plans[i]
@@ -832,6 +837,7 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
     return body, index
 
 
+@span("zlibes.deflate")
 def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
                 config: CodecConfig | None = None,
                 stats: CodecStats | None = None,
@@ -844,7 +850,8 @@ def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
     (``find_matches(ctx_start=)``), the selector never tokenizes it
     (``select_tokens(start=)``); later blocks are self-contained.  With a
     dictionary even the turbo profile takes the general path (its 4 KiB
-    window resets could never reach one)."""
+    window resets could never reach one).  The call is one span,
+    ``zlibes.deflate``."""
     cfg = _own_config(config)
     dev = torch.device(device)
     stats = stats if stats is not None else CodecStats()
@@ -879,6 +886,7 @@ def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
     return _deflate_general(arr, N, cfg, stats, dev, dict_np)
 
 
+@span("zlibes.deflate")
 def deflate(data: bytes, block_size: int | None = None,
             with_index: bool = False, level: int | None = None,
             config: CodecConfig | None = None,
@@ -891,21 +899,27 @@ def deflate(data: bytes, block_size: int | None = None,
     ``level`` (0..9) selects a ``CodecConfig`` preset; ``config``
     overrides it; neither gives the default config (level 6).
     ``dictionary`` emits an FDICT member (RFC 1950 §2.2): the header
-    carries the dictionary's Adler-32 as DICTID."""
+    carries the dictionary's Adler-32 as DICTID.  The call is one span,
+    ``zlibes.deflate``."""
     data = bytes(data)
     if config is None and level is not None:
         config = CodecConfig.from_level(level)
     if stats is None:
         stats = CodecStats()
-    body, index = deflate_raw(data, block_size or C.BLOCK_MAX_BUFFER_LEN,
-                              config=config, stats=stats,
-                              dictionary=dictionary, device=device)
+    body, index = deflate_raw.__wrapped__(
+        data, block_size or C.BLOCK_MAX_BUFFER_LEN, config, stats,
+        dictionary, device=device)
     if stats.adler is not None:
         # the Adler-32 partial sums rode the encode's dispatches
         trailer = stats.adler.to_bytes(4, "big")
     else:
-        arr = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).copy())
-        trailer = int(adler32_device(arr.to(device))).to_bytes(4, "big")
+        with trace("zlibes.adler"):
+            with trace("zlibes.upload"):
+                arr = torch.from_numpy(np.frombuffer(
+                    data, dtype=np.uint8).copy()).to(device)
+            adler = adler32_device(arr)
+            with trace("zlibes.readback"):
+                trailer = int(adler).to_bytes(4, "big")
     if dictionary is not None:
         flg = 0x20 + (2 << 6)
         flg += (31 - (0x78 * 256 + flg) % 31) % 31

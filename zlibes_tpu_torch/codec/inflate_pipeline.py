@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import span, trace
 from ..spec import constants as C
 from ..spec.errors import (
     BlockTypeError,
@@ -72,7 +73,8 @@ class _Stream:
     memory as ``bytes`` (4·NW,) uint8."""
 
     def __init__(self, data: bytes, device: torch.device | str):
-        self.words = torch.from_numpy(stream_words(data)).to(device)
+        with trace("zlibes.upload"):
+            self.words = torch.from_numpy(stream_words(data)).to(device)
         self.bytes = self.words.view(torch.uint8)
         self.total_bits = len(data) * 8
 
@@ -96,7 +98,9 @@ def _tables(device, rows):
     dt = np.zeros((len(rows), wk.D_W), np.int32)
     for r, (ll, dl) in enumerate(rows):
         lt[r], dt[r] = wk.wide_decode_tables(ll, dl)
-    return torch.from_numpy(lt).to(device), torch.from_numpy(dt).to(device)
+    with trace("zlibes.upload"):
+        return (torch.from_numpy(lt).to(device),
+                torch.from_numpy(dt).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +216,9 @@ def inflate_raw_scan(data: bytes, byte_offset: int = 0,
             else:
                 ll_len, d_len = read_dynamic_code_lengths(br)
             payload_start = br.bitpos
-            toks, br.bitpos = _decode_one_block(stream, br.bitpos, ll_len,
-                                                d_len)
+            with trace("zlibes.decode"):
+                toks, br.bitpos = _decode_one_block(stream, br.bitpos,
+                                                    ll_len, d_len)
             parts.append(toks)
             out_len = int(torch.where((toks & wk.TOK_MATCH_BIT) != 0,
                                       toks & wk.TOK_VAL_MASK, 1).sum())
@@ -227,7 +232,8 @@ def inflate_raw_scan(data: bytes, byte_offset: int = 0,
         if bfinal:
             break
     tokens = torch.cat(parts) if parts else stream.words.new_zeros(0)
-    out = _resolve_tokens_device(tokens, dictionary=dictionary)
+    with trace("zlibes.resolve"):
+        out = _resolve_tokens_device(tokens, dictionary=dictionary)
     return out, blocks, br.bitpos
 
 
@@ -270,6 +276,7 @@ class _GroupPlan:
                  "lane_end", "B", "T", "d_base", "d_total")
 
 
+@span("zlibes.plan")
 def plan_groups(data: bytes, index: StreamIndex,
                 device: torch.device | str) -> list[_GroupPlan]:
     """Group anchor lanes into device dispatches (whole blocks per group,
@@ -277,7 +284,8 @@ def plan_groups(data: bytes, index: StreamIndex,
 
     For non-self-contained (foreign) indexes, groups additionally split at
     stored blocks so back-references never point into an unresolved gap —
-    stored content reaches later groups through the chained prefix.
+    stored content reaches later groups through the chained prefix.  The
+    call is the span ``zlibes.plan``, its uploads ``zlibes.upload``.
     """
     lane_bit0, lane_end, lane_out, lane_outlen, lane_block = \
         _index_lanes(index)
@@ -327,14 +335,15 @@ def plan_groups(data: bytes, index: StreamIndex,
                                       for b in block_ids])
         p.B = g1 - g0
         p.T = T
-        p.rows = on_dev(rows, np.int32)
-        p.bit0 = on_dev(lane_bit0[g0:g1], np.int64)
-        p.endb = on_dev(lane_end[g0:g1], np.int64)
-        p.active = torch.ones(p.B, dtype=torch.bool, device=device)
         p.lane_end = lane_end[g0:g1]
         p.d_base = int(lane_out[g0])
         p.d_total = int(lane_out[g1 - 1] + lane_outlen[g1 - 1]) - p.d_base
-        p.out_base = on_dev(lane_out[g0:g1] - p.d_base, np.int32)
+        with trace("zlibes.upload"):
+            p.rows = on_dev(rows, np.int32)
+            p.bit0 = on_dev(lane_bit0[g0:g1], np.int64)
+            p.endb = on_dev(lane_end[g0:g1], np.int64)
+            p.active = torch.ones(p.B, dtype=torch.bool, device=device)
+            p.out_base = on_dev(lane_out[g0:g1] - p.d_base, np.int32)
         plans.append(p)
     return plans
 
@@ -350,11 +359,14 @@ def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
     preset dictionary.  ``check`` raises CorruptError on a lane that failed
     or did not end at its index's end bit, and on a copy from before the
     prefix."""
-    tokens, starts, count, endpos, still, err = decode_tokens(
-        stream.words, p.lt, p.dt, p.rows, p.bit0, p.endb, p.active, T=p.T)
+    with trace("zlibes.decode"):
+        tokens, starts, count, endpos, still, err = decode_tokens(
+            stream.words, p.lt, p.dt, p.rows, p.bit0, p.endb, p.active,
+            T=p.T)
     if check:
-        meta = torch.stack([count.long(), err.long(), still.long(),
-                            endpos]).cpu().numpy()
+        with trace("zlibes.readback"):
+            meta = torch.stack([count.long(), err.long(), still.long(),
+                                endpos]).cpu().numpy()
         if meta[1].any() or meta[2].any():
             raise CorruptError("invalid Huffman data in indexed block")
         if not (meta[3] == p.lane_end).all():
@@ -367,10 +379,14 @@ def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
     if prefix is None:
         prefix = stream.bytes.new_zeros(0)
     P = prefix.numel()
-    out, rerr = resolve_global(tokens, starts, count, p.out_base + P,
-                               P + p.d_total, prefix)
-    if check and bool(rerr):
-        raise CorruptError("back-reference escapes its resolve span")
+    with trace("zlibes.resolve"):
+        out, rerr = resolve_global(tokens, starts, count, p.out_base + P,
+                                   P + p.d_total, prefix)
+    if check:
+        with trace("zlibes.readback"):
+            escaped = bool(rerr)
+        if escaped:
+            raise CorruptError("back-reference escapes its resolve span")
     return out
 
 
@@ -452,6 +468,7 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
     return inflate_raw_indexed(data, index, device, check=check)
 
 
+@span("zlibes.inflate_range")
 def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
                   *, device: torch.device | str) -> bytes:
     """Random-access decode of output bytes [start, start+length).
@@ -462,44 +479,51 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
     out_starts are multiples of 128 KiB in turbo and wide streams, so the
     sub-stream keeps their anchor geometry (512 B turbo segments, 128 B
     wide sub-spans); a generic index's lanes are its anchors wherever they
-    lie.
+    lie.  The call is the span ``zlibes.inflate_range``; the sub-index is
+    ``zlibes.subindex``, the copy of the range to the host
+    ``zlibes.readback``.
     """
     total = index.total_out
     if start < 0 or length < 0 or start + length > total:
-        raise ValueError(
-            f"range [{start}, {start + length}) outside output [0, {total})")
+        raise ValueError(f"range [{start}, {start + length}) outside "
+                         f"output [0, {total})")
     data = bytes(data)
     _refuse_fdict(data, "inflate_range")
     if not getattr(index, "self_contained", True):
         raise CorruptError(
-            "inflate_range requires self-contained blocks (indexes from this "
-            "framework's encoder); foreign chained streams must decode from "
-            "the start")
+            "inflate_range requires self-contained blocks (indexes from "
+            "this framework's encoder); foreign chained streams must "
+            "decode from the start")
     if length == 0:
         return b""
     end = start + length
-    keep = [i for i, b in enumerate(index.blocks) if b.out_len
-            and b.out_start < end and b.out_start + b.out_len > start]
-    out_lo = index.blocks[keep[0]].out_start
-    keep_arr = np.asarray(keep, np.int32)
-    mask = np.isin(index.anchor_block, keep_arr)
-    sub = StreamIndex(
-        [BlockInfo(b.btype, b.bfinal, b.start_bit, b.payload_start_bit,
-                   b.end_bit, b.out_start - out_lo, b.out_len)
-         for b in (index.blocks[i] for i in keep)],
-        index.anchor_bit[mask],
-        index.anchor_out[mask] - out_lo,
-        np.searchsorted(keep_arr, index.anchor_block[mask]).astype(np.int32),
-        True,
-        getattr(index, "chunk_reset", 0),
-        getattr(index, "turbo", False),
-        getattr(index, "max_tokens", 0),
-        getattr(index, "wide", False),
-    )
+    with trace("zlibes.subindex"):
+        keep = [i for i, b in enumerate(index.blocks) if b.out_len
+                and b.out_start < end and b.out_start + b.out_len > start]
+        out_lo = index.blocks[keep[0]].out_start
+        keep_arr = np.asarray(keep, np.int32)
+        mask = np.isin(index.anchor_block, keep_arr)
+        sub = StreamIndex(
+            [BlockInfo(b.btype, b.bfinal, b.start_bit,
+                       b.payload_start_bit, b.end_bit,
+                       b.out_start - out_lo, b.out_len)
+             for b in (index.blocks[i] for i in keep)],
+            index.anchor_bit[mask],
+            index.anchor_out[mask] - out_lo,
+            np.searchsorted(keep_arr,
+                            index.anchor_block[mask]).astype(np.int32),
+            True,
+            getattr(index, "chunk_reset", 0),
+            getattr(index, "turbo", False),
+            getattr(index, "max_tokens", 0),
+            getattr(index, "wide", False),
+        )
     out = _inflate_indexed(data, sub, device)
-    return out[start - out_lo : end - out_lo].cpu().numpy().tobytes()
+    with trace("zlibes.readback"):
+        return out[start - out_lo : end - out_lo].cpu().numpy().tobytes()
 
 
+@span("zlibes.inflate_to_device")
 def inflate_to_device(data: bytes, index: StreamIndex, *,
                       device: torch.device | str):
     """Decompress into device memory, with no copy of the output to the
@@ -509,14 +533,16 @@ def inflate_to_device(data: bytes, index: StreamIndex, *,
     stream's block rows, flattened, or one tensor into which the coded
     rows, the groups of a generic index and the stored blocks' payloads
     were spliced.  As in the reference, the decode's meta checks are
-    skipped; the caller verifies the bytes.
+    skipped; the caller verifies the bytes.  The call is the span
+    ``zlibes.inflate_to_device``.
     """
     data = bytes(data)
     _refuse_fdict(data, "inflate_to_device")
     if not getattr(index, "self_contained", True):
         raise CorruptError(
             "inflate_to_device requires self-contained blocks (streams "
-            "produced by this framework); use inflate() for foreign streams")
+            "produced by this framework); use inflate() for foreign "
+            "streams")
     out = _inflate_indexed(data, index, device, check=False)
     return [(out, 0, index.total_out)]
 
@@ -531,15 +557,20 @@ def _decode_native(data: bytes, offset: int, dictionary: bytes | None):
     return torch.from_numpy(out), end_bit, adler
 
 
+@span("zlibes.inflate")
 def inflate(data: bytes, *, device: torch.device | str,
             verify_checksum: bool = True, index=None,
             dictionary: bytes | None = None) -> bytes:
     """zlib-container inflate.  A turbo- or wide-indexed stream decodes on
     ``device``; any other on the host through the native runtime when it is
-    available, else on ``device`` (through its index, or by the scan)."""
+    available, else on ``device`` (through its index, or by the scan).
+    The call is the span ``zlibes.inflate``; the native decode is
+    ``zlibes.decode``, the trailer's check ``zlibes.adler``, the copy of
+    the output to the host ``zlibes.readback``."""
     from ..runtime import native
 
     data = bytes(data)
+
     if len(data) < 6:
         raise TruncatedError("zlib stream shorter than minimal frame")
     cmf, flg = data[0], data[1]
@@ -569,7 +600,9 @@ def inflate(data: bytes, *, device: torch.device | str,
         out = _inflate_indexed(data, index, device)
         end_bit = index.blocks[-1].end_bit
     elif native.available():
-        out, end_bit, known_adler = _decode_native(data, offset, dictionary)
+        with trace("zlibes.decode"):
+            out, end_bit, known_adler = _decode_native(data, offset,
+                                                       dictionary)
         # the decode did not need the index, but a caller who passes one
         # that belongs to another stream must get an error, not the bytes
         if index is not None and (index.blocks[-1].end_bit != end_bit
@@ -591,7 +624,11 @@ def inflate(data: bytes, *, device: torch.device | str,
             # the native decode folded Adler-32 into its resolve pass
             actual = known_adler
         else:
-            actual = int(adler32_device(out))
+            with trace("zlibes.adler"):
+                adler = adler32_device(out)
+                with trace("zlibes.readback"):
+                    actual = int(adler)
         if expect != actual:
             raise ChecksumError(f"Adler-32 mismatch: {expect:#x} != {actual:#x}")
-    return out.cpu().numpy().tobytes()
+    with trace("zlibes.readback"):
+        return out.cpu().numpy().tobytes()

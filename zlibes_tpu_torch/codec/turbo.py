@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import span, trace
 from ..spec import constants as C
 from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
@@ -111,12 +112,15 @@ class TurboPlan:
     base      (L_pad,) int32 sub-span offset of each lane's first token
     lt/dt     (512,) int32   decode tables
     Padded lanes (>= L) are empty: bit0 == endb == 0.
+    ``build`` is the span ``zlibes.plan``; its uploads are ``zlibes.upload``
+    and its read of ``endb`` back ``zlibes.readback``.
     """
 
     __slots__ = ("words", "start_w", "bit0", "endb", "base", "lt", "dt",
                  "endb_host", "L", "L_pad", "C_pad", "T", "total_out")
 
     @staticmethod
+    @span("zlibes.plan")
     def build(data: bytes, index: StreamIndex,
               device: torch.device | str) -> "TurboPlan":
         from .inflate_pipeline import _block_code_lengths
@@ -167,14 +171,16 @@ class TurboPlan:
             x[:L] = vals
             return torch.from_numpy(x).to(device)
 
-        p.words = torch.from_numpy(stream_words(data)).to(device)
-        p.start_w = lanes(start_w)
-        p.bit0 = lanes(bit0_abs & 31)
-        p.endb = lanes(endb)
-        p.base = lanes(base)
-        p.endb_host = p.endb.cpu().numpy()
-        p.lt = torch.from_numpy(lt).to(device)
-        p.dt = torch.from_numpy(dt).to(device)
+        with trace("zlibes.upload"):
+            p.words = torch.from_numpy(stream_words(data)).to(device)
+            p.start_w = lanes(start_w)
+            p.bit0 = lanes(bit0_abs & 31)
+            p.endb = lanes(endb)
+            p.base = lanes(base)
+            p.lt = torch.from_numpy(lt).to(device)
+            p.dt = torch.from_numpy(dt).to(device)
+        with trace("zlibes.readback"):
+            p.endb_host = p.endb.cpu().numpy()
         return p
 
     def check_meta(self, meta: np.ndarray) -> None:
@@ -188,15 +194,22 @@ class TurboPlan:
 
 def run_turbo(plan: TurboPlan, check: bool = True) -> torch.Tensor:
     """Execute the device stages (decode, glue, resolve: two kernel
-    launches); returns the (C_pad, 4096) uint8
-    chunk rows on the plan's device — output bytes are the rows flattened
-    and cut at plan.total_out."""
-    tokens, meta = tk.decode_turbo((plan.words, plan.start_w), plan.bit0,
-                                   plan.endb, plan.lt, plan.dt, T=plan.T)
+    launches; the spans ``zlibes.decode``, ``zlibes.glue`` and
+    ``zlibes.resolve``, and ``zlibes.readback`` for the check); returns the
+    (C_pad, 4096) uint8 chunk rows on the plan's device — output bytes are
+    the rows flattened and cut at plan.total_out."""
+    with trace("zlibes.decode"):
+        tokens, meta = tk.decode_turbo((plan.words, plan.start_w), plan.bit0,
+                                       plan.endb, plan.lt, plan.dt, T=plan.T)
     if check:
-        plan.check_meta(meta.cpu().numpy())
-    toks16, starts16 = _glue_tokens(tokens, meta[0], plan.base, plan.C_pad)
-    return tk.resolve_turbo(toks16, starts16)
+        with trace("zlibes.readback"):
+            meta_np = meta.cpu().numpy()
+        plan.check_meta(meta_np)
+    with trace("zlibes.glue"):
+        toks16, starts16 = _glue_tokens(tokens, meta[0], plan.base,
+                                        plan.C_pad)
+    with trace("zlibes.resolve"):
+        return tk.resolve_turbo(toks16, starts16)
 
 
 def inflate_raw_turbo(data: bytes, index: StreamIndex,

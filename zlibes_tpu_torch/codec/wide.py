@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import span, trace
 from ..spec import constants as C
 from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
@@ -85,7 +86,8 @@ class WidePlan:
     lt        (Cb, LL_W) int32, dt (Cb, D_W) int32: one table row per
                              coded block
     L = Cb * LPB lanes; a block's lanes past its output are empty
-    (bit0 == endb == 0).
+    (bit0 == endb == 0).  ``build`` is the span ``zlibes.plan``; its
+    uploads are ``zlibes.upload``.
     """
 
     __slots__ = ("words", "start_w", "bit0", "endb", "base", "lt", "dt",
@@ -93,6 +95,7 @@ class WidePlan:
                  "Cb", "LPB", "SW", "T")
 
     @staticmethod
+    @span("zlibes.plan")
     def build(data: bytes, index: StreamIndex,
               device: torch.device | str) -> "WidePlan":
         from .inflate_pipeline import _block_code_lengths
@@ -109,7 +112,8 @@ class WidePlan:
                     if b.btype == C.BTYPE_STORED and b.out_len]
         p.total_out = index.total_out
         p.T = wk.MAX_TOKENS
-        p.words = torch.from_numpy(stream_words(data)).to(device)
+        with trace("zlibes.upload"):
+            p.words = torch.from_numpy(stream_words(data)).to(device)
         if not p.coded:
             # all-stored stream (incompressible input): copies only
             p.Cb = p.LPB = p.SW = 0
@@ -175,13 +179,14 @@ class WidePlan:
         def lanes(x):
             return torch.from_numpy(x.astype(np.int32)).to(device)
 
-        p.start_w = lanes(start_w)
-        p.bit0 = lanes(bit0_abs & 31)
-        p.endb = lanes(endb)
-        p.base = lanes(base)
+        with trace("zlibes.upload"):
+            p.start_w = lanes(start_w)
+            p.bit0 = lanes(bit0_abs & 31)
+            p.endb = lanes(endb)
+            p.base = lanes(base)
+            p.lt = torch.from_numpy(lt).to(device)
+            p.dt = torch.from_numpy(dt).to(device)
         p.endb_host = endb.astype(np.int32)
-        p.lt = torch.from_numpy(lt).to(device)
-        p.dt = torch.from_numpy(dt).to(device)
         return p
 
     def check_meta(self, meta: np.ndarray) -> None:
@@ -195,17 +200,22 @@ class WidePlan:
 
 def run_wide(plan: WidePlan, check: bool = True) -> torch.Tensor:
     """Execute the device stages (decode, glue, resolve: two kernel
-    launches); returns the (Cb, LPB*128) uint8 block rows
-    on the plan's device (row cb holds coded block cb's output up to its
-    out_len)."""
-    tokens, starts, meta = wk.decode_wide((plan.words, plan.start_w),
-                                          plan.bit0, plan.endb, plan.base,
-                                          plan.lt, plan.dt, LPB=plan.LPB,
-                                          T=plan.T, SW=plan.SW)
+    launches; the spans ``zlibes.decode``, ``zlibes.glue`` and
+    ``zlibes.resolve``, and ``zlibes.readback`` for the check); returns the
+    (Cb, LPB*128) uint8 block rows on the plan's device (row cb holds coded
+    block cb's output up to its out_len)."""
+    with trace("zlibes.decode"):
+        tokens, starts, meta = wk.decode_wide(
+            (plan.words, plan.start_w), plan.bit0, plan.endb, plan.base,
+            plan.lt, plan.dt, LPB=plan.LPB, T=plan.T, SW=plan.SW)
     if check:
-        plan.check_meta(meta[:4].cpu().numpy())
-    toks, sts = _glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
-    return wk.resolve_wide(toks, sts)
+        with trace("zlibes.readback"):
+            meta_np = meta[:4].cpu().numpy()
+        plan.check_meta(meta_np)
+    with trace("zlibes.glue"):
+        toks, sts = _glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
+    with trace("zlibes.resolve"):
+        return wk.resolve_wide(toks, sts)
 
 
 def inflate_raw_wide(data: bytes, index: StreamIndex,

@@ -7,10 +7,13 @@ users expect from zlib.  ``config_from_reference`` rebuilds a
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass, field
 
+from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
 
 from .spec import constants as C
@@ -115,8 +118,10 @@ DEFAULT_CONFIG = CodecConfig()
 
 @dataclass
 class CodecStats:
-    """Per-call observability: byte and block counts, host-clock stage
-    times."""
+    """Per-call observability: byte and block counts, and in ``stage_s``
+    the host seconds of each stage the call passed this dict to
+    (``trace(name, stats.stage_s)``), keyed by the span's name without its
+    ``zlibes.`` prefix."""
 
     bytes_in: int = 0
     bytes_out: int = 0
@@ -130,30 +135,75 @@ class CodecStats:
     def ratio(self) -> float:
         return self.bytes_out / self.bytes_in if self.bytes_in else 0.0
 
-    def timer(self, stage: str):
-        return _StageTimer(self, stage)
+
+_SPAN_PREFIX = "zlibes."
 
 
-class _StageTimer:
-    def __init__(self, stats: CodecStats, stage: str):
-        self.stats, self.stage = stats, stage
+class _Stage:
+    """A stage's span: a ``record_function`` of its name, made and entered
+    only when a profiler ran as the span was made (its set-up costs more
+    than the rest of the span), and the stage's host seconds added to
+    ``into`` under the name without its prefix when given a dict."""
+
+    __slots__ = ("name", "into", "rf", "t0")
+
+    def __init__(self, name: str, into: dict | None, on: bool):
+        self.name, self.into = name, into
+        self.rf = record_function(name) if on else None
+        self.t0 = 0.0
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        if self.rf is not None:
+            self.rf.__enter__()
+        if self.into is not None:
+            self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.stats.stage_s[self.stage] = self.stats.stage_s.get(
-            self.stage, 0.0) + time.perf_counter() - self.t0
+        if self.into is not None:
+            key = self.name[len(_SPAN_PREFIX):]
+            self.into[key] = (self.into.get(key, 0.0)
+                              + time.perf_counter() - self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         return False
 
 
-def trace(name: str):
-    """A named profiler span around a stage (``zlibes.match``, ...): a
-    user annotation with its device time in a ``torch.profiler`` trace,
-    and an NVTX range under ``torch.autograd.profiler.emit_nvtx``.  With
-    no profiler running it costs the host a few microseconds."""
-    return record_function(name)
+# the span of every stage that neither a profiler nor a clock looks at
+_IDLE = contextlib.nullcontext()
+
+
+def trace(name: str, into: dict | None = None):
+    """The one stage helper: a named span around a stage (``zlibes.match``,
+    ``zlibes.plan``, ...), used as ``with trace(name, stats.stage_s):``.
+
+    The span is a ``torch.profiler.record_function``: a user annotation on
+    the profiler's clock, holding the device work launched inside it, in a
+    ``torch.profiler`` trace, and an NVTX range under
+    ``torch.autograd.profiler.emit_nvtx``, when a profiler runs on the
+    calling thread as the span is made; with none it is not entered and
+    costs the host under a microsecond.  ``into`` (a ``CodecStats.stage_s``
+    or ``parallel.LAST_TIMINGS``) gets the stage's host seconds added under
+    the name without its ``zlibes.`` prefix, whether a profiler runs or
+    not."""
+    on = _profiler_enabled()
+    if not on and into is None:
+        return _IDLE
+    return _Stage(name, into, on)
+
+
+def span(name: str):
+    """Decorator: every call of the function is one span ``name``
+    (``trace(name)``), such as a public call's root ``zlibes.deflate``.
+    ``fn.__wrapped__`` is the function without it, for a caller already
+    inside such a span."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with trace(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def config_from_reference(obj) -> CodecConfig:

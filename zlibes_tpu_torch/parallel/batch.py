@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..codec.deflate_pipeline import _encode_tables, _or_bits, adler_terms
+from ..config import span, trace
 from ..ops.adler32 import adler_partials, adler_value
 from ..ops.deflate_kernel import pack_payload, token_symbols
 from ..ops.lz77 import find_matches, select_tokens
@@ -26,11 +27,13 @@ from ..spec.refmodel import adler32 as adler32_host
 from .block_parallel import (
     _FIXED_D_LEN,
     _FIXED_LL_LEN,
+    LAST_TIMINGS,
     Mesh,
     _all_gather,
+    _collective_read,
+    _dispatch,
     _fixed_tables,
     _gather_ragged,
-    _phase,
     _span,
     make_mesh,
 )
@@ -56,15 +59,20 @@ def _batch_step(dict_row: torch.Tensor, dict_start: int, rows: torch.Tensor,
     data = torch.cat([dict_row[None, :].expand(B, _DICT), rows], 1)
     nv_full = n_valid + _DICT
     ctx = torch.full((B,), dict_start, dtype=torch.int32, device=dev)
-    matches = find_matches(data, nv_full, N=N, S=8, J=8, ctx_start=ctx)
-    tv, td, cnt = select_tokens(data, matches, nv_full, N=N,
-                                SEG_SIZE=SEG_SIZE, start=_DICT)
-    lsym, dsym, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
-    tables = tuple(t.to(dev) for t in _fixed_tables(B))
-    hdr = torch.full((B,), 3, dtype=torch.long, device=dev)
-    en = torch.ones(B, dtype=torch.bool, device=dev)
-    words, payload_end, _b0 = pack_payload(tv, td, lsym, dsym, valid,
-                                           *tables, hdr, en, nseg=nseg, W=W)
+    with trace("zlibes.match"):
+        matches = find_matches(data, nv_full, N=N, S=8, J=8, ctx_start=ctx)
+    with trace("zlibes.select"):
+        tv, td, cnt = select_tokens(data, matches, nv_full, N=N,
+                                    SEG_SIZE=SEG_SIZE, start=_DICT)
+    with trace("zlibes.symbols"):
+        lsym, dsym, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
+    with trace("zlibes.pack"):
+        tables = tuple(t.to(dev) for t in _fixed_tables(B))
+        hdr = torch.full((B,), 3, dtype=torch.long, device=dev)
+        en = torch.ones(B, dtype=torch.bool, device=dev)
+        words, payload_end, _b0 = pack_payload(tv, td, lsym, dsym, valid,
+                                               *tables, hdr, en, nseg=nseg,
+                                               W=W)
     # each payload is its own zlib member: per-row Adler-32
     chunk = min(2048, P_CAP)
     a_c, b_c = adler_terms(rows, n_valid, chunk)
@@ -74,6 +82,7 @@ def _batch_step(dict_row: torch.Tensor, dict_start: int, rows: torch.Tensor,
     return words, payload_end, adler_value(s1, s2, nv[:, 0])
 
 
+@span("zlibes.compress_batch")
 def compress_batch(payloads: list[bytes], dictionary: bytes,
                    mesh: Mesh | None = None, seg_size: int = 1024, *,
                    device: torch.device | str = "cuda") -> list[bytes]:
@@ -82,7 +91,8 @@ def compress_batch(payloads: list[bytes], dictionary: bytes,
     ``device`` when ``mesh`` is None), each decodable with
     ``inflate(member, dictionary=dictionary)`` or any zlib's
     ``decompressobj(zdict=...)``.  Payloads are padded to one power-of-two
-    row and split over the ranks."""
+    row and split over the ranks.  The call is the span
+    ``zlibes.compress_batch``."""
     if mesh is None:
         mesh = make_mesh(1, device=device)
     if not payloads:
@@ -100,24 +110,24 @@ def compress_batch(payloads: list[bytes], dictionary: bytes,
     lo, hi, per = _span(nb, mesh)
     W = (15 * P_CAP + 4096) // 32
     handles = []
-    with _phase("host_stage"):
+    with trace("zlibes.host_stage", LAST_TIMINGS):
         dict_row = torch.from_numpy(dict_tail).to(dev)
     for r0 in range(lo, hi, ROWS_PER_DISPATCH):
         r1 = min(hi, r0 + ROWS_PER_DISPATCH)
-        with _phase("host_stage"):
+        with trace("zlibes.host_stage", LAST_TIMINGS):
             rows = np.zeros((r1 - r0, P_CAP + 8), np.uint8)
             n_valid = np.zeros(r1 - r0, np.int32)
             for k, p in enumerate(payloads[r0:r1]):
                 rows[k, : len(p)] = np.frombuffer(bytes(p), np.uint8)
                 n_valid[k] = len(p)
-        with _phase("dispatch"):
+        with _dispatch():
             words, pe, adler = _batch_step(
                 dict_row, _DICT - dt.size, torch.from_numpy(rows).to(dev),
                 torch.from_numpy(n_valid).to(dev), P_CAP, seg_size, W)
             w = torch.where(words >= 1 << 31, words - (1 << 32), words)
             handles.append(torch.cat([pe.long(), adler.long(),
                                       w.reshape(-1)]))
-    with _phase("readback"):
+    with trace("zlibes.readback", LAST_TIMINGS):
         blob = (torch.cat(handles).cpu().numpy() if handles
                 else np.zeros(0, np.int64))
 
@@ -130,7 +140,7 @@ def compress_batch(payloads: list[bytes], dictionary: bytes,
     header = bytes([0x78, flg]) + dictid
 
     own = []
-    with _phase("host_splice"):
+    with trace("zlibes.host_splice", LAST_TIMINGS):
         pos = 0
         for r0 in range(lo, hi, ROWS_PER_DISPATCH):
             B = min(hi, r0 + ROWS_PER_DISPATCH) - r0
@@ -151,13 +161,15 @@ def compress_batch(payloads: list[bytes], dictionary: bytes,
     # members to every rank: their lengths, then their bytes
     lens = np.zeros(per, np.int64)
     lens[: len(own)] = [len(m) for m in own]
-    all_lens = [x.cpu().numpy() for x in
-                _all_gather(mesh, torch.from_numpy(lens))]
+    gathered = _all_gather(mesh, torch.from_numpy(lens))
+    with _collective_read(mesh), trace("zlibes.readback"):
+        all_lens = [x.cpu().numpy() for x in gathered]
     mine = torch.from_numpy(np.frombuffer(b"".join(own), np.uint8).copy())
     parts = _gather_ragged(mesh, mine, [int(x.sum()) for x in all_lens])
+    with _collective_read(mesh), trace("zlibes.readback"):
+        blobs = [part.cpu().numpy().tobytes() for part in parts]
     members = []
-    for part, ls in zip(parts, all_lens):
-        blob = part.cpu().numpy().tobytes()
+    for blob, ls in zip(blobs, all_lens):
         offs = np.concatenate([[0], np.cumsum(ls)])
         members += [blob[offs[k] : offs[k + 1]] for k in range(ls.size)
                     if ls[k]]

@@ -34,9 +34,9 @@ world size.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
-import time as _time
 
 import numpy as np
 import torch
@@ -53,7 +53,7 @@ from ..codec.deflate_pipeline import (
     select_glue,
 )
 from ..codec.inflate_pipeline import inflate_raw_indexed
-from ..config import CodecConfig
+from ..config import CodecConfig, span, trace
 from ..ops import turbo_kernel as tk
 from ..ops import wide_kernel as wk
 from ..ops.adler32 import adler_partials, adler_value
@@ -68,7 +68,9 @@ from ..spec.refmodel import BlockInfo, StreamIndex
 # per-call phase timings (seconds; ``dispatches`` counts device dispatches):
 # callers clear LAST_TIMINGS, run one codec call, then read host_stage,
 # dispatch, readback, host_splice and collective (the time inside
-# torch.distributed calls)
+# torch.distributed calls).  Each is the host time of the span of that name
+# (``zlibes.host_stage``, ...) that ``trace(..., LAST_TIMINGS)`` enters; the
+# other spans of a call feed nothing here.
 LAST_TIMINGS: dict = {}
 
 # blocks a find_matches dispatch: bounds the matcher's device memory (about
@@ -81,20 +83,11 @@ _BIGS = 1 << 30          # "no split token" sentinel of the turbo pack
 _INFO = 7                # int64 fields of a BlockInfo in the gathered index
 
 
-class _phase:
-    def __init__(self, name):
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = _time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        LAST_TIMINGS[self.name] = (LAST_TIMINGS.get(self.name, 0.0)
-                                   + _time.perf_counter() - self.t0)
-        if self.name == "dispatch":
-            LAST_TIMINGS["dispatches"] = LAST_TIMINGS.get("dispatches", 0) + 1
-        return False
+def _dispatch():
+    """The span of one device dispatch, ``zlibes.dispatch``, counted in
+    ``LAST_TIMINGS["dispatches"]``."""
+    LAST_TIMINGS["dispatches"] = LAST_TIMINGS.get("dispatches", 0) + 1
+    return trace("zlibes.dispatch", LAST_TIMINGS)
 
 
 class Mesh:
@@ -167,7 +160,7 @@ def _all_reduce(mesh: Mesh, t: torch.Tensor,
     device; ``t`` itself for a world without a group)."""
     if mesh.group is None:
         return t
-    with _phase("collective"):
+    with trace("zlibes.collective", LAST_TIMINGS):
         x = t.to(_coll_device(mesh), copy=True).contiguous()
         dist.all_reduce(x, op=op, group=mesh.group)
     return x
@@ -178,7 +171,7 @@ def _all_gather(mesh: Mesh, t: torch.Tensor) -> list[torch.Tensor]:
     order, on the collective's device."""
     if mesh.group is None:
         return [t]
-    with _phase("collective"):
+    with trace("zlibes.collective", LAST_TIMINGS):
         x = t.to(_coll_device(mesh)).contiguous()
         out = [torch.empty_like(x) for _ in range(mesh.size)]
         dist.all_gather(out, x, group=mesh.group)
@@ -195,6 +188,17 @@ def _gather_ragged(mesh: Mesh, x: torch.Tensor,
     return [g[:s] for g, s in zip(_all_gather(mesh, pad), sizes)]
 
 
+def _collective_read(mesh: Mesh):
+    """The span of a blocking read of what a collective returned,
+    ``zlibes.collective`` (outside ``LAST_TIMINGS``, whose ``collective``
+    times the calls alone).  Under NCCL a collective is only queued, so the
+    host waits here: for its own work queued before it, the exchange, and
+    the slowest rank.  Nothing without a group."""
+    if mesh.group is None:
+        return contextlib.nullcontext()
+    return trace("zlibes.collective")
+
+
 def _agree(mesh: Mesh, exc: BaseException | None) -> None:
     """Raise on every rank when any rank's work raised ``exc``, before the
     output gather that would wait for it: CorruptError on every rank when
@@ -202,8 +206,11 @@ def _agree(mesh: Mesh, exc: BaseException | None) -> None:
     rank's own exception, or RuntimeError on the ranks that did not
     fail."""
     status = 0 if exc is None else 1 if isinstance(exc, CorruptError) else 2
-    worst = int(_all_reduce(mesh, torch.tensor([status]),
-                            dist.ReduceOp.MAX)[0]) if mesh.group else status
+    worst = status
+    if mesh.group:
+        t = _all_reduce(mesh, torch.tensor([status]), dist.ReduceOp.MAX)
+        with _collective_read(mesh), trace("zlibes.readback"):
+            worst = int(t[0])
     if worst == 1:
         raise CorruptError(
             "parallel inflate failed (corrupt or mis-indexed)") from exc
@@ -246,12 +253,16 @@ def _stage_rows(block_provider, lo: int, hi: int, N: int, n: int):
 
 def _tokens(dev_bytes, dev_nv, N: int, seg_size: int, reset: int,
             turbo: bool):
-    """Match and select one dispatch's blocks -> (tv, td, cnt)."""
-    matches = find_matches(dev_bytes, dev_nv, N=N, S=_S, J=_J, reset=reset,
-                           two_phase=turbo)
-    if turbo:
-        return select_glue(dev_bytes, matches, dev_nv, N, lazy=True)
-    return select_tokens(dev_bytes, matches, dev_nv, N=N, SEG_SIZE=seg_size)
+    """Match and select one dispatch's blocks -> (tv, td, cnt), in the
+    spans ``zlibes.match`` and ``zlibes.select``."""
+    with trace("zlibes.match"):
+        matches = find_matches(dev_bytes, dev_nv, N=N, S=_S, J=_J,
+                               reset=reset, two_phase=turbo)
+    with trace("zlibes.select"):
+        if turbo:
+            return select_glue(dev_bytes, matches, dev_nv, N, lazy=True)
+        return select_tokens(dev_bytes, matches, dev_nv, N=N,
+                             SEG_SIZE=seg_size)
 
 
 def _adler_shard(dev_bytes, dev_nv, d0: int, N: int, n: int):
@@ -269,18 +280,21 @@ def _adler_shard(dev_bytes, dev_nv, d0: int, N: int, n: int):
 def _pack(tv, td, cnt, tables, hdr_bits, nseg: int, W: int, R: int):
     """Pack one dispatch's tokens -> (words (B, W), payload_end (B,),
     lane_bit0, split_bit, split_out (L,)); ``tables`` are the turbo pack's
-    (lt, dt) when R > 0, else per-block (ll_code, ll_len, d_code, d_len)."""
-    lsym, dsym, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
-    if R:
-        lt, dt = tables
-        return pack_payload_turbo(tv, td, valid, lt, dt, hdr_bits, nseg=nseg,
-                                  W=W, R=R)
-    B = hdr_bits.numel()
-    enabled = torch.ones(B, dtype=torch.bool, device=tv.device)
-    words, pe, lb = pack_payload(tv, td, lsym, dsym, valid, *tables,
-                                 hdr_bits, enabled, nseg=nseg, W=W)
-    big = torch.full_like(lb, _BIGS)       # no split anchors
-    return words, pe, lb, big, big
+    (lt, dt) when R > 0, else per-block (ll_code, ll_len, d_code, d_len);
+    in the spans ``zlibes.symbols`` and ``zlibes.pack``."""
+    with trace("zlibes.symbols"):
+        lsym, dsym, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
+    with trace("zlibes.pack"):
+        if R:
+            lt, dt = tables
+            return pack_payload_turbo(tv, td, valid, lt, dt, hdr_bits,
+                                      nseg=nseg, W=W, R=R)
+        B = hdr_bits.numel()
+        enabled = torch.ones(B, dtype=torch.bool, device=tv.device)
+        words, pe, lb = pack_payload(tv, td, lsym, dsym, valid, *tables,
+                                     hdr_bits, enabled, nseg=nseg, W=W)
+        big = torch.full_like(lb, _BIGS)       # no split anchors
+        return words, pe, lb, big, big
 
 
 def _pack_handle(words, pe, lb, sb, so) -> torch.Tensor:
@@ -318,7 +332,8 @@ def sharded_histogram_step(rows: torch.Tensor, n_valid: torch.Tensor,
     ``all_reduce`` and builds the shared code lengths from it."""
     nseg = N // SEG_SIZE
     tv, td, cnt = _tokens(rows, n_valid, N, SEG_SIZE, reset, turbo)
-    _ls, _ds, _v, llf, dfq = token_symbols(tv, td, cnt, nseg=nseg)
+    with trace("zlibes.symbols"):
+        _ls, _ds, _v, llf, dfq = token_symbols(tv, td, cnt, nseg=nseg)
     s1, s2 = _adler_shard(rows, n_valid, d0, N, n_total)
     return tv, td, cnt, torch.cat([llf.sum(0), dfq.sum(0), s1[None],
                                    s2[None]])
@@ -429,6 +444,7 @@ def _empty_stream(with_index: bool):
     return out
 
 
+@span("zlibes.parallel_deflate")
 def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
                      seg_size: int = 1024, dynamic: bool = True,
                      max_code_bits: int = 15, turbo: bool = False,
@@ -447,7 +463,8 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
     size) and ``block_provider``, a callable ``(block_idx) -> bytes`` that
     is asked only for this rank's blocks (``multihost.host_shard`` of
     ``mesh.size * ceil(blocks / mesh.size)`` rows), so no rank holds more
-    than its share of the input.
+    than its share of the input.  The call is the span
+    ``zlibes.parallel_deflate``.
     """
     if turbo:
         seg_size, max_code_bits, dynamic = 512, 9, True
@@ -488,10 +505,10 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
     n_valid_all = np.zeros(0, np.int32)
     for d0 in range(lo, hi, DISPATCH_BLOCKS):
         d1 = min(hi, d0 + DISPATCH_BLOCKS)
-        with _phase("host_stage"):
+        with trace("zlibes.host_stage", LAST_TIMINGS):
             rows_np, nv_np = _stage_rows(block_provider, d0, d1, N, n)
             n_valid_all = np.concatenate([n_valid_all, nv_np])
-        with _phase("dispatch"):
+        with _dispatch():
             rows = torch.from_numpy(rows_np).to(dev)
             nv = torch.from_numpy(nv_np).to(dev)
             if dynamic:
@@ -515,40 +532,43 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
         ll_tot = tot[:nh].clone()
         ll_tot[C.END_OF_BLOCK] += nblocks
         ll_d, d_d = limited_lengths_pair(ll_tot, tot[nh:-2], max_code_bits)
-        with _phase("readback"):
+        with _collective_read(mesh), trace("zlibes.readback", LAST_TIMINGS):
             host = torch.cat([ll_d.long(), d_d.long(), tot[-2:]]).cpu().numpy()
         ll_len = host[:nh]
         d_len = host[nh:-2]
         s1, s2 = (int(x) for x in host[-2:])
-        hdr0, hb0 = _dynamic_header(ll_len, d_len, 0)
-        hdr1, hb1 = _dynamic_header(ll_len, d_len, 1)
-        headers = {0: (hdr0, hb0), 1: (hdr1, hb1)}
-        ll_code, d_code = _encode_tables(ll_len, d_len)
-        if turbo:
-            tables = tuple(t.to(dev) for t in pack_tables(ll_code, ll_len,
-                                                          d_code, d_len))
-        else:
-            tables = tuple(torch.from_numpy(np.asarray(x, np.int64)).to(dev)
-                           for x in (ll_code, ll_len, d_code, d_len))
+        with trace("zlibes.entropy"):
+            hdr0, hb0 = _dynamic_header(ll_len, d_len, 0)
+            hdr1, hb1 = _dynamic_header(ll_len, d_len, 1)
+            headers = {0: (hdr0, hb0), 1: (hdr1, hb1)}
+            ll_code, d_code = _encode_tables(ll_len, d_len)
+            host_tables = (pack_tables(ll_code, ll_len, d_code, d_len)
+                           if turbo else
+                           tuple(torch.from_numpy(np.asarray(x, np.int64))
+                                 for x in (ll_code, ll_len, d_code, d_len)))
+        with trace("zlibes.upload"):
+            tables = tuple(t.to(dev) for t in host_tables)
         for d0, d1, tv, td, cnt in kept:
             hdr_bits = np.full(d1 - d0, hb0, np.int64)
             if d1 == nblocks:
                 hdr_bits[-1] = hb1
-            with _phase("dispatch"):
+            with _dispatch():
                 handles.append(_pack_handle(*sharded_pack_step(
                     tv, td, cnt, tables, torch.from_numpy(hdr_bits).to(dev),
                     N, seg_size, W, R)))
         kept.clear()
     else:
-        s1, s2 = (int(x) for x in _all_reduce(mesh, acc[-2:]).cpu())
+        adler = _all_reduce(mesh, acc[-2:])
+        with _collective_read(mesh), trace("zlibes.readback"):
+            s1, s2 = (int(x) for x in adler.cpu())
         ll_code, _ = _encode_tables(_FIXED_LL_LEN, _FIXED_D_LEN)
         ll_len = _FIXED_LL_LEN
-    with _phase("readback"):
+    with trace("zlibes.readback", LAST_TIMINGS):
         blob = (torch.cat(handles).cpu().numpy() if handles
                 else np.zeros(0, np.int32))
         max_tokens = int(max_cnt) if dynamic and with_index else 0
 
-    with _phase("host_splice"):
+    with trace("zlibes.host_splice", LAST_TIMINGS):
         body, binfo, a_bit, a_out, a_blk = _splice(
             blob, lo, hi, nblocks, N, W, nseg, seg_size, n_valid_all,
             dynamic, headers, int(ll_code[C.END_OF_BLOCK]),
@@ -561,11 +581,15 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
                           payload.size], np.int64)
 
     # the gathers: sizes, then the bytes and index arrays of every rank
-    all_sizes = [s.cpu().numpy() for s in
-                 _all_gather(mesh, torch.from_numpy(sizes))]
-    parts = [p.cpu().numpy() for p in _gather_ragged(
-        mesh, torch.from_numpy(payload), [int(s[4]) for s in all_sizes])]
-    with _phase("host_splice"):
+    # (the reads of what they gathered wait for the slowest rank)
+    gathered = _all_gather(mesh, torch.from_numpy(sizes))
+    with _collective_read(mesh), trace("zlibes.readback"):
+        all_sizes = [s.cpu().numpy() for s in gathered]
+    gathered = _gather_ragged(mesh, torch.from_numpy(payload),
+                              [int(s[4]) for s in all_sizes])
+    with _collective_read(mesh), trace("zlibes.readback"):
+        parts = [p.cpu().numpy() for p in gathered]
+    with trace("zlibes.host_splice", LAST_TIMINGS):
         trailer = adler_value(s1 % C.ADLER_MOD, s2 % C.ADLER_MOD,
                               n).to_bytes(4, "big")
         out = C.ZLIB_HEADER + b"".join(
@@ -637,28 +661,31 @@ def sharded_turbo_inflate_step(plan, c0: int, c1: int,
                                 C_pad=c1 - c0), check)
 
 
+@span("zlibes.parallel_inflate")
 def parallel_inflate_turbo(data: bytes, index: StreamIndex, mesh: Mesh,
                            check: bool = True) -> bytes:
-    """Turbo inflate with whole 4 KiB chunk rows split across the mesh."""
+    """Turbo inflate with whole 4 KiB chunk rows split across the mesh;
+    the call is the span ``zlibes.parallel_inflate``."""
     from ..codec.turbo import TurboPlan
 
     index = _own_index(index)
-    with _phase("host_stage"):
+    with trace("zlibes.host_stage", LAST_TIMINGS):
         plan = TurboPlan.build(bytes(data), index, mesh.device)
         c0, c1, per = _span(plan.C_pad, mesh)
     exc = None
     rows = torch.zeros((per, 4096), dtype=torch.uint8, device=mesh.device)
     try:
-        with _phase("dispatch"):
+        with _dispatch():
             if c1 > c0:
                 rows[: c1 - c0] = sharded_turbo_inflate_step(plan, c0, c1,
                                                              check)
     except Exception as e:      # every rank raises, in _agree
         exc = e
     _agree(mesh, exc)
-    with _phase("readback"):
+    with trace("zlibes.readback", LAST_TIMINGS):
         flat = torch.cat(_all_gather(mesh, rows)).reshape(-1)
-        return flat[: plan.total_out].cpu().numpy().tobytes()
+        with _collective_read(mesh):
+            return flat[: plan.total_out].cpu().numpy().tobytes()
 
 
 def sharded_wide_inflate_step(plan, cb0: int, cb1: int,
@@ -675,16 +702,17 @@ def sharded_wide_inflate_step(plan, cb0: int, cb1: int,
                     check)
 
 
+@span("zlibes.parallel_inflate")
 def parallel_inflate_wide(data: bytes, index: StreamIndex, mesh: Mesh,
                           check: bool = True) -> bytes:
     """Wide (default-profile) inflate with whole coded blocks split across
     the mesh, one row each; stored blocks are spliced in after the gather,
-    as on one device."""
+    as on one device.  The call is the span ``zlibes.parallel_inflate``."""
     from ..codec.wide import WidePlan, wide_output
 
     index = _own_index(index)
     data = bytes(data)
-    with _phase("host_stage"):
+    with trace("zlibes.host_stage", LAST_TIMINGS):
         plan = WidePlan.build(data, index, mesh.device)
         if not plan.coded:
             raise ValueError("all-stored stream has no device work")
@@ -693,16 +721,18 @@ def parallel_inflate_wide(data: bytes, index: StreamIndex, mesh: Mesh,
     rows = torch.zeros((per, plan.LPB * wk.SUB), dtype=torch.uint8,
                        device=mesh.device)
     try:
-        with _phase("dispatch"):
+        with _dispatch():
             if cb1 > cb0:
                 rows[: cb1 - cb0] = sharded_wide_inflate_step(plan, cb0, cb1,
                                                               check)
     except Exception as e:      # every rank raises, in _agree
         exc = e
     _agree(mesh, exc)
-    with _phase("readback"):
+    with trace("zlibes.readback", LAST_TIMINGS):
         rows = torch.cat(_all_gather(mesh, rows)).to(mesh.device)
-        return wide_output(plan, rows, data).cpu().numpy().tobytes()
+        out = wide_output(plan, rows, data)
+        with _collective_read(mesh):
+            return out.cpu().numpy().tobytes()
 
 
 def _block_spans(index: StreamIndex, D: int) -> list:
@@ -757,6 +787,7 @@ def sharded_inflate_step(data: bytes, index: StreamIndex, b0: int, b1: int,
     return inflate_raw_indexed(data, _sub_index(index, b0, b1), device)
 
 
+@span("zlibes.parallel_inflate")
 def parallel_inflate(data: bytes, index: StreamIndex, mesh: Mesh) -> bytes:
     """Block-parallel inflate of an indexed stream across the mesh; every
     rank returns the whole output.
@@ -767,15 +798,16 @@ def parallel_inflate(data: bytes, index: StreamIndex, mesh: Mesh) -> bytes:
     balanced by lanes, each rank's blocks resolved behind no prefix, so a
     chained index raises CorruptError wherever a copy crosses into another
     rank's span, as in the reference.  ``index`` must be the port's own
-    StreamIndex (TypeError otherwise)."""
+    StreamIndex (TypeError otherwise).  The call is the span
+    ``zlibes.parallel_inflate``."""
     index = _own_index(index)
     if getattr(index, "turbo", False):
-        return parallel_inflate_turbo(data, index, mesh)
+        return parallel_inflate_turbo.__wrapped__(data, index, mesh)
     if (getattr(index, "wide", False)
             and getattr(index, "self_contained", True)
             and any(b.btype != C.BTYPE_STORED and b.out_len
                     for b in index.blocks)):
-        return parallel_inflate_wide(data, index, mesh)
+        return parallel_inflate_wide.__wrapped__(data, index, mesh)
     data = bytes(data)
     spans = _block_spans(index, mesh.size)
     sizes = [sum(b.out_len for b in index.blocks[sp[0] : sp[1] + 1])
@@ -783,13 +815,14 @@ def parallel_inflate(data: bytes, index: StreamIndex, mesh: Mesh) -> bytes:
     exc = None
     out = torch.zeros(0, dtype=torch.uint8, device=mesh.device)
     try:
-        with _phase("dispatch"):
+        with _dispatch():
             if spans[mesh.rank]:
                 out = sharded_inflate_step(data, index, *spans[mesh.rank],
                                            mesh.device)
     except Exception as e:      # every rank raises, in _agree
         exc = e
     _agree(mesh, exc)
-    with _phase("readback"):
+    with trace("zlibes.readback", LAST_TIMINGS):
         parts = _gather_ragged(mesh, out, sizes) if any(sizes) else []
-        return b"".join(p.cpu().numpy().tobytes() for p in parts)
+        with _collective_read(mesh):
+            return b"".join(p.cpu().numpy().tobytes() for p in parts)
