@@ -163,7 +163,7 @@ TURBO_CALL_SPANS = {"zlibes.deflate": 1, "zlibes.entropy": 2,
                     "zlibes.readback": 2, "zlibes.upload": 1,
                     "zlibes.splice": 1}
 GENERAL_SPANS = {"zlibes.match": 1, "zlibes.select": 1, "zlibes.symbols": 1,
-                 "zlibes.upload": 2, "zlibes.readback": 3, "zlibes.tables": 1,
+                 "zlibes.upload": 1, "zlibes.readback": 2, "zlibes.tables": 1,
                  "zlibes.pack": 1, "zlibes.splice": 1}
 GENERAL_CALL_SPANS = {"zlibes.deflate": 1, "zlibes.adler": 1,
                       "zlibes.upload": 1, "zlibes.readback": 1}
@@ -1075,12 +1075,13 @@ def general_phase(corpus: bytes, card: str,
     wide fixture byte for byte and its index field for field, the round
     trips, other levels and a dictionary on raw.bin, ``deflate_indexed``
     and ``backend="refmodel"``, whole-call and zlib times and a profiler
-    breakdown.  Adds ``select_tokens`` to ``records``; returns the launch
-    counts of the deflate run and the profiler's device ms by kernel
-    name."""
+    breakdown.  Adds ``select_tokens`` and ``block_tables`` to
+    ``records``; returns the launch counts of the deflate run and the
+    profiler's device ms by kernel name."""
     import zlibes_tpu_torch
     from zlibes_tpu_torch import CodecConfig, CodecStats, StreamIndex
     from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops import block_tables as bt
     from zlibes_tpu_torch.ops import deflate_kernel as dk
     from zlibes_tpu_torch.ops import lz77
     from zlibes_tpu_torch.ops import turbo_kernel as tk
@@ -1163,10 +1164,34 @@ def general_phase(corpus: bytes, card: str,
 
     lsym, dsym, valid, ll_freq, d_freq = dk.token_symbols(tv, td, cnt,
                                                           nseg=nseg)
-    plans, tables = dp.dispatch_tables(arr, 0, Bp, N, Bp,
-                                       ll_freq.cpu().numpy(),
-                                       d_freq.cpu().numpy())
-    tables = tuple(t.cuda() for t in tables)
+    # -- block_tables against its plain version, the host planner, on the
+    # first dispatch's histograms (16 full blocks, none the last)
+    tab_args = (ll_freq, d_freq, nv, Bp, -1)
+    tables = bt.block_tables(*tab_args)
+    torch.cuda.synchronize()
+    plain_args = (ll_freq.cpu(), d_freq.cpu(), nv.cpu(), Bp, -1)
+    plain = bt.block_tables(*plain_args)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tables, plain)), \
+        "block_tables != its plain version"
+    records["block_tables"] = dict(
+        replaces="none: the JAX package plans each block on the host "
+                 "(_plan_block in zlibes_tpu/codec/deflate_pipeline.py)",
+        note="no Pallas counterpart; plain_ms is the host planner on the "
+             "host clock (median of 3), not a device time",
+        max_abs_err=max(max_abs_err(a.cpu().long(), b.long())
+                        for a, b in zip(tables, plain)),
+        ms=cuda_ms(lambda: bt.block_tables(*tab_args)),
+        plain_ms=wall_s(lambda: bt.block_tables(*plain_args), runs=3) * 1e3,
+        plain_runs=3, shape=[Bp, ll_freq.shape[1] + d_freq.shape[1]],
+        # the bound counts bytes alone: the kernel is latency-bound, a few
+        # thousand dependent steps a block
+        **bound(nbytes(ll_freq, d_freq, nv, *tables), 0))
+    r = records["block_tables"]
+    print(f"kernel block_tables: exact vs plain (max_abs_err "
+          f"{r['max_abs_err']}), kernel {r['ms']:.4f} ms (median of 20), "
+          f"plain (host planner) {r['plain_ms']:.2f} ms (median of 3), "
+          f"{Bp} blocks, btypes {tables[6][:, 0].tolist()} {card}")
+    tables, info = tables[:6], tables[6].cpu().numpy()
     W = (15 * N + 4096) // 32
 
     def pack():
@@ -1174,8 +1199,9 @@ def general_phase(corpus: bytes, card: str,
                                W=W, sub_every=wk.SUB)
 
     words, payload_end, _, _, _ = pack()
-    used = [0 if p.btype == 0 else (int(pe) + p.eob_len + 31) // 32 + 1
-            for pe, p in zip(payload_end.tolist(), plans)]   # 0: stored
+    used = [0 if bty == 0 else (int(pe) + int(eob) + 31) // 32 + 1
+            for pe, bty, eob in zip(payload_end.tolist(), info[:, 0],
+                                    info[:, 2])]   # 0: stored
     flat_idx = torch.cat([torch.arange(u) + i * W
                           for i, u in enumerate(used)]).cuda()
     stages = {
@@ -1183,19 +1209,16 @@ def general_phase(corpus: bytes, card: str,
                                            J=cfg.candidates),
         "select": lambda: lz77.select_tokens(blk, matches, nv, **kw),
         "symbols": lambda: dk.token_symbols(tv, td, cnt, nseg=nseg),
+        "tables": lambda: bt.block_tables(*tab_args),
         "pack": pack,
         "gather": lambda: dk.gather_compressed(words.reshape(-1), flat_idx),
     }
     stage_ms = {k: cuda_ms(fn, runs=5, warmup=1) for k, fn in stages.items()}
-    t0 = time.perf_counter()
-    dp.dispatch_tables(arr, 0, Bp, N, Bp, ll_freq.cpu().numpy(),
-                       d_freq.cpu().numpy())
-    tables_ms = (time.perf_counter() - t0) * 1e3
     print(f"general encode stages of one dispatch ({Bp} blocks, {Bp * N} B), "
           f"CUDA events, median of 5: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
-          + f"; host tables of the dispatch {tables_ms:.2f} ms (host clock, "
-          f"one run) {card}")
+          + f"; the host planner's tables of the dispatch "
+          f"{r['plain_ms']:.2f} ms (host clock) {card}")
 
     # -- end to end through the public entry point
     torch.cuda.synchronize()
@@ -1206,7 +1229,8 @@ def general_phase(corpus: bytes, card: str,
     launches = dict(tk.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
     assert out == gold, "deflate(level=6) != tests/golden/wide_bench.zz"
-    assert launches == {"select_tokens": -(-nblocks // Bp)}, launches
+    assert launches == {"select_tokens": -(-nblocks // Bp),
+                        "block_tables": -(-nblocks // Bp)}, launches
     print(f"deflate(level=6, device='cuda'): {len(out)} B (ratio "
           f"{len(out) / len(corpus):.4f}), byte-exact with the fixture; "
           f"launches {launches}; peak device memory {peak_mb:.1f} MiB above "
@@ -1215,6 +1239,7 @@ def general_phase(corpus: bytes, card: str,
     out2, index = dp.deflate(corpus, with_index=True, level=6, stats=stats,
                              device="cuda")
     assert out2 == gold
+    assert stats.device_tables == nblocks, (stats.device_tables, nblocks)
     assert index.blocks == gold_index.blocks, "index blocks != fixture"
     for f in ("anchor_bit", "anchor_out", "anchor_block"):
         assert np.array_equal(getattr(index, f), getattr(gold_index, f)), f
@@ -1295,6 +1320,14 @@ def general_phase(corpus: bytes, card: str,
         print(f"general encode: device busy {busy:.4f} of {call_s * 1e3:.2f} "
               f"ms per untraced deflate(level=6) call -> idle share "
               f"{1 - busy / (call_s * 1e3):.3f} {card}")
+    records["block_tables"]["device_ms"] = device_time(device_ms,
+                                                       "block_tables")
+    print(f"block_tables: device {records['block_tables']['device_ms']:.4f} "
+          f"ms a launch (torch.profiler), bound "
+          f"{records['block_tables']['bound_ms']:.4f} ms "
+          f"({records['block_tables']['bytes']} B), "
+          f"{launches['block_tables']} launches a call {card}")
+    r = records["select_tokens"]
     r["device_ms"] = device_time(device_ms, "select_tokens")
     print(f"select_tokens: device {r['device_ms']:.4f} ms a launch "
           f"(torch.profiler), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
@@ -2716,7 +2749,8 @@ def main() -> None:
     for name in ("select_turbo", "encode_fields"):
         launches[name] = enc_launches[name]
     gen_launches, _ = general_phase(corpus, card, records)
-    launches["select_tokens"] = gen_launches["select_tokens"]
+    for name in ("select_tokens", "block_tables"):
+        launches[name] = gen_launches[name]
     generic_launches, _ = generic_phase(corpus, card, records)
     for name in ("decode_tokens", "resolve_global"):
         launches[name] = generic_launches[name]
@@ -2736,7 +2770,8 @@ def main() -> None:
     assert not loaded, f"the port pulled in {loaded}"
 
     wide = ("decode_wide", "resolve_wide")
-    encode = ("select_turbo", "select_tokens", "encode_fields")
+    encode = ("select_turbo", "select_tokens", "encode_fields",
+              "block_tables")
     generic = ("decode_tokens", "resolve_global")
     entries = []
     for name, r in records.items():

@@ -20,6 +20,7 @@ from zlibes_tpu_torch.codec import wide as wd
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
 from zlibes_tpu_torch.spec import constants as C
+import block_tables_cases as bt_cases
 from test_torch_contract_cases import (SELECT_CHAIN_CASES,
                                        check_decode_tokens, zlib_flushed)
 from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
@@ -632,6 +633,10 @@ def test_encode_wrappers_never_take_plain(monkeypatch):
     with pytest.raises(RuntimeError, match="no library"):
         ek.encode_fields(z[0], z[1], z[2], z[0, :288].contiguous(),
                          z[0, :32].contiguous())
+    from zlibes_tpu_torch.ops import block_tables as bt
+    ll, d, nv, nblocks, final = bt_cases.case("random")
+    with pytest.raises(RuntimeError, match="no library"):
+        bt.block_tables(ll.cuda(), d.cuda(), nv.cuda(), nblocks, final)
 
 
 def test_deflate_on_card_equals_cpu_and_fixture(corpus, fixture_stream,
@@ -993,11 +998,12 @@ def test_select_tokens_wrapper_checks_and_never_takes_plain(monkeypatch):
 
 def test_general_deflate_on_card_equals_cpu(monkeypatch):
     """raw.bin at level 6 on the card: the CPU run's bytes and index, through
-    the select_tokens kernel and not its plain version; CPython and the
-    port's own inflate give the input back."""
+    the select_tokens and block_tables kernels and not their plain
+    versions; CPython and the port's own inflate give the input back."""
     import dataclasses
 
     from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import block_tables as bt
     from zlibes_tpu_torch.ops import lz77
 
     raw = (GOLDEN / "raw.bin").read_bytes()
@@ -1009,9 +1015,11 @@ def test_general_deflate_on_card_equals_cpu(monkeypatch):
         raise AssertionError("a plain version ran on the card")
 
     monkeypatch.setattr(lz77, "select_tokens_plain", plain)
+    monkeypatch.setattr(bt, "block_tables_plain", plain)
     tk.LAUNCHES.clear()
     out, idx = tdp.deflate(raw, with_index=True, config=cfg, device="cuda")
     assert tk.LAUNCHES["select_tokens"] == 2
+    assert tk.LAUNCHES["block_tables"] == 2
     assert out == cpu and len(out) == 191419
     assert idx.blocks == cpu_idx.blocks and idx.wide
     for f in ("anchor_bit", "anchor_out", "anchor_block"):
@@ -1020,6 +1028,114 @@ def test_general_deflate_on_card_equals_cpu(monkeypatch):
     tk.LAUNCHES.clear()
     assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == raw
     assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}
+
+
+# ---------------------------------------------------------------------------
+# the general encoder's per-block tables: block_tables
+
+def _tables_both(ll, d, nv, nblocks, final):
+    """The kernel's results on the card and the plain route's on the CPU,
+    for the same CPU inputs; they must be equal."""
+    from zlibes_tpu_torch.ops import block_tables as bt
+
+    got = bt.block_tables(ll.cuda(), d.cuda(), nv.cuda(), nblocks, final)
+    torch.cuda.synchronize()
+    got = tuple(t.cpu() for t in got)
+    plain = bt.block_tables(ll, d, nv, nblocks, final)
+    for name, g, p in zip(("ll_code", "ll_len", "d_code", "d_len",
+                           "hdr_bits", "enabled", "info"), got, plain):
+        assert g.dtype == p.dtype and torch.equal(g, p), name
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", sorted(bt_cases.CASES))
+def test_block_tables_kernel_matches_plain(name, seed):
+    args = bt_cases.case(name, seed)
+    got = _tables_both(*args)
+    bt_cases.check(got, bt_cases.expected(*args), args[0].shape[0])
+
+
+def test_block_tables_kernel_matches_plain_on_a_level6_dispatch():
+    """The histograms of raw.bin's one level-6 dispatch as the card's
+    symbols stage leaves them: four blocks of 16, the last short and the
+    stream's end."""
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import deflate_kernel as dk
+    from zlibes_tpu_torch.ops import lz77
+
+    cfg = zlibes_tpu_torch.CodecConfig.from_level(6)
+    N, Bp, SEG = cfg.block_size, cfg.blocks_per_dispatch, cfg.seg_size
+    raw = np.frombuffer((GOLDEN / "raw.bin").read_bytes(), np.uint8)
+    nblocks = -(-raw.size // N)
+    blk, nv, _ = tdp.general_rows(raw, 0, nblocks, N, Bp, None)
+    blk, nv = torch.from_numpy(blk).cuda(), torch.from_numpy(nv).cuda()
+    matches = lz77.find_matches(blk, nv, N=N, S=cfg.probe_words,
+                                J=cfg.candidates)
+    tv, td, cnt = lz77.select_tokens(blk, matches, nv, N=N, SEG_SIZE=SEG,
+                                     lazy=cfg.lazy)
+    *_, ll, d = dk.token_symbols(tv, td, cnt, nseg=N // SEG)
+    args = (ll.cpu(), d.cpu(), nv.cpu(), nblocks, nblocks - 1)
+    got = _tables_both(*args)
+    assert got[6][:nblocks, 0].tolist() == [C.BTYPE_DYNAMIC] * nblocks
+    bt_cases.check(got, bt_cases.expected(*args), Bp)
+
+
+def _host_tables(ll_freq, d_freq, n_valid, nblocks, final):
+    """block_tables as the host planner: the histograms down, the plain
+    route on the host, the tables up again."""
+    from zlibes_tpu_torch.ops import block_tables as bt
+
+    outs = bt.block_tables_plain(ll_freq.cpu(), d_freq.cpu(), n_valid.cpu(),
+                                 nblocks, final)
+    return tuple(t.to(ll_freq.device) for t in outs)
+
+
+@pytest.mark.parametrize("what", ["level1", "level6", "level9", "dictionary",
+                                  "random_bytes"])
+def test_general_deflate_device_tables_equal_host_tables(what, monkeypatch):
+    """deflate on the card with the block_tables kernel gives the bytes and
+    the index of the same call with the host planner's tables;
+    CodecStats.device_tables counts every block the card planned."""
+    from zlibes_tpu_torch import CodecStats
+    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+
+    raw = (GOLDEN / "raw.bin").read_bytes()
+    level, data, zdict = 6, raw, None
+    if what.startswith("level"):
+        level = int(what[5:])
+    elif what == "dictionary":
+        data, zdict = raw[:300000], raw[-20000:]
+    else:       # every block stored
+        data = np.random.default_rng(5).integers(
+            0, 256, 300000, dtype=np.uint8).tobytes()
+    cfg = zlibes_tpu_torch.CodecConfig.from_level(level)
+    nblocks = -(-len(data) // cfg.block_size)
+
+    def run():
+        stats = CodecStats()
+        tk.LAUNCHES.clear()
+        out = tdp.deflate(data, with_index=True, config=cfg, stats=stats,
+                          dictionary=zdict, device="cuda")
+        return out, stats, tk.LAUNCHES["block_tables"]
+
+    (out, idx), stats, launches = run()
+    assert launches == stats.dispatches == 1
+    assert stats.device_tables == nblocks
+    coded = [b for b in idx.blocks if b.btype != C.BTYPE_STORED]
+    if what == "random_bytes":
+        assert not coded
+    else:
+        assert len(coded) == nblocks
+    monkeypatch.setattr(tdp, "block_tables", _host_tables)
+    (ref, ref_idx), _, launches = run()
+    assert launches == 0
+    assert out == ref
+    assert idx.blocks == ref_idx.blocks and idx.wide == ref_idx.wide
+    for f in ("anchor_bit", "anchor_out", "anchor_block"):
+        assert np.array_equal(getattr(idx, f), getattr(ref_idx, f)), f
+    z = zlib.decompressobj(zdict=zdict) if zdict else zlib.decompressobj()
+    assert z.decompress(out) == data
 
 
 # ---------------------------------------------------------------------------

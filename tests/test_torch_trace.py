@@ -54,7 +54,7 @@ RAW = (Path(__file__).resolve().parent / "golden" / "raw.bin").read_bytes()
 PORT_TURBO = ({"zlibes.upload": 1},
               {"zlibes.deflate": 1, "zlibes.entropy": 2, "zlibes.readback": 2,
                "zlibes.upload": 1, "zlibes.splice": 1})
-PORT_GENERAL = ({"zlibes.upload": 2, "zlibes.readback": 2,
+PORT_GENERAL = ({"zlibes.upload": 1, "zlibes.readback": 1,
                  "zlibes.tables": 1, "zlibes.pack": 1, "zlibes.splice": 1},
                 {"zlibes.deflate": 1, "zlibes.adler": 1, "zlibes.upload": 1,
                  "zlibes.readback": 1})

@@ -1,5 +1,5 @@
-"""The deflate pipeline of the PyTorch port: match, select and pack on the
-device, tables and splice on the host.
+"""The deflate pipeline of the PyTorch port: match, select, tables and
+pack on the device, splice on the host.
 
 Counterpart of ``zlibes_tpu/codec/deflate_pipeline.py``.  The input splits
 into blocks of ``block_size`` bytes; per dispatch of
@@ -12,12 +12,13 @@ per dispatch:
 
   device   sort-based match finding over the full 32 KiB window ->
            ``select_tokens`` (CUDA kernel) over ``seg_size``-byte segment
-           lanes -> symbols and per-block histograms; one readback;
-  host     per block: length-limited code lengths (package-merge), the
-           dynamic header, and the choice of stored, fixed or dynamic;
-  device   ``pack_payload`` under the per-block tables, with the 128-byte
-           sub-anchors of the wide index; one readback of the metadata, one
-           of the used words;
+           lanes -> symbols and per-block histograms -> ``block_tables``
+           (CUDA kernel; on the CPU the host planner): per block
+           length-limited code lengths (package-merge), the dynamic header,
+           the choice of stored, fixed or dynamic and the codes ->
+           ``pack_payload`` under the per-block tables, with the 128-byte
+           sub-anchors of the wide index; one readback of the metadata and
+           the blocks' choices and headers, one of the used words;
   host     splice headers, end-of-block codes, stored blocks, empty stored
            sync blocks and the anchors into the stream and its StreamIndex
            (``wide`` unless a dictionary was given).
@@ -63,18 +64,23 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats, span, trace
-from ..ops import huffman
 from ..spec import constants as C
-from ..spec.refmodel import (
-    BitWriter,
-    BlockInfo,
-    StreamIndex,
-    _rle_code_lengths,
-    adler32,
-)
+from ..spec.refmodel import BlockInfo, StreamIndex, adler32
 
 from ..ops import turbo_kernel as tk
 from ..ops.adler32 import adler32_device, adler_partials, adler_value
+# the host functions of the tables live with the block_tables kernel; the
+# shared-table encoders, parallel/ and the tests take them from here too
+from ..ops.block_tables import (  # noqa: F401
+    INFO,
+    _FIXED_D_LEN,
+    _FIXED_LL_LEN,
+    _dynamic_header,
+    _encode_tables,
+    _payload_bits,
+    block_tables,
+    package_merge_np,
+)
 from ..ops.deflate_kernel import (
     gather_compressed,
     pack_payload,
@@ -86,14 +92,9 @@ from ..ops.entropy import limited_lengths_pair
 from ..ops.lz77 import find_matches, select_tokens
 from ..ops.wide_kernel import SUB as WIDE_SUB
 
-_RLE_EXTRA_BITS = {16: 2, 17: 3, 18: 7}
 _ADLER_CHUNK = 2048
 _M = C.ADLER_MOD
 _F = 80  # filler slots per block (header + EOB tail words)
-
-
-_FIXED_LL_LEN = C.fixed_litlen_code_lengths()
-_FIXED_D_LEN = C.fixed_dist_code_lengths()
 
 
 def _own_config(cfg: CodecConfig | None) -> CodecConfig:
@@ -110,92 +111,7 @@ def _own_config(cfg: CodecConfig | None) -> CodecConfig:
 
 
 # ---------------------------------------------------------------------------
-# host header work (numpy; the port's own copies of the reference's)
-
-def package_merge_np(freqs: np.ndarray, max_len: int) -> np.ndarray:
-    """Length-limited Huffman lengths via matrix-form package-merge
-    (package membership tracked as count vectors)."""
-    freqs = np.asarray(freqs, dtype=np.int64)
-    S = freqs.size
-    lengths = np.zeros(S, dtype=np.int32)
-    active = np.nonzero(freqs)[0]
-    n = active.size
-    if n == 0:
-        return lengths
-    if n == 1:
-        lengths[active[0]] = 1
-        return lengths
-    order = np.argsort(freqs[active], kind="stable")
-    sw = freqs[active][order]
-    sm = np.eye(n, dtype=np.int32)[order]
-    mw, mm = sw, sm
-    for _ in range(max_len - 1):
-        k = (mw.size // 2) * 2
-        pw = mw[0:k:2] + mw[1:k:2]
-        pm = mm[0:k:2] + mm[1:k:2]
-        mw = np.concatenate([sw, pw])
-        mm = np.concatenate([sm, pm])
-        o = np.argsort(mw, kind="stable")
-        mw, mm = mw[o], mm[o]
-    lengths[active] = mm[: 2 * n - 2].sum(axis=0)
-    return lengths
-
-
-def _encode_tables(ll_len: np.ndarray, d_len: np.ndarray):
-    """Canonical codes (bit-reversed, ready for LSB-first packing)."""
-    codes_ll = huffman.canonical_codes_batch(ll_len[None, :])[0]
-    codes_d = huffman.canonical_codes_batch(d_len[None, :])[0]
-    rev = huffman._REV16
-    ll_code = np.where(
-        ll_len > 0, rev[codes_ll.astype(np.uint32)] >> (16 - np.maximum(ll_len, 1)), 0
-    ).astype(np.uint32)
-    d_code = np.where(
-        d_len > 0, rev[codes_d.astype(np.uint32)] >> (16 - np.maximum(d_len, 1)), 0
-    ).astype(np.uint32)
-    return ll_code, d_code
-
-
-def _dynamic_header(ll_len: np.ndarray, d_len: np.ndarray,
-                    bfinal: int) -> tuple[bytes, int]:
-    """A dynamic block header bit-string, 3-bit block prefix included
-    (RFC 1951 §3.2.7) -> (bytes, number of bits)."""
-    bw = BitWriter()
-    bw.write_bits(bfinal, 1)
-    bw.write_bits(C.BTYPE_DYNAMIC, 2)
-    hlit = max(257, int(np.nonzero(ll_len)[0].max(initial=256)) + 1)
-    hdist = max(1, int(np.nonzero(d_len)[0].max(initial=0)) + 1)
-    all_lengths = np.concatenate([ll_len[:hlit], d_len[:hdist]])
-    rle = _rle_code_lengths(all_lengths)
-    clc_freq = np.zeros(C.NUM_CODELEN_SYMBOLS, dtype=np.int64)
-    for sym, _ in rle:
-        clc_freq[sym] += 1
-    clc_len = package_merge_np(clc_freq, C.MAX_CLC_BITS)
-    clc_codes = huffman.canonical_codes_batch(clc_len[None, :].astype(np.int64))[0]
-    hclen = 19
-    while hclen > 4 and clc_len[int(C.CODELEN_ORDER[hclen - 1])] == 0:
-        hclen -= 1
-    bw.write_bits(hlit - 257, 5)
-    bw.write_bits(hdist - 1, 5)
-    bw.write_bits(hclen - 4, 4)
-    for i in range(hclen):
-        bw.write_bits(int(clc_len[int(C.CODELEN_ORDER[i])]), 3)
-    for sym, extra in rle:
-        bw.write_code(int(clc_codes[sym]), int(clc_len[sym]))
-        if sym in _RLE_EXTRA_BITS:
-            bw.write_bits(extra, _RLE_EXTRA_BITS[sym])
-    nbits = bw.bit_length
-    return bytes(bw.out) + (bytes([bw.bitbuf]) if bw.bitcnt else b""), nbits
-
-
-def _payload_bits(ll_freq, d_freq, ll_len, d_len) -> int:
-    """Exact coded payload size (tokens only, EOB excluded)."""
-    bits = int((ll_freq * ll_len).sum()) + int((d_freq * d_len).sum())
-    lf = ll_freq[257:286]
-    bits += int((lf * C.LENGTH_EXTRA_BITS[: lf.size]).sum())
-    df = d_freq[:30]
-    bits += int((df * C.DIST_EXTRA_BITS[: df.size]).sum())
-    return bits
-
+# host splice helper
 
 def _or_bits(buf: np.ndarray, bit_off: int, value: int, nbits: int) -> None:
     """OR an LSB-first bit-string into a byte buffer at a bit offset."""
@@ -558,51 +474,6 @@ def _stored_stream(arr: np.ndarray, stats: CodecStats):
                              np.zeros(0, np.int64), np.zeros(0, np.int32))
 
 
-class _BlockPlan:
-    """How one block is coded: stored (``raw``), or under fixed or dynamic
-    tables with its header bits and end-of-block code."""
-    __slots__ = ("btype", "bfinal", "raw", "hdr_bytes", "hdr_bits", "ll_len",
-                 "d_len", "ll_code", "d_code", "eob_code", "eob_len")
-
-
-def _plan_block(llf: np.ndarray, dfq: np.ndarray, raw: np.ndarray,
-                bfinal: int) -> _BlockPlan:
-    """The cheapest of stored, fixed and dynamic for a block with the
-    litlen and distance histograms ``llf`` (end-of-block counted) and
-    ``dfq`` and the bytes ``raw``, with its tables."""
-    ll_len = package_merge_np(llf, C.MAX_CODELEN_BITS)
-    d_len = package_merge_np(dfq, C.MAX_CODELEN_BITS)
-    if d_len.max(initial=0) == 0:
-        d_len[0] = 1
-    hdr, hdr_nbits = _dynamic_header(ll_len, d_len, bfinal)
-    dyn_bits = hdr_nbits + _payload_bits(llf, dfq, ll_len, d_len) \
-        + int(ll_len[C.END_OF_BLOCK])
-    fix_bits = 3 + _payload_bits(llf, dfq, _FIXED_LL_LEN, _FIXED_D_LEN) \
-        + int(_FIXED_LL_LEN[C.END_OF_BLOCK])
-    nb = raw.size
-    stored_bytes = nb + 5 * (-(-nb // 65535))
-    plan = _BlockPlan()
-    plan.bfinal = bfinal
-    if stored_bytes < min(dyn_bits, fix_bits) // 8:
-        plan.btype = C.BTYPE_STORED
-        plan.raw = raw
-        return plan
-    if fix_bits <= dyn_bits:
-        plan.btype = C.BTYPE_FIXED
-        plan.hdr_bytes = bytes([bfinal | (C.BTYPE_FIXED << 1)])
-        plan.hdr_bits = 3
-        plan.ll_len, plan.d_len = _FIXED_LL_LEN, _FIXED_D_LEN
-    else:
-        plan.btype = C.BTYPE_DYNAMIC
-        plan.hdr_bytes = hdr
-        plan.hdr_bits = hdr_nbits
-        plan.ll_len, plan.d_len = ll_len, d_len
-    plan.ll_code, plan.d_code = _encode_tables(plan.ll_len, plan.d_len)
-    plan.eob_code = int(plan.ll_code[C.END_OF_BLOCK])
-    plan.eob_len = int(plan.ll_len[C.END_OF_BLOCK])
-    return plan
-
-
 def general_rows(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int,
                  dict_np: np.ndarray | None):
     """Block rows of one dispatch of the general encoder -> (blk_bytes
@@ -627,39 +498,6 @@ def general_rows(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int,
     return blk_bytes, n_valid, ctx_start
 
 
-def dispatch_tables(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int,
-                    ll_freq: np.ndarray, d_freq: np.ndarray):
-    """The host's part of one dispatch: from the per-block histograms
-    ll_freq (Bp, 288) and d_freq (Bp, 32) of blocks [d0, d1) of ``arr``,
-    each block's plan and the arguments of ``pack_payload`` as CPU tensors
-    (ll_code, ll_len (Bp, 288), d_code, d_len (Bp, 32), hdr_bits (Bp,),
-    enabled (Bp,) bool; zeros and False for a stored or a padded block)."""
-    nblocks = -(-arr.size // N)
-    plans: list[_BlockPlan] = []
-    ll_code = np.zeros((Bp, C.NUM_LITLEN_SYMBOLS), np.int64)
-    ll_len = np.zeros((Bp, C.NUM_LITLEN_SYMBOLS), np.int64)
-    d_code = np.zeros((Bp, C.NUM_DIST_SYMBOLS), np.int64)
-    d_len = np.zeros((Bp, C.NUM_DIST_SYMBOLS), np.int64)
-    hdr_bits = np.zeros(Bp, np.int64)
-    enabled = np.zeros(Bp, bool)
-    for i, bi in enumerate(range(d0, d1)):
-        llf = ll_freq[i].astype(np.int64)
-        llf[C.END_OF_BLOCK] += 1
-        plan = _plan_block(llf, d_freq[i].astype(np.int64),
-                           arr[bi * N : (bi + 1) * N],
-                           1 if bi == nblocks - 1 else 0)
-        if plan.btype != C.BTYPE_STORED:
-            ll_code[i] = plan.ll_code
-            ll_len[i] = plan.ll_len
-            d_code[i] = plan.d_code
-            d_len[i] = plan.d_len
-            hdr_bits[i] = plan.hdr_bits
-            enabled[i] = True
-        plans.append(plan)
-    return plans, tuple(torch.from_numpy(x) for x in (
-        ll_code, ll_len, d_code, d_len, hdr_bits, enabled))
-
-
 def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
                      stats: CodecStats, dev: torch.device,
                      dict_np: np.ndarray | None):
@@ -674,8 +512,6 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
     W = (15 * N + 4096) // 32           # words of one block's buffer
     L_ = Bp * nseg
     nsub_lane = SEG_SIZE // WIDE_SUB
-    nh = C.NUM_LITLEN_SYMBOLS
-    nd = C.NUM_DIST_SYMBOLS
 
     out_parts: list[bytes] = []
     blocks: list[BlockInfo] = []
@@ -691,7 +527,8 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
         blk_bytes, n_valid, ctx_np = general_rows(arr, d0, d1, N, Bp, dict_np)
         with trace("zlibes.upload"):
             dev_bytes = torch.from_numpy(blk_bytes).to(dev)
-            dev_nv = torch.from_numpy(n_valid).to(dev) + CTX
+            dev_n = torch.from_numpy(n_valid).to(dev)
+            dev_nv = dev_n + CTX if CTX else dev_n
             ctx_dev = torch.from_numpy(ctx_np).to(dev) if CTX else None
         with trace("zlibes.match", stats.stage_s):
             if cfg.candidates > 0:
@@ -709,19 +546,15 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
         with trace("zlibes.symbols", stats.stage_s):
             lsym, dsym, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
                                                                nseg=nseg)
-        with trace("zlibes.readback", stats.stage_s):
-            freq_np = torch.cat([ll_freq.reshape(-1),
-                                 d_freq.reshape(-1)]).cpu().numpy()
-        ll_freq_np = freq_np[: Bp * nh].reshape(Bp, nh)
-        d_freq_np = freq_np[Bp * nh :].reshape(Bp, nd)
 
-        # --- host: each block's coding choice and tables
+        # --- each block's coding choice and tables, where the histograms
+        # are: the card's block_tables kernel, or the host planner on the CPU
         with trace("zlibes.tables", stats.stage_s):
-            plans, tables = dispatch_tables(arr, d0, d1, N, Bp, ll_freq_np,
-                                            d_freq_np)
-            with trace("zlibes.upload"):
-                t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en = (
-                    t.to(dev) for t in tables)
+            t_ll_code, t_ll_len, t_d_code, t_d_len, t_hdr, t_en, info = \
+                block_tables(ll_freq, d_freq, dev_n, B,
+                             nblocks - 1 - d0 if d1 == nblocks else -1)
+        if info.is_cuda:
+            stats.device_tables += B
 
         # --- device: the payload pack, with the wide index's sub-anchors
         with trace("zlibes.pack", stats.stage_s):
@@ -731,19 +564,23 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
                 nseg=nseg, W=W, sub_every=WIDE_SUB)
         with trace("zlibes.readback", stats.stage_s):
             meta_np = torch.cat([payload_end, lane_bit0, sub_bit.reshape(-1),
-                                 sub_out.reshape(-1)]).cpu().numpy()
+                                 sub_out.reshape(-1),
+                                 info.reshape(-1)]).cpu().numpy()
         payload_end_np = meta_np[:Bp]
+        sub_end = Bp + L_ + 2 * L_ * nsub_lane
         sub_bit_np = meta_np[Bp + L_ : Bp + L_ + L_ * nsub_lane].reshape(
             L_, nsub_lane)
-        sub_out_np = meta_np[Bp + L_ + L_ * nsub_lane :].reshape(
+        sub_out_np = meta_np[Bp + L_ + L_ * nsub_lane : sub_end].reshape(
             L_, nsub_lane)
+        # per block: btype, end-of-block code and length, header bits, then
+        # the header's bytes
+        info_np = meta_np[sub_end:].reshape(Bp, INFO)
+        btype_np, eob_code_np, eob_len_np, hdr_bits_np = info_np[:, :4].T
 
         # one indexed read of the words the coded blocks used
-        used_words = np.zeros(B, np.int64)
-        for i in range(B):
-            if plans[i].btype != C.BTYPE_STORED:
-                used_words[i] = (int(payload_end_np[i]) + plans[i].eob_len
-                                 + 31) // 32 + 1
+        used_words = np.where(btype_np[:B] != C.BTYPE_STORED,
+                              (payload_end_np[:B] + eob_len_np[:B] + 31)
+                              // 32 + 1, 0)
         offs = np.concatenate([[0], np.cumsum(used_words)]).astype(np.int64)
         if offs[-1]:
             flat_idx = np.concatenate(
@@ -760,29 +597,32 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
         with trace("zlibes.splice", stats.stage_s):
             for i in range(B):
                 bi = d0 + i
-                plan = plans[i]
+                bfinal = bi == nblocks - 1
+                btype = int(btype_np[i])
                 nb = int(n_valid[i])
                 out_start = bi * N
-                if plan.btype == C.BTYPE_STORED:
-                    for part, info in _stored_blocks(plan.raw, plan.bfinal,
-                                                     stream_bit, out_start):
+                if btype == C.BTYPE_STORED:
+                    for part, binfo in _stored_blocks(
+                            arr[out_start : out_start + nb], int(bfinal),
+                            stream_bit, out_start):
                         out_parts.append(part)
-                        blocks.append(info)
-                        stream_bit = info.end_bit
+                        blocks.append(binfo)
+                        stream_bit = binfo.end_bit
                     continue
                 buf = dense[int(offs[i]) : int(offs[i + 1])].view(
                     np.uint8).copy()
                 end_bits = int(payload_end_np[i])
+                hdr_bits = int(hdr_bits_np[i])
+                eob_len = int(eob_len_np[i])
                 # the device left the header's bits [0, hdr_bits) free
-                hb = np.frombuffer(plan.hdr_bytes, dtype=np.uint8)
-                buf[: hb.size] |= hb
-                _or_bits(buf, end_bits, plan.eob_code, plan.eob_len)
-                end_bits += plan.eob_len
+                nhb = (hdr_bits + 7) // 8
+                buf[:nhb] |= info_np[i, 4:].view(np.uint8)[:nhb]
+                _or_bits(buf, end_bits, int(eob_code_np[i]), eob_len)
+                end_bits += eob_len
                 start_bit = stream_bit
                 blocks.append(BlockInfo(
-                    plan.btype, bool(plan.bfinal), start_bit,
-                    start_bit + plan.hdr_bits, start_bit + end_bits,
-                    out_start, nb))
+                    btype, bfinal, start_bit, start_bit + hdr_bits,
+                    start_bit + end_bits, out_start, nb))
                 # one anchor every 128 output bytes of the block (the wide
                 # decode's lanes).  A boundary with no token starting at or
                 # after it in its own selection lane takes the next
@@ -804,7 +644,7 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
                 anchor_bit.extend(start_bit + fb)
                 anchor_out.extend(out_start + fo)
                 anchor_block.extend([len(blocks) - 1] * na_b)
-                if plan.bfinal:
+                if bfinal:
                     nbytes = (end_bits + 7) // 8
                     out_parts.append(buf[:nbytes].tobytes())
                     stream_bit += nbytes * 8

@@ -127,6 +127,8 @@ class CodecStats:
     bytes_out: int = 0
     blocks: int = 0
     dispatches: int = 0
+    device_tables: int = 0  # blocks whose coding choice and tables the
+    # card built (the general encoder's block_tables kernel)
     stage_s: dict = field(default_factory=dict)
     adler: int | None = None  # trailer checksum, when the encode pipeline
     # folded its device Adler terms into the phase-1 dispatches

@@ -1,8 +1,9 @@
 // Encode kernels for Hopper (sm_90a).
 //
 // select_turbo (zlibes_tpu_torch/ops/turbo_kernel.py), select_tokens
-// (zlibes_tpu_torch/ops/lz77.py) and encode_fields
-// (zlibes_tpu_torch/ops/encode_kernel.py), each with a plain extern "C"
+// (zlibes_tpu_torch/ops/lz77.py), encode_fields
+// (zlibes_tpu_torch/ops/encode_kernel.py) and block_tables
+// (zlibes_tpu_torch/ops/block_tables.py), each with a plain extern "C"
 // launcher that takes device pointers and a CUDA stream, launches on that
 // stream, and returns cudaGetLastError().  The Python wrappers check shapes,
 // types and devices and allocate every output; the plain PyTorch versions
@@ -536,6 +537,453 @@ __global__ void encode_fields_kernel(const int32_t* __restrict__ tv_g,
   nb_out[i] = n123 + dist_en;
 }
 
+
+// ---------------------------------------------------------------- tables
+// block_tables: each block's coding choice and tables for the general
+// encoder, bit for bit what the host planner (_plan_block,
+// zlibes_tpu_torch/ops/block_tables.py) computes: the end-of-block count
+// added, 15-bit litlen and distance lengths by package-merge, one distance
+// code where no distance is used, the dynamic header (HLIT, HDIST, the
+// 16/17/18 run-length coding, the 7-bit code-length code by package-merge,
+// HCLEN), the exact dynamic, fixed and stored costs, the cheapest of the
+// three, and the canonical bit-reversed codes of the chosen tables.  It
+// runs between the symbols stage and the payload pack, which reads its
+// tables where it left them.  The JAX package plans on the host: there is
+// no Pallas counterpart.
+//
+// One block of 320 threads a DEFLATE block, a thread a symbol: warps 0-8
+// the 288 litlen symbols, warp 9 the 32 distance symbols.
+//
+// Package-merge as package_merge_np does it: leaves in stable (frequency,
+// symbol) order, a leaf before a package of equal weight, each round's
+// packages the pairs of the round before's merged list.  A round is a
+// parallel merge: a leaf's place is its rank plus the packages lighter than
+// it, a package's its index plus the leaves no heavier, each found by
+// binary search (a package's weight is the sum of two entries of the list
+// before).  Both alphabets merge at once, one barrier a round.  The lengths
+// follow from a backward walk over the rounds instead of count vectors: the
+// first k entries of a round's list hold its first c leaves and k - c
+// packages, and those packages are the pairs of the first 2 (k - c) entries
+// of the round before; a leaf's length is the number of rounds whose
+// prefix holds it, starting from the first 2n - 2 entries of the last.
+//
+// The header is built by warp 0 from shared memory: a start bit a run of
+// equal code lengths (ballots), each run's 16/17/18 symbols counted into
+// the code-length histogram, that alphabet's package-merge on the warp,
+// then each run's bits placed by a warp scan of the runs' bit counts and
+// OR-ed into 320 bytes of shared memory.  Costs are block reductions.
+// Latency-bound: a few thousand dependent steps a block, every block of a
+// dispatch at once.
+
+constexpr int kTabThreads = kLitlenSyms + kDistSyms;  // a thread a symbol
+constexpr int kTabWarps = kTabThreads / 32;
+constexpr int kMaxBits = 15;           // litlen and distance code lengths
+constexpr int kClcSyms = 19;           // the code-length alphabet
+constexpr int kClcBits = 7;
+constexpr int kEob = 256;
+constexpr int kHdrWords = 80;          // 320 B: a header has <= 2,286 bits
+constexpr int kInfo = 4 + kHdrWords / 2;  // int64 a block of ``info``
+constexpr int kSeqWords = (kTabThreads + 1 + 31) / 32;  // run-start bits
+
+__constant__ uint8_t kClcOrder[kClcSyms] = {16, 17, 18, 0, 8,  7, 9,
+                                            6,  10, 5,  11, 4, 12, 3,
+                                            13, 2,  14, 1,  15};
+
+// One alphabet's package-merge state in shared memory: S symbols, M rounds.
+struct PMerge {
+  int64_t* leaf;      // (S,) sorted leaf weights
+  int64_t* list[2];   // (2S,) the merged lists of odd and even rounds
+  uint16_t* order;    // (S,) the symbol of sorted leaf j
+  uint16_t* pkg_pos;  // (M, S) the place of package i in round r's list
+  int* npk;           // (M,) packages of round r
+  int* cut;           // (M,) leaves in the used prefix of round r's list
+  int* n;             // used symbols
+  int S;
+};
+
+template <int S, int M>
+struct PMergeStore {
+  int64_t leaf[S];
+  int64_t list[2][2 * S];
+  uint16_t order[S];
+  uint16_t pkg_pos[M][S];
+  int npk[M];
+  int cut[M];
+  int n;
+  __device__ PMerge view() {
+    return PMerge{leaf,   {list[0], list[1]}, order, &pkg_pos[0][0], npk,
+                  cut,    &n,                 S};
+  }
+};
+
+template <bool kWarp>
+__device__ __forceinline__ void team_sync() {
+  if (kWarp)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// first index of a[0, n) holding a value >= x (kUpper: > x)
+template <bool kUpper, typename T, typename Get>
+__device__ __forceinline__ int search(int n, T x, Get a) {
+  int lo = 0;
+  while (n > 0) {
+    const int h = n >> 1;
+    const T v = a(lo + h);
+    if (kUpper ? v <= x : v < x) {
+      lo += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return lo;
+}
+
+// Length-limited (M bits) code lengths of the histogram f (S,) into len,
+// as package_merge_np computes them.  Thread t of a team of T takes symbols
+// and list entries t, t + T, ...  Without kWarp every thread of the block
+// calls it at once (the teams of both alphabets, each with its own state
+// ``pm``: one instantiation, so every thread passes the same barrier
+// instructions), M + 1 of them whatever the data; with kWarp one warp
+// calls it.  Leaves len written, with no barrier after.
+template <bool kWarp>
+__device__ void package_merge(const PMerge& pm, const int64_t* f,
+                              uint8_t* len, int t, int T, int M) {
+  const int S = pm.S;
+  int n = 0;
+  for (int s = 0; s < S; ++s) n += f[s] > 0;
+  for (int s = t; s < S; s += T) {
+    len[s] = 0;
+    const int64_t fs = f[s];
+    if (fs > 0) {
+      int r = 0;
+      for (int u = 0; u < S; ++u) {
+        const int64_t fu = f[u];
+        r += fu > 0 && (fu < fs || (fu == fs && u < s));
+      }
+      pm.leaf[r] = fs;
+      pm.list[0][r] = fs;
+      pm.order[r] = (uint16_t)s;
+    }
+  }
+  if (t == 0) *pm.n = n;
+  team_sync<kWarp>();
+  int size = n;
+  for (int r = 1; r < M; ++r) {
+    const int64_t* prev = pm.list[(r - 1) & 1];
+    int64_t* cur = pm.list[r & 1];
+    const int np = size >> 1;
+    auto pkg = [&](int i) { return prev[2 * i] + prev[2 * i + 1]; };
+    auto leaf = [&](int j) { return pm.leaf[j]; };
+    for (int j = t; j < n; j += T) {
+      const int64_t w = pm.leaf[j];
+      cur[j + search<false>(np, w, pkg)] = w;
+    }
+    for (int i = t; i < np; i += T) {
+      const int64_t w = pkg(i);
+      const int p = i + search<true>(n, w, leaf);
+      cur[p] = w;
+      pm.pkg_pos[r * S + i] = (uint16_t)p;
+    }
+    if (t == 0) pm.npk[r] = np;
+    size = n + np;
+    team_sync<kWarp>();
+  }
+  if (t == 0 && n >= 2) {
+    int k = min(2 * n - 2, size);
+    for (int r = M - 1; r >= 1; --r) {
+      const uint16_t* pos = pm.pkg_pos + r * S;
+      const int p = search<false>(pm.npk[r], k, [&](int i) { return (int)pos[i]; });
+      pm.cut[r] = k - p;
+      k = 2 * p;
+    }
+    pm.cut[0] = k;
+  }
+  team_sync<kWarp>();
+  for (int j = t; j < n; j += T) {
+    int l = 1;
+    if (n >= 2) {
+      l = 0;
+      for (int r = 0; r < M; ++r) l += j < pm.cut[r];
+    }
+    len[pm.order[j]] = (uint8_t)l;
+  }
+}
+
+// The canonical code of symbol s under the lengths len (S,), bit-reversed
+// for LSB-first packing; 0 for an unused symbol.
+__device__ __forceinline__ uint32_t canonical_code(const uint8_t* len, int S,
+                                                   int s) {
+  const int l = len[s];
+  if (l == 0) return 0;
+  uint32_t code = 0;
+  for (int u = 0; u < S; ++u) {
+    const int lu = len[u];
+    if (lu > 0 && lu < l) code += 1u << (l - lu);
+    code += lu == l && u < s;
+  }
+  return __brev(code) >> (32 - l);
+}
+
+// The 16/17/18 run-length symbols of a run of ``run`` code lengths ``v``,
+// as _rle_code_lengths emits them: emit(symbol, extra bits' value).
+template <typename Emit>
+__device__ __forceinline__ void rle_run(int v, int run, Emit emit) {
+  int r = run;
+  if (v == 0) {
+    while (r >= 3) {
+      if (r >= 11) {
+        const int rep = min(r, 138);
+        emit(18, rep - 11);
+        r -= rep;
+      } else {
+        emit(17, r - 3);
+        r = 0;
+      }
+    }
+  } else {
+    emit(v, 0);
+    for (r = run - 1; r >= 3;) {
+      const int rep = min(r, 6);
+      emit(16, rep - 3);
+      r -= rep;
+    }
+  }
+  for (; r > 0; --r) emit(v, 0);
+}
+
+__device__ __forceinline__ int rle_extra_bits(int sym) {
+  return sym == 16 ? 2 : sym == 17 ? 3 : sym == 18 ? 7 : 0;
+}
+
+// OR n <= 25 bits of v into the bit string words at bit ``off``
+__device__ __forceinline__ void or_bits(uint32_t* words, int off, uint32_t v,
+                                       int n) {
+  const int sh = off & 31;
+  atomicOr(&words[off >> 5], v << sh);
+  if (sh + n > 32) atomicOr(&words[(off >> 5) + 1], v >> (32 - sh));
+}
+
+__device__ __forceinline__ int fixed_litlen_len(int s) {
+  return s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
+}
+
+__device__ __forceinline__ int len_extra_of_symbol(int s) {  // 257..285
+  const int i = s - 257;
+  return (i < 8 || i == 28) ? 0 : (i - 4) >> 2;
+}
+
+__device__ __forceinline__ int64_t warp_sum64(int64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kTabThreads)
+block_tables_kernel(const int64_t* __restrict__ ll_freq,
+                    const int64_t* __restrict__ d_freq,
+                    const int32_t* __restrict__ n_valid, int nblocks,
+                    int final_block, int64_t* __restrict__ ll_code,
+                    int64_t* __restrict__ ll_len, int64_t* __restrict__ d_code,
+                    int64_t* __restrict__ d_len,
+                    int64_t* __restrict__ hdr_bits_out,
+                    uint8_t* __restrict__ enabled,
+                    int64_t* __restrict__ info) {
+  __shared__ int64_t s_f[kTabThreads];      // litlen, then distance counts
+  __shared__ uint8_t s_len[kTabThreads];    // litlen, then distance lengths
+  __shared__ PMergeStore<kLitlenSyms, kMaxBits> s_ll;
+  __shared__ PMergeStore<kDistSyms, kMaxBits> s_d;
+  __shared__ PMergeStore<kClcSyms, kClcBits> s_clc;
+  __shared__ int64_t s_clc_f[kClcSyms];
+  __shared__ uint8_t s_clc_len[kClcSyms];
+  __shared__ uint32_t s_clc_code[kClcSyms];
+  __shared__ uint32_t s_starts[kSeqWords];
+  __shared__ uint32_t s_hdr[kHdrWords];
+  __shared__ int64_t s_cost[2][kTabWarps];
+  __shared__ int s_hlit, s_hdist, s_hdr_bits, s_btype;
+
+  const int tid = threadIdx.x;
+  const int ln = tid & 31;
+  const int b = blockIdx.x;
+  const bool is_ll = tid < kLitlenSyms;
+  const int s = is_ll ? tid : tid - kLitlenSyms;  // this thread's symbol
+  int64_t* code_out = is_ll ? ll_code + (int64_t)b * kLitlenSyms + s
+                            : d_code + (int64_t)b * kDistSyms + s;
+  int64_t* len_out = is_ll ? ll_len + (int64_t)b * kLitlenSyms + s
+                           : d_len + (int64_t)b * kDistSyms + s;
+  int64_t* info_b = info + (int64_t)b * kInfo;
+  if (b >= nblocks) {  // padding: not coded
+    *code_out = 0;
+    *len_out = 0;
+    if (tid < kInfo) info_b[tid] = 0;
+    if (tid == 0) {
+      hdr_bits_out[b] = 0;
+      enabled[b] = 0;
+    }
+    return;
+  }
+
+  const int64_t f = is_ll ? ll_freq[(int64_t)b * kLitlenSyms + s] + (s == kEob)
+                          : d_freq[(int64_t)b * kDistSyms + s];
+  s_f[tid] = f;
+  if (tid == 0) {
+    s_hlit = 0;
+    s_hdist = 0;
+  }
+  __syncthreads();
+
+  // -- both alphabets' lengths at once
+  const PMerge pm = is_ll ? s_ll.view() : s_d.view();
+  package_merge<false>(pm, is_ll ? s_f : s_f + kLitlenSyms,
+                       is_ll ? s_len : s_len + kLitlenSyms, s,
+                       is_ll ? kLitlenSyms : kDistSyms, kMaxBits);
+  __syncthreads();
+  int l = s_len[tid];
+  if (!is_ll && s == 0 && s_d.n == 0) {  // one distance code where none is used
+    l = 1;
+    s_len[tid] = 1;
+  }
+  if (l > 0) atomicMax(is_ll ? &s_hlit : &s_hdist, s + 1);
+
+  // -- payload costs, extra bits included: dynamic and fixed
+  int64_t extra = 0;
+  if (is_ll && s >= 257 && s <= 285) extra = f * len_extra_of_symbol(s);
+  if (!is_ll && s < 30) extra = f * (s < 4 ? 0 : (s - 2) >> 1);
+  const int64_t dyn = warp_sum64(f * l + extra);
+  const int64_t fix =
+      warp_sum64(f * (is_ll ? fixed_litlen_len(s) : 5) + extra);
+  if (ln == 0) {
+    s_cost[0][tid >> 5] = dyn;
+    s_cost[1][tid >> 5] = fix;
+  }
+  __syncthreads();
+
+  // -- the dynamic header, on warp 0
+  if (tid < 32) {
+    const int hlit = max(257, s_hlit);
+    const int hdist = max(1, s_hdist);
+    const int n_all = hlit + hdist;
+    auto seq = [&](int i) {
+      return (int)(i < hlit ? s_len[i] : s_len[kLitlenSyms + i - hlit]);
+    };
+    for (int c = 0; c < kSeqWords; ++c) {  // run starts, and one at n_all
+      const int i = 32 * c + ln;
+      const bool st =
+          i == n_all || (i < n_all && (i == 0 || seq(i) != seq(i - 1)));
+      const uint32_t m = __ballot_sync(0xffffffffu, st);
+      if (ln == 0) s_starts[c] = m;
+    }
+    if (ln < kClcSyms) s_clc_f[ln] = 0;
+    for (int w = ln; w < kHdrWords; w += 32) s_hdr[w] = 0;
+    __syncwarp();
+    // the run from start i: its value and length
+    auto run_at = [&](int i, int& v, int& run) {
+      int c = i >> 5;
+      uint32_t m = s_starts[c] & ~((2u << (i & 31)) - 1u);
+      while (m == 0) m = s_starts[++c];
+      v = seq(i);
+      run = 32 * c + __ffs(m) - 1 - i;
+    };
+    for (int i = ln; i < n_all; i += 32) {
+      if ((s_starts[i >> 5] >> (i & 31)) & 1u) {
+        int v, run;
+        run_at(i, v, run);
+        rle_run(v, run, [&](int sym, int) {
+          atomicAdd(reinterpret_cast<unsigned long long*>(&s_clc_f[sym]),
+                    1ull);
+        });
+      }
+    }
+    __syncwarp();
+    package_merge<true>(s_clc.view(), s_clc_f, s_clc_len, ln, 32, kClcBits);
+    __syncwarp();
+    if (ln < kClcSyms) s_clc_code[ln] = canonical_code(s_clc_len, kClcSyms, ln);
+    const uint32_t sent =
+        __ballot_sync(0xffffffffu, ln < kClcSyms && s_clc_len[kClcOrder[ln]]);
+    const int hclen = max(4, 32 - __clz(sent));
+    if (ln == 0)
+      or_bits(s_hdr, 0,
+              (b == final_block) | (2u << 1) | ((uint32_t)(hlit - 257) << 3) |
+                  ((uint32_t)(hdist - 1) << 8) | ((uint32_t)(hclen - 4) << 13),
+              17);
+    if (ln < hclen) or_bits(s_hdr, 17 + 3 * ln, s_clc_len[kClcOrder[ln]], 3);
+    __syncwarp();
+    int bit = 17 + 3 * hclen;
+    for (int c = 0; 32 * c < n_all; ++c) {  // the runs a chunk, in order
+      const int i = 32 * c + ln;
+      const bool st = i < n_all && ((s_starts[c] >> ln) & 1u);
+      int v = 0, run = 0, nb = 0;
+      if (st) {
+        run_at(i, v, run);
+        rle_run(v, run, [&](int sym, int) {
+          nb += s_clc_len[sym] + rle_extra_bits(sym);
+        });
+      }
+      const int incl = warp_inclusive_sum(nb);
+      if (st) {
+        int off = bit + incl - nb;
+        rle_run(v, run, [&](int sym, int x) {
+          const int cl = s_clc_len[sym];
+          or_bits(s_hdr, off, s_clc_code[sym], cl);
+          off += cl;
+          const int xb = rle_extra_bits(sym);
+          if (xb) or_bits(s_hdr, off, (uint32_t)x, xb);
+          off += xb;
+        });
+      }
+      bit += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (ln == 0) {
+      // the cheapest of stored, fixed and dynamic
+      int64_t dyn_bits = bit + s_len[kEob], fix_bits = 3 + 7;
+      for (int w = 0; w < kTabWarps; ++w) {
+        dyn_bits += s_cost[0][w];
+        fix_bits += s_cost[1][w];
+      }
+      const int64_t nb = n_valid[b];
+      const int64_t stored = nb + 5 * ((nb + 65534) / 65535);
+      const int64_t best = fix_bits < dyn_bits ? fix_bits : dyn_bits;
+      s_btype = stored < best / 8 ? 0 : fix_bits <= dyn_bits ? 1 : 2;
+      s_hdr_bits = bit;
+    }
+  }
+  __syncthreads();
+
+  // -- the chosen tables, their codes, and what the host splices
+  const int btype = s_btype;
+  if (btype == 1) {
+    s_len[tid] = (uint8_t)(is_ll ? fixed_litlen_len(s) : 5);
+    if (tid == 0) s_hdr_bits = 3;
+    if (tid < kHdrWords) s_hdr[tid] = tid == 0 ? (b == final_block) | (1u << 1) : 0;
+  }
+  __syncthreads();
+  const bool coded = btype != 0;
+  const int lc = coded ? s_len[tid] : 0;
+  const uint32_t code =
+      coded ? canonical_code(is_ll ? s_len : s_len + kLitlenSyms,
+                             is_ll ? kLitlenSyms : kDistSyms, s)
+            : 0u;
+  *code_out = code;
+  *len_out = lc;
+  if (tid == kEob) {
+    info_b[1] = code;
+    info_b[2] = lc;
+  }
+  if (tid == 0) {
+    const int hb = coded ? s_hdr_bits : 0;
+    hdr_bits_out[b] = hb;
+    enabled[b] = coded;
+    info_b[0] = btype;
+    info_b[3] = hb;
+  }
+  if (tid < kHdrWords / 2)
+    info_b[4 + tid] =
+        coded ? (int64_t)(((uint64_t)s_hdr[2 * tid + 1] << 32) | s_hdr[2 * tid])
+              : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -580,6 +1028,20 @@ int zt_encode_fields(const void* tv, const void* td, const void* en,
   encode_fields_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)tv, (const int32_t*)td, (const int32_t*)en,
       (const int32_t*)lt, (const int32_t*)dt, n, (int64_t*)val, (int32_t*)nb);
+  return (int)cudaGetLastError();
+}
+
+int zt_block_tables(const void* ll_freq, const void* d_freq,
+                    const void* n_valid, int blocks, int nblocks,
+                    int final_block, void* ll_code, void* ll_len,
+                    void* d_code, void* d_len, void* hdr_bits, void* enabled,
+                    void* info, void* stream) {
+  block_tables_kernel<<<(unsigned)blocks, kTabThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const int64_t*)ll_freq, (const int64_t*)d_freq,
+      (const int32_t*)n_valid, nblocks, final_block, (int64_t*)ll_code,
+      (int64_t*)ll_len, (int64_t*)d_code, (int64_t*)d_len,
+      (int64_t*)hdr_bits, (uint8_t*)enabled, (int64_t*)info);
   return (int)cudaGetLastError();
 }
 
