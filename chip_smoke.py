@@ -26,8 +26,10 @@ seven paths on the 3.84 MB bench corpus and its committed fixtures:
   * generic inflate: the corpus through CPython zlib at level 6 with a full
     flush every 32 KiB (self-contained) and without (chained), indexed by
     ``build_index``, kernels ``decode_tokens`` and ``resolve_global``:
-    ``inflate_to_device`` (the main path: one group, one launch of each),
-    a seek across a block boundary, a stored block between dynamic ones,
+    ``inflate_to_device`` (the main path: one group, one launch of each;
+    the chained index too, its groups in order, each behind the one
+    before), a seek across a block boundary, a stored block between
+    dynamic ones,
     ``inflate_raw_indexed`` on both indexes, the scan without an index
     (``inflate_raw_scan(device="cuda")``, one lane a block) and
     ``inflate()`` with and without the native runtime;
@@ -1639,6 +1641,29 @@ def generic_phase(corpus: bytes, card: str,
     print(f"generic inflate_to_device(device='cuda'): one CUDA span of {n} "
           f"B byte-exact, launches {launches}; inflate_range of 300 B "
           f"across the block boundary at {edge} byte-exact")
+    # the chained index of the stock-zlib stream: its groups in stream
+    # order, each behind the one before (the plan's lanes cut to force
+    # several groups of the corpus as well)
+    for lanes in (ip._LANES, 256):
+        real_lanes, ip._LANES = ip._LANES, lanes
+        try:
+            c_stats = zlibes_tpu_torch.CodecStats()
+            tk.LAUNCHES.clear()
+            (c_out, off, n), = zlibes_tpu_torch.inflate_to_device(
+                chained, c_index, device="cuda", stats=c_stats)
+            c_launches = dict(tk.LAUNCHES)
+        finally:
+            ip._LANES = real_lanes
+        assert c_out.is_cuda and (off, n) == (0, len(corpus))
+        assert c_out.cpu().numpy().tobytes() == corpus
+        groups = c_stats.dispatches
+        assert c_launches == {"decode_tokens": groups,
+                              "resolve_global": groups}, c_launches
+        assert c_stats.chained_groups == groups - 1
+        print(f"generic inflate_to_device of the chained index ({lanes} "
+              f"lanes a group at most): {groups} group(s), "
+              f"{c_stats.chained_groups} behind the one before, byte-exact, "
+              f"launches {c_launches}")
     rnd = np.random.default_rng(0).integers(0, 256, 40000, np.uint8)
     mixed = corpus[:40000] + rnd.tobytes() + corpus[40000:80000]
     m_comp = zlib_flushed(mixed, 16384)

@@ -1338,6 +1338,69 @@ def test_generic_paths_on_card_count_launches(generic_stream, monkeypatch):
         zlibes_tpu_torch.inflate(bytes(bad), index=index, device="cuda")
 
 
+def _stock_zlib_10mb():
+    """10,000,000 B of seeded 64-256 KiB slices of raw.bin through CPython
+    zlib at its defaults (level 6, windowBits 15, memLevel 8, no flush),
+    with its chained ``build_index`` (4 KiB anchors)."""
+    raw = (GOLDEN / "raw.bin").read_bytes()
+    ring = raw + raw[:1 << 18]
+    rng = np.random.default_rng(19)
+    parts, have = [], 0
+    while have < 10_000_000:
+        n = min(int(rng.integers(1 << 16, (1 << 18) + 1)), 10_000_000 - have)
+        off = int(rng.integers(0, len(raw)))
+        parts.append(ring[off : off + n])
+        have += n
+    data = b"".join(parts)
+    c = zlib.compressobj(6, zlib.DEFLATED, 15, 8)
+    comp = c.compress(data) + c.flush()
+    index = zlibes_tpu_torch.build_index(comp)
+    assert not index.self_contained and not index.wide
+    return data, comp, index
+
+
+def test_stock_zlib_stream_decodes_to_the_card(monkeypatch):
+    """A 10 MB stock-zlib stream through ``inflate_to_device``: zlib's bytes
+    on the card, one ``decode_tokens`` and one ``resolve_global`` a group
+    (two groups or more, each after the first behind the one before), no
+    plain version, and no host sync once the groups are planned (CUDA's
+    sync debug mode raises on one)."""
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    data, comp, index = _stock_zlib_10mb()
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(ik, "decode_tokens_plain", plain)
+    monkeypatch.setattr(ik, "resolve_global_plain", plain)
+    real_plan = ip.plan_groups
+
+    def planned_then_no_sync(*args, **kwargs):
+        plans = real_plan(*args, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        return plans
+
+    monkeypatch.setattr(ip, "plan_groups", planned_then_no_sync)
+    stats = zlibes_tpu_torch.CodecStats()
+    tk.LAUNCHES.clear()
+    try:
+        (out, off, n), = zlibes_tpu_torch.inflate_to_device(
+            comp, index, device="cuda", stats=stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.is_cuda and (off, n) == (0, len(data))
+    assert out.cpu().numpy().tobytes() == data == zlib.decompress(comp)
+    groups = stats.dispatches
+    assert groups >= 2 and stats.chained_groups == groups - 1
+    assert dict(tk.LAUNCHES) == {"decode_tokens": groups,
+                                 "resolve_global": groups}
+    assert (stats.bytes_in, stats.bytes_out, stats.blocks) == (
+        len(comp), len(data), len(index.blocks))
+
+
 @pytest.mark.parametrize("case", ["warp_32_rows", "long_codes", "lane_ends",
                                   "scan_lane"])
 def test_decode_tokens_kernel_gives_the_walk_cases(case):

@@ -22,6 +22,7 @@ name.
 """
 import collections
 import dataclasses
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -265,25 +266,43 @@ _LEVEL6_CFG = dataclasses.replace(CodecConfig.from_level(6),
 _D = 2                          # dispatches of _DATA at BP blocks of _BS
 
 
+def _stock_stream(data: bytes) -> bytes:
+    """CPython zlib at level 6 and memLevel 4: blocks of 4,096 symbols,
+    every one copying across the block boundary before it."""
+    c = zlib.compressobj(6, zlib.DEFLATED, 15, 4)
+    return c.compress(data) + c.flush()
+
+
 @pytest.fixture(scope="module")
 def streams():
-    """The turbo and the level-6 stream of ``_DATA`` with their indexes."""
-    return {kind: tdp.deflate(_DATA, with_index=True, config=cfg,
-                              block_size=_BS, device="cpu")
-            for kind, cfg in (("turbo", _TURBO_CFG), ("wide", _LEVEL6_CFG))}
+    """The turbo and the level-6 stream of ``_DATA`` with their indexes,
+    and a stock-zlib stream of it with its chained ``build_index``."""
+    out = {kind: tdp.deflate(_DATA, with_index=True, config=cfg,
+                             block_size=_BS, device="cpu")
+           for kind, cfg in (("turbo", _TURBO_CFG), ("wide", _LEVEL6_CFG))}
+    chained = _stock_stream(_DATA)
+    out["chained"] = (chained, zlibes_tpu_torch.build_index(
+        chained, anchor_every=1024))
+    return out
 
 
 def _plan_spans(kind: str) -> dict:
     """A turbo plan uploads once and reads its lane ends back; a wide plan
-    uploads the stream, then the lanes and tables."""
-    return ({"zlibes.plan": 1, "zlibes.upload": 1, "zlibes.readback": 1}
-            if kind == "turbo" else {"zlibes.plan": 1, "zlibes.upload": 2})
+    uploads the stream, reads the blocks' headers into table rows, then
+    uploads the lanes and tables; a one-group plan of a chained index reads
+    its headers and uploads its table rows, then its lanes (the stream's
+    upload comes before the plan)."""
+    if kind == "turbo":
+        return {"zlibes.plan": 1, "zlibes.upload": 1, "zlibes.readback": 1}
+    if kind == "wide":
+        return {"zlibes.plan": 1, "zlibes.headers": 1, "zlibes.upload": 2}
+    return {"zlibes.plan": 1, "zlibes.headers": 1, "zlibes.upload": 3}
 
 
 def _decode_spans(kind: str, check: bool) -> dict:
     out = collections.Counter(_plan_spans(kind))
-    out.update({"zlibes.decode": 1, "zlibes.glue": 1, "zlibes.resolve": 1,
-                "zlibes.readback": int(check)})
+    out.update({"zlibes.decode": 1, "zlibes.glue": int(kind != "chained"),
+                "zlibes.resolve": 1, "zlibes.readback": int(check)})
     return dict(out)
 
 
@@ -367,8 +386,8 @@ def _call(case: str, streams):
 
 PUBLIC_CALLS = ["deflate_indexed_level6", "deflate_indexed_turbo", "inflate",
                 "inflate_to_device_turbo", "inflate_to_device_wide",
-                "inflate_range_wide", "inflate_range_turbo",
-                "parallel_deflate", "parallel_inflate", "compress_batch"]
+                "inflate_to_device_chained", "inflate_range_wide",
+                "inflate_range_turbo", "parallel_deflate", "parallel_inflate", "compress_batch"]
 
 
 @pytest.mark.parametrize("case", PUBLIC_CALLS)
@@ -389,3 +408,31 @@ def test_a_public_call_is_one_root_span(case, streams):
         assert P.LAST_TIMINGS["dispatches"] == want["zlibes.dispatch"]
     assert bool(keys) == (stats is not None or timed)
     assert all(f"zlibes.{k}" in names for k in keys), (keys, names)
+
+
+@pytest.mark.parametrize("kind", ["wide", "chained"])
+def test_headers_lie_in_their_plan(kind, streams, monkeypatch):
+    """``zlibes.headers`` is entered once a wide plan and once a group of
+    the group decode (a group of a block each here), each inside its
+    ``zlibes.plan``; a group's table rows go up inside its headers span,
+    and a wide plan's with its lanes after it."""
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+
+    comp, index = streams[kind]
+    if kind == "chained":
+        monkeypatch.setattr(ip, "_LANES", 4)
+    _, spans = _profiled(lambda: zlibes_tpu_torch.inflate_to_device(
+        comp, index, device="cpu"))
+
+    def of(name):
+        return [(s, e) for n, s, e in spans if n == name]
+
+    (plan,) = of("zlibes.plan")
+    heads = of("zlibes.headers")
+    groups = (len(ip.plan_groups(comp, index, "cpu")) if kind == "chained"
+              else 1)
+    assert len(heads) == groups and (kind == "wide" or groups >= 3)
+    assert all(plan[0] <= s <= e <= plan[1] for s, e in heads)
+    held = [u for u in of("zlibes.upload")
+            if any(s <= u[0] <= u[1] <= e for s, e in heads)]
+    assert len(held) == (groups if kind == "chained" else 0)

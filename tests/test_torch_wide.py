@@ -546,11 +546,16 @@ def test_fixed_block_tables_built_once(monkeypatch):
 
 
 def test_non_self_contained_index_is_refused():
+    """The seek and the wide plan refuse a chained index;
+    ``inflate_to_device`` takes it through the group decode instead."""
     comp, index = fixed_stream([[97, 98, 99]])
     index.self_contained = False
     with pytest.raises(CorruptError, match="self-contained"):
         zlibes_tpu_torch.inflate_range(comp, index, 0, 1, device="cpu")
     with pytest.raises(CorruptError, match="self-contained"):
-        zlibes_tpu_torch.inflate_to_device(comp, index, device="cpu")
-    with pytest.raises(CorruptError, match="self-contained"):
         wd.WidePlan.build(comp, index, "cpu")
+    tk.LAUNCHES.clear()
+    (out, off, n), = zlibes_tpu_torch.inflate_to_device(comp, index,
+                                                        device="cpu")
+    assert (off, n) == (0, 3) and out.numpy().tobytes() == b"abc"
+    assert not tk.LAUNCHES

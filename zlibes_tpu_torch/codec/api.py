@@ -153,29 +153,37 @@ def inflate_range(data: bytes, index, start: int, length: int, *,
 
 
 def inflate_to_device(data: bytes, index, *,
-                      device: torch.device | str = "cuda"):
-    """Decompress a stream with any self-contained index (turbo, wide or
-    generic) straight into ``device`` memory, with no device-to-host copy
-    of the output.
+                      device: torch.device | str = "cuda", stats=None):
+    """Decompress a stream with any index (turbo, wide, generic, or the
+    chained ``build_index`` index of a stock-zlib stream) straight into
+    ``device`` memory, with no device-to-host copy of the output.
 
-    Returns a list of (uint8 tensor, out_offset, nbytes) spans covering the
-    output: bytes [out_offset, out_offset + nbytes) are the tensor's first
-    nbytes (one span today).  A chained index raises CorruptError, a
-    stream with a preset dictionary HeaderError.
+    A chained index decodes through its anchor lanes in groups (kernels
+    ``decode_tokens`` + ``resolve_global``), in stream order, each group
+    behind the 32 KiB of output before it, with no host sync between
+    groups.  Returns a list of (uint8 tensor, out_offset, nbytes) spans
+    covering the output: bytes [out_offset, out_offset + nbytes) are the
+    tensor's first nbytes (one span today).  A stream with a preset
+    dictionary raises HeaderError.  ``stats`` (a ``CodecStats``) collects
+    the bytes in and out, the blocks, the decode dispatches (groups on the
+    group path) and ``chained_groups``, the groups resolved behind the
+    previous group's output.
     """
     from . import inflate_pipeline
 
     return inflate_pipeline.inflate_to_device(bytes(data), _own_index(index),
-                                              device=_device(device))
+                                              device=_device(device),
+                                              stats=stats)
 
 
 def build_index(data: bytes, anchor_every: int = 4096) -> StreamIndex:
     """Scan any conformant zlib stream into a StreamIndex (block layout and
     one decode anchor about every ``anchor_every`` output bytes), for
     streams this framework did not write.  ``inflate(data, index=...)``
-    accepts it (host decode, the index checked against the stream), and
-    ``inflate_range`` / ``inflate_to_device`` do when its blocks are
-    self-contained (a stream written with full flushes).
+    accepts it (host decode, the index checked against the stream),
+    ``inflate_to_device`` does whether its blocks are chained or not, and
+    ``inflate_range`` does when they are self-contained (a stream written
+    with full flushes).
     Requires the native runtime scanner; RuntimeError without it.
     """
     from ..runtime import native

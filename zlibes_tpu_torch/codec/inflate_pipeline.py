@@ -19,15 +19,17 @@ decodes:
 ``inflate()`` sends a stream without a turbo or wide index to the port's
 native runtime (``runtime/native.py``) when it is available, as the JAX
 package does, and checks the index against what was decoded; without it
-such a stream takes the device decodes above.  ``inflate_range`` and
-``inflate_to_device`` take any self-contained index.
+such a stream takes the device decodes above.  ``inflate_range`` takes
+any self-contained index; ``inflate_to_device`` takes any index, a chained
+one (a stock-zlib stream's ``build_index``) through the group decode, its
+groups in stream order, each behind the output before it on the device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import span, trace
+from ..config import CodecStats, span, trace
 from ..spec import constants as C
 from ..spec.errors import (
     BlockTypeError,
@@ -285,7 +287,9 @@ def plan_groups(data: bytes, index: StreamIndex,
     For non-self-contained (foreign) indexes, groups additionally split at
     stored blocks so back-references never point into an unresolved gap —
     stored content reaches later groups through the chained prefix.  The
-    call is the span ``zlibes.plan``, its uploads ``zlibes.upload``.
+    call is the span ``zlibes.plan``, its uploads ``zlibes.upload``; a
+    group's block headers and table rows are one span ``zlibes.headers``
+    inside it (the rows' upload its ``zlibes.upload`` child).
     """
     lane_bit0, lane_end, lane_out, lane_outlen, lane_block = \
         _index_lanes(index)
@@ -314,12 +318,13 @@ def plan_groups(data: bytes, index: StreamIndex,
     if gstart < nlanes:
         groups.append((gstart, nlanes))
 
-    # one table pair per block; every fixed block shares one build
+    # one table pair per block; every fixed block shares one build (keyed
+    # by its type, a dynamic block by its start bit, which is never 1)
     built: dict[object, tuple] = {}
 
     def code_lengths(b):
         blk = index.blocks[b]
-        key = blk.btype if blk.btype == C.BTYPE_FIXED else b
+        key = blk.btype if blk.btype == C.BTYPE_FIXED else blk.start_bit
         if key not in built:
             built[key] = _block_code_lengths(data, blk)
         return built[key]
@@ -331,8 +336,9 @@ def plan_groups(data: bytes, index: StreamIndex,
     for g0, g1 in groups:
         p = _GroupPlan()
         block_ids, rows = np.unique(lane_block[g0:g1], return_inverse=True)
-        p.lt, p.dt = _tables(device, [code_lengths(int(b))
-                                      for b in block_ids])
+        with trace("zlibes.headers"):
+            p.lt, p.dt = _tables(device, [code_lengths(int(b))
+                                          for b in block_ids])
         p.B = g1 - g0
         p.T = T
         p.lane_end = lane_end[g0:g1]
@@ -393,7 +399,8 @@ def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
 def inflate_raw_indexed(data: bytes, index: StreamIndex,
                         device: torch.device | str,
                         dictionary: bytes | None = None,
-                        check: bool = True) -> torch.Tensor:
+                        check: bool = True,
+                        stats: CodecStats | None = None) -> torch.Tensor:
     """Anchor-parallel inflate through any index; returns the bytes as a
     uint8 tensor on ``device``.
 
@@ -404,7 +411,11 @@ def inflate_raw_indexed(data: bytes, index: StreamIndex,
     32 KiB of output.  Stored payloads are spliced in on the device: before
     the groups of a chained index (its groups split at stored blocks, and a
     group's prefix reads them), after those of a self-contained one (a group
-    may span a stored block and writes its span whole).
+    may span a stored block and writes its span whole).  With
+    ``check=False`` nothing is read back between the groups: a group's
+    prefix is a slice of the output on the device.  ``stats`` counts the
+    groups in ``dispatches`` and, in ``chained_groups``, those resolved
+    behind the previous group's output.
     """
     stream = _Stream(data, device)
     out = torch.empty(index.total_out, dtype=torch.uint8, device=device)
@@ -416,7 +427,11 @@ def inflate_raw_indexed(data: bytes, index: StreamIndex,
             bytes(dictionary[-W:]), np.uint8).copy()).to(device)
     if chained:
         splice_stored(out, stream.bytes, data, index.blocks)
-    for p in plan_groups(data, index, device):
+    plans = plan_groups(data, index, device)
+    if stats is not None:
+        stats.dispatches += len(plans)
+        stats.chained_groups += sum(1 for p in plans if chained and p.d_base)
+    for p in plans:
         prefix = None
         if (chained and p.d_base) or (dict_tail is not None
                                       and p.d_base < W):
@@ -451,21 +466,24 @@ def _on_device(index: StreamIndex, dictionary: bytes | None = None) -> bool:
 
 
 def _inflate_indexed(data: bytes, index: StreamIndex,
-                     device: torch.device | str,
-                     check: bool = True) -> torch.Tensor:
+                     device: torch.device | str, check: bool = True,
+                     stats: CodecStats | None = None) -> torch.Tensor:
     """Device decode of an indexed stream's payload: the turbo path for a
     turbo index, the wide path for a self-contained wide index, the group
     path for any other.  Returns the output bytes as a uint8 tensor on
-    ``device``."""
-    if getattr(index, "turbo", False):
-        from .turbo import inflate_raw_turbo
+    ``device``; ``stats`` counts the decode dispatches (one on the turbo
+    and wide paths, a group each on the group path)."""
+    if getattr(index, "turbo", False) or _on_device(index):
+        if stats is not None:
+            stats.dispatches += 1
+        if getattr(index, "turbo", False):
+            from .turbo import inflate_raw_turbo
 
-        return inflate_raw_turbo(data, index, device, check=check)
-    if _on_device(index):
+            return inflate_raw_turbo(data, index, device, check=check)
         from .wide import inflate_raw_wide
 
         return inflate_raw_wide(data, index, device, check=check)
-    return inflate_raw_indexed(data, index, device, check=check)
+    return inflate_raw_indexed(data, index, device, check=check, stats=stats)
 
 
 @span("zlibes.inflate_range")
@@ -525,25 +543,30 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
 
 @span("zlibes.inflate_to_device")
 def inflate_to_device(data: bytes, index: StreamIndex, *,
-                      device: torch.device | str):
+                      device: torch.device | str,
+                      stats: CodecStats | None = None):
     """Decompress into device memory, with no copy of the output to the
     host: returns [(uint8 tensor on ``device``, out_offset, nbytes)].
 
     One span covers the whole output: a turbo stream's chunk rows or a wide
     stream's block rows, flattened, or one tensor into which the coded
     rows, the groups of a generic index and the stored blocks' payloads
-    were spliced.  As in the reference, the decode's meta checks are
-    skipped; the caller verifies the bytes.  The call is the span
+    were spliced.  A chained index (a foreign stream, whose copies cross
+    every block boundary) decodes through the group path, its groups in
+    stream order, each behind the up to 32 KiB of output before it, with
+    nothing read back between them.  As in the reference, the decode's
+    meta checks are skipped; the caller verifies the bytes.  ``stats`` (a
+    ``CodecStats``) gets the stream's and the output's bytes, the blocks,
+    the decode dispatches and ``chained_groups``.  The call is the span
     ``zlibes.inflate_to_device``.
     """
     data = bytes(data)
     _refuse_fdict(data, "inflate_to_device")
-    if not getattr(index, "self_contained", True):
-        raise CorruptError(
-            "inflate_to_device requires self-contained blocks (streams "
-            "produced by this framework); use inflate() for foreign "
-            "streams")
-    out = _inflate_indexed(data, index, device, check=False)
+    out = _inflate_indexed(data, index, device, check=False, stats=stats)
+    if stats is not None:
+        stats.bytes_in += len(data)
+        stats.bytes_out += index.total_out
+        stats.blocks += len(index.blocks)
     return [(out, 0, index.total_out)]
 
 

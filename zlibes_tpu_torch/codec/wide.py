@@ -87,7 +87,8 @@ class WidePlan:
                              coded block
     L = Cb * LPB lanes; a block's lanes past its output are empty
     (bit0 == endb == 0).  ``build`` is the span ``zlibes.plan``; its
-    uploads are ``zlibes.upload``.
+    uploads are ``zlibes.upload``, the blocks' headers and table rows
+    ``zlibes.headers``.
     """
 
     __slots__ = ("words", "start_w", "bit0", "endb", "base", "lt", "dt",
@@ -134,12 +135,13 @@ class WidePlan:
         lt = np.zeros((Cb, wk.LL_W), np.int32)
         dt = np.zeros((Cb, wk.D_W), np.int32)
         cache: dict[object, tuple] = {}
-        for cb, b in enumerate(p.coded):
-            key = b.btype if b.btype == C.BTYPE_FIXED else b.start_bit
-            if key not in cache:
-                cache[key] = wk.wide_decode_tables(
-                    *_block_code_lengths(data, b))
-            lt[cb], dt[cb] = cache[key]
+        with trace("zlibes.headers"):
+            for cb, b in enumerate(p.coded):
+                key = b.btype if b.btype == C.BTYPE_FIXED else b.start_bit
+                if key not in cache:
+                    cache[key] = wk.wide_decode_tables(
+                        *_block_code_lengths(data, b))
+                lt[cb], dt[cb] = cache[key]
 
         # per-lane anchor spans
         abit = np.asarray(index.anchor_bit, np.int64)

@@ -129,6 +129,8 @@ class CodecStats:
     dispatches: int = 0
     device_tables: int = 0  # blocks whose coding choice and tables the
     # card built (the general encoder's block_tables kernel)
+    chained_groups: int = 0  # decode groups resolved behind the previous
+    # group's output on the device (a chained index's group decode)
     stage_s: dict = field(default_factory=dict)
     adler: int | None = None  # trailer checksum, when the encode pipeline
     # folded its device Adler terms into the phase-1 dispatches
