@@ -4,7 +4,8 @@ one CUDA card.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``zlibes_tpu_torch/csrc/`` and drives
-seven paths on the 3.84 MB bench corpus and its committed fixtures:
+these paths on the 3.84 MB bench corpus and its committed fixtures
+(the tables of the decoders on an nci-sized file):
 
   * turbo inflate: ``tests/golden/turbo_bench.*`` (``CodecConfig.turbo()``),
     kernels ``decode_turbo`` (which stages its lane windows itself) and
@@ -33,6 +34,10 @@ seven paths on the 3.84 MB bench corpus and its committed fixtures:
     ``inflate_raw_indexed`` on both indexes, the scan without an index
     (``inflate_raw_scan(device="cuda")``, one lane a block) and
     ``inflate()`` with and without the native runtime;
+  * the decoders' per-block tables: ``decode_tables`` on the stock-zlib
+    and the wide plan of an nci-sized file (the bench's largest read
+    file), exact against its plain version (the host parse), timed, and
+    once a call through ``inflate_to_device``;
   * shared-table encode outside the turbo profile: ``deflate(corpus,
     config=...)`` for ``shared_full``, ``shared_turbo15`` and
     ``shared_seg1024`` (``tests/shared_tables_cases.py``), kernels
@@ -699,7 +704,8 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     assert out == corpus, "wide inflate(device='cuda') output != corpus"
     print(f"wide inflate(device='cuda'): {len(out)} B byte-exact, "
           f"Adler-32 verified on the device; launches {launches}")
-    assert launches == {"decode_wide": 1, "resolve_wide": 1}, launches
+    assert launches == {"decode_tables": 1, "decode_wide": 1,
+                        "resolve_wide": 1}, launches
     for start, length in [(0, 100), (131070, 300), (400000, 80000)]:
         got = zlibes_tpu_torch.inflate_range(comp, index, start, length,
                                              device="cuda")
@@ -1252,8 +1258,8 @@ def general_phase(corpus: bytes, card: str,
     tk.LAUNCHES.clear()
     back = zlibes_tpu_torch.inflate(out, index=index, device="cuda")
     assert back == corpus, "inflate(deflate(corpus, level=6)) != corpus"
-    assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}, \
-        dict(tk.LAUNCHES)
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_wide": 1,
+                                 "resolve_wide": 1}, dict(tk.LAUNCHES)
     host_ms = (stats.stage_s["tables"] + stats.stage_s["splice"]) * 1e3
     print(f"index equals the fixture's ({len(index.blocks)} blocks, "
           f"{index.anchor_bit.size} anchors); CPython zlib.decompress and "
@@ -1633,7 +1639,8 @@ def generic_phase(corpus: bytes, card: str,
     (dev_out, off, n), = spans
     assert dev_out.is_cuda and (off, n) == (0, len(corpus))
     assert dev_out.cpu().numpy().tobytes() == corpus
-    assert launches == {"decode_tokens": 1, "resolve_global": 1}, launches
+    assert launches == {"decode_tables": 1, "decode_tokens": 1,
+                        "resolve_global": 1}, launches
     edge = 5 * 32768
     seek = zlibes_tpu_torch.inflate_range(flush, f_index, edge - 150, 300,
                                           device="cuda")
@@ -1657,7 +1664,7 @@ def generic_phase(corpus: bytes, card: str,
         assert c_out.is_cuda and (off, n) == (0, len(corpus))
         assert c_out.cpu().numpy().tobytes() == corpus
         groups = c_stats.dispatches
-        assert c_launches == {"decode_tokens": groups,
+        assert c_launches == {"decode_tables": 1, "decode_tokens": groups,
                               "resolve_global": groups}, c_launches
         assert c_stats.chained_groups == groups - 1
         print(f"generic inflate_to_device of the chained index ({lanes} "
@@ -1845,6 +1852,116 @@ def generic_phase(corpus: bytes, card: str,
 
 # ---------------------------------------------------------------------------
 # the shared-table encoder outside the turbo profile
+
+def nci_like(size: int = 33_553_445, seed: int = 0) -> bytes:
+    """``size`` bytes (Silesia's nci, the bench's largest read file) of
+    seeded 64-256 KiB slices of ``raw.bin`` read as a ring, in a seeded
+    order: the benchmark corpus's recipe (``benchmark/harness/corpus.py``),
+    not its seed."""
+    raw = np.frombuffer((GOLDEN / "raw.bin").read_bytes(), np.uint8)
+    g = np.random.default_rng(seed)
+    ring = np.concatenate([raw, raw[:256 * 1024]])
+    parts, have, off = [], 0, int(g.integers(0, raw.size))
+    while have < size:
+        n = min(int(g.integers(64 * 1024, 256 * 1024 + 1)), size - have)
+        parts.append(ring[off:off + n])
+        off = (off + n) % raw.size
+        have += n
+    return np.concatenate([parts[k] for k in
+                           g.permutation(len(parts))]).tobytes()
+
+
+def decode_tables_phase(card: str, records: dict) -> None:
+    """``decode_tables`` at the shapes of the bench's largest read file
+    (an nci-sized file): the stock-zlib plan (CPython level 6,
+    ``build_index``: one row a block that has anchors) and the wide plan
+    (the port's level-6 encode and wide index: one row a coded block).
+    Each launch exact against its plain version (the host parse and
+    ``wide_decode_tables``), its device time (torch.profiler) and CUDA
+    event time, the plain version's host time, the bound; then
+    ``inflate_to_device`` of both streams through one launch, every coded
+    block in ``CodecStats.device_headers``."""
+    import zlibes_tpu_torch
+    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.ops import decode_tables as dtab
+    from zlibes_tpu_torch.ops import turbo_kernel as tk
+    from zlibes_tpu_torch.ops.inflate_kernel import stream_words
+
+    data = nci_like()
+    t0 = time.perf_counter()
+    stock = zlib.compress(data, 6)
+    s_index = zlibes_tpu_torch.build_index(stock)
+    wide, w_index = dp.deflate(data, with_index=True, level=6, device="cuda")
+    print(f"decode_tables inputs: {len(data)} B nci-sized file, stock zlib "
+          f"{len(stock)} B ({len(s_index.blocks)} blocks), the port's level "
+          f"6 {len(wide)} B ({len(w_index.blocks)} blocks), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rec = None
+    for what, comp, index in (("stock-zlib plan", stock, s_index),
+                              ("wide plan", wide, w_index)):
+        if index.wide:
+            blocks = [b for b in index.blocks if b.out_len and b.btype != 0]
+        else:
+            blocks = [index.blocks[int(b)]
+                      for b in np.unique(index.anchor_block)]
+        words = torch.from_numpy(stream_words(comp)).cuda()
+        hdr = torch.from_numpy(dtab.headers(blocks)).cuda()
+        nbits = len(comp) * 8
+        got = dtab.decode_tables(words, hdr, nbits)
+        torch.cuda.synchronize()
+        p_args = (words.cpu(), hdr.cpu(), nbits)
+        want = dtab.decode_tables_plain(*p_args)
+        assert not want[2].any(), f"{what}: a bad header"
+        for g, w, name in zip(got, want, ("lt", "dt", "status")):
+            assert torch.equal(g.cpu(), w), f"decode_tables {what}: {name}"
+        ev_ms = cuda_ms(lambda: dtab.decode_tables(words, hdr, nbits))
+        dev_ms, n_rec = kernel_event_ms(
+            lambda: dtab.decode_tables(words, hdr, nbits), "decode_tables")
+        plain_ms = wall_s(lambda: dtab.decode_tables_plain(*p_args),
+                          runs=3) * 1e3
+        hdr_bytes = sum((b.payload_start_bit - b.start_bit + 7) // 8
+                        for b in blocks if b.btype != 1)
+        r = dict(
+            replaces="none: the JAX package parses each block's header and "
+                     "builds its decode tables on the host",
+            source="zlibes_tpu_torch/csrc/decode_tables.cu",
+            note="no Pallas counterpart; plain_ms is the host parse and "
+                 "wide_decode_tables on the host clock (median of 3), not "
+                 "a device time; the kernel is latency-bound (a header's "
+                 "code-length symbols one after another), the bound counts "
+                 "bytes alone",
+            max_abs_err=max(max_abs_err(g.cpu(), w)
+                            for g, w in zip(got, want)),
+            ms=ev_ms, device_ms=dev_ms, plain_ms=plain_ms, plain_runs=3,
+            shape=[len(blocks), 3],
+            # read: the per-block input and each header's bytes; written:
+            # both rows and the status of every block
+            **bound(nbytes(hdr, *got) + hdr_bytes, 0))
+        print(f"kernel decode_tables, {what} ({len(blocks)} rows): exact vs "
+              f"plain; device {dev_ms:.4f} ms a launch (torch.profiler, "
+              f"{n_rec} records), events {ev_ms:.4f} ms (median of 20), "
+              f"bound {r['bound_ms']:.5f} ms ({r['bytes']} B), plain "
+              f"{plain_ms:.2f} ms (host clock, median of 3) {card}")
+        if rec is None:
+            rec = r
+        else:
+            rec["wide plan"] = r
+        stats = zlibes_tpu_torch.CodecStats()
+        tk.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        (out, _, n), = zlibes_tpu_torch.inflate_to_device(
+            comp, index, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        assert out.cpu().numpy().tobytes() == data, what
+        assert dict(tk.LAUNCHES)["decode_tables"] == 1, dict(tk.LAUNCHES)
+        assert stats.device_headers == len(blocks), (stats.device_headers,
+                                                     len(blocks))
+        print(f"inflate_to_device, {what}: byte-exact, launches "
+              f"{dict(tk.LAUNCHES)}, device_headers {stats.device_headers}, "
+              f"{call_ms:.1f} ms the call (host clock, one run) {card}")
+    records["decode_tables"] = rec
+
 
 def shared_dispatch(data: bytes, cfg):
     """The first dispatch of ``data`` under the shared-tables config
@@ -2779,6 +2896,7 @@ def main() -> None:
     generic_launches, _ = generic_phase(corpus, card, records)
     for name in ("decode_tokens", "resolve_global"):
         launches[name] = generic_launches[name]
+    decode_tables_phase(card, records)
     shared_launches = shared_phase(corpus, card, records)
     par_launches = parallel_phase(corpus, card, records)
 
@@ -2805,7 +2923,8 @@ def main() -> None:
                  "inflate" if name in generic else "turbo")
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"zlibes_tpu_torch/csrc/{group}_kernels.cu",
+            "source": r.get("source",
+                            f"zlibes_tpu_torch/csrc/{group}_kernels.cu"),
             "replaces": r["replaces"], "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2826,7 +2945,8 @@ def main() -> None:
             "rounds_with_work", "the bench dispatch",
             "the incompressible dispatch", "note", "split_far off",
             "split_far on, seg 1024", "split_far off, seg 512",
-            "fields over 32 bits", "shared_device_ms") if k in r})
+            "fields over 32 bits", "shared_device_ms", "wide plan")
+            if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -482,7 +482,8 @@ def test_wide_inflate_on_card_counts_launches(wide_stream, monkeypatch):
     tk.LAUNCHES.clear()
     out = zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
     assert out == data
-    assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_wide": 1,
+                                 "resolve_wide": 1}
 
 
 def test_wide_inflate_range_and_to_device_on_card(wide_stream):
@@ -1027,7 +1028,8 @@ def test_general_deflate_on_card_equals_cpu(monkeypatch):
     assert zlib.decompress(out) == raw
     tk.LAUNCHES.clear()
     assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == raw
-    assert dict(tk.LAUNCHES) == {"decode_wide": 1, "resolve_wide": 1}
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_wide": 1,
+                                 "resolve_wide": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -1319,7 +1321,8 @@ def test_generic_paths_on_card_count_launches(generic_stream, monkeypatch):
                                                         device="cuda")
     assert out.is_cuda and (off, n) == (0, len(data))
     assert out.cpu().numpy().tobytes() == data
-    assert dict(tk.LAUNCHES) == {"decode_tokens": 1, "resolve_global": 1}
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_tokens": 1,
+                                 "resolve_global": 1}
     assert zlibes_tpu_torch.inflate_range(comp, index, 32700, 300,
                                           device="cuda") == data[32700:33000]
     small = zlib.compress(data[:50000], 6)
@@ -1361,11 +1364,13 @@ def _stock_zlib_10mb():
 
 def test_stock_zlib_stream_decodes_to_the_card(monkeypatch):
     """A 10 MB stock-zlib stream through ``inflate_to_device``: zlib's bytes
-    on the card, one ``decode_tokens`` and one ``resolve_global`` a group
-    (two groups or more, each after the first behind the one before), no
-    plain version, and no host sync once the groups are planned (CUDA's
-    sync debug mode raises on one)."""
+    on the card, one ``decode_tables`` a call (every coded block in
+    ``device_headers``), one ``decode_tokens`` and one ``resolve_global`` a
+    group (two groups or more, each after the first behind the one
+    before), no plain version, and no host sync once the groups are
+    planned (CUDA's sync debug mode raises on one)."""
     from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.ops import decode_tables as dtab
     from zlibes_tpu_torch.ops import inflate_kernel as ik
 
     data, comp, index = _stock_zlib_10mb()
@@ -1375,6 +1380,7 @@ def test_stock_zlib_stream_decodes_to_the_card(monkeypatch):
 
     monkeypatch.setattr(ik, "decode_tokens_plain", plain)
     monkeypatch.setattr(ik, "resolve_global_plain", plain)
+    monkeypatch.setattr(dtab, "decode_tables_plain", plain)
     real_plan = ip.plan_groups
 
     def planned_then_no_sync(*args, **kwargs):
@@ -1395,10 +1401,12 @@ def test_stock_zlib_stream_decodes_to_the_card(monkeypatch):
     assert out.cpu().numpy().tobytes() == data == zlib.decompress(comp)
     groups = stats.dispatches
     assert groups >= 2 and stats.chained_groups == groups - 1
-    assert dict(tk.LAUNCHES) == {"decode_tokens": groups,
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_tokens": groups,
                                  "resolve_global": groups}
     assert (stats.bytes_in, stats.bytes_out, stats.blocks) == (
         len(comp), len(data), len(index.blocks))
+    assert stats.device_headers == sum(1 for b in index.blocks
+                                       if b.out_len and b.btype != 0)
 
 
 @pytest.mark.parametrize("case", ["warp_32_rows", "long_codes", "lane_ends",

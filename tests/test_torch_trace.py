@@ -288,15 +288,15 @@ def streams():
 
 def _plan_spans(kind: str) -> dict:
     """A turbo plan uploads once and reads its lane ends back; a wide plan
-    uploads the stream, reads the blocks' headers into table rows, then
-    uploads the lanes and tables; a one-group plan of a chained index reads
-    its headers and uploads its table rows, then its lanes (the stream's
-    upload comes before the plan)."""
+    uploads the stream, then builds the blocks' table rows from it (the
+    blocks' input goes up, their statuses come back), then uploads the
+    lanes; a one-group plan of a chained index builds its rows the same
+    way, then uploads its lanes (the stream's upload comes before the
+    plan)."""
     if kind == "turbo":
         return {"zlibes.plan": 1, "zlibes.upload": 1, "zlibes.readback": 1}
-    if kind == "wide":
-        return {"zlibes.plan": 1, "zlibes.headers": 1, "zlibes.upload": 2}
-    return {"zlibes.plan": 1, "zlibes.headers": 1, "zlibes.upload": 3}
+    return {"zlibes.plan": 1, "zlibes.headers": 1, "zlibes.upload": 3,
+            "zlibes.readback": 1}
 
 
 def _decode_spans(kind: str, check: bool) -> dict:
@@ -412,10 +412,10 @@ def test_a_public_call_is_one_root_span(case, streams):
 
 @pytest.mark.parametrize("kind", ["wide", "chained"])
 def test_headers_lie_in_their_plan(kind, streams, monkeypatch):
-    """``zlibes.headers`` is entered once a wide plan and once a group of
-    the group decode (a group of a block each here), each inside its
-    ``zlibes.plan``; a group's table rows go up inside its headers span,
-    and a wide plan's with its lanes after it."""
+    """``zlibes.headers`` is entered once a wide plan and once a plan of
+    the group decode (groups of a block each here: every group's rows in
+    one launch), inside its ``zlibes.plan``; the blocks' input goes up and
+    their statuses come back inside it, once each."""
     from zlibes_tpu_torch.codec import inflate_pipeline as ip
 
     comp, index = streams[kind]
@@ -431,8 +431,9 @@ def test_headers_lie_in_their_plan(kind, streams, monkeypatch):
     heads = of("zlibes.headers")
     groups = (len(ip.plan_groups(comp, index, "cpu")) if kind == "chained"
               else 1)
-    assert len(heads) == groups and (kind == "wide" or groups >= 3)
+    assert len(heads) == 1 and (kind == "wide" or groups >= 3)
     assert all(plan[0] <= s <= e <= plan[1] for s, e in heads)
-    held = [u for u in of("zlibes.upload")
-            if any(s <= u[0] <= u[1] <= e for s, e in heads)]
-    assert len(held) == (groups if kind == "chained" else 0)
+    for child in ("zlibes.upload", "zlibes.readback"):
+        held = [u for u in of(child)
+                if any(s <= u[0] <= u[1] <= e for s, e in heads)]
+        assert len(held) == 1, child

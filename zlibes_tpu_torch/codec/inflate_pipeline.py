@@ -46,6 +46,7 @@ from ..spec.refmodel import (
     read_dynamic_code_lengths,
 )
 
+from ..ops import decode_tables as dtab
 from ..ops import wide_kernel as wk
 from ..ops.adler32 import adler32_device
 from ..ops.inflate_kernel import (
@@ -280,16 +281,21 @@ class _GroupPlan:
 
 @span("zlibes.plan")
 def plan_groups(data: bytes, index: StreamIndex,
-                device: torch.device | str) -> list[_GroupPlan]:
+                device: torch.device | str,
+                words: torch.Tensor | None = None) -> list[_GroupPlan]:
     """Group anchor lanes into device dispatches (whole blocks per group,
     ≤ _LANES lanes, ≤ 2^23-byte output span).
 
     For non-self-contained (foreign) indexes, groups additionally split at
     stored blocks so back-references never point into an unresolved gap —
-    stored content reaches later groups through the chained prefix.  The
-    call is the span ``zlibes.plan``, its uploads ``zlibes.upload``; a
-    group's block headers and table rows are one span ``zlibes.headers``
-    inside it (the rows' upload its ``zlibes.upload`` child).
+    stored content reaches later groups through the chained prefix.
+    ``words``: the stream's words on ``device`` where the caller has
+    uploaded them (else the plan does).  The call is the span
+    ``zlibes.plan``, its uploads ``zlibes.upload``; every group's block
+    headers and table rows are one ``decode_tables`` launch, in one span
+    ``zlibes.headers`` inside it (the blocks' input going up its
+    ``zlibes.upload`` child, the statuses coming back its
+    ``zlibes.readback`` child, where a bad header raises).
     """
     lane_bit0, lane_end, lane_out, lane_outlen, lane_block = \
         _index_lanes(index)
@@ -318,27 +324,31 @@ def plan_groups(data: bytes, index: StreamIndex,
     if gstart < nlanes:
         groups.append((gstart, nlanes))
 
-    # one table pair per block; every fixed block shares one build (keyed
-    # by its type, a dynamic block by its start bit, which is never 1)
-    built: dict[object, tuple] = {}
-
-    def code_lengths(b):
-        blk = index.blocks[b]
-        key = blk.btype if blk.btype == C.BTYPE_FIXED else blk.start_bit
-        if key not in built:
-            built[key] = _block_code_lengths(data, blk)
-        return built[key]
-
     def on_dev(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
 
+    # a table row for each block of a group, in block order; every group's
+    # rows in one decode_tables launch, a group's rows a contiguous slice
+    uniq = [np.unique(lane_block[g0:g1], return_inverse=True)
+            for g0, g1 in groups]
+    bounds = np.cumsum([0] + [ids.size for ids, _ in uniq])
+    if words is None:
+        with trace("zlibes.upload"):
+            words = torch.from_numpy(stream_words(data)).to(device)
+    with trace("zlibes.headers"):
+        with trace("zlibes.upload"):
+            hdr = on_dev(dtab.headers([index.blocks[b] for ids, _ in uniq
+                                       for b in ids]), np.int64)
+        lt, dt, status = dtab.decode_tables(words, hdr, len(data) * 8)
+        with trace("zlibes.readback"):
+            status = status.cpu().numpy()
+        dtab.raise_status(status, bounds)
+
     plans = []
-    for g0, g1 in groups:
+    for (g0, g1), (_, rows), r0, r1 in zip(groups, uniq, bounds[:-1],
+                                           bounds[1:]):
         p = _GroupPlan()
-        block_ids, rows = np.unique(lane_block[g0:g1], return_inverse=True)
-        with trace("zlibes.headers"):
-            p.lt, p.dt = _tables(device, [code_lengths(int(b))
-                                          for b in block_ids])
+        p.lt, p.dt = lt[r0:r1], dt[r0:r1]
         p.B = g1 - g0
         p.T = T
         p.lane_end = lane_end[g0:g1]
@@ -415,7 +425,8 @@ def inflate_raw_indexed(data: bytes, index: StreamIndex,
     ``check=False`` nothing is read back between the groups: a group's
     prefix is a slice of the output on the device.  ``stats`` counts the
     groups in ``dispatches`` and, in ``chained_groups``, those resolved
-    behind the previous group's output.
+    behind the previous group's output; on the card ``device_headers``
+    counts the blocks whose header and table row ``decode_tables`` built.
     """
     stream = _Stream(data, device)
     out = torch.empty(index.total_out, dtype=torch.uint8, device=device)
@@ -427,10 +438,12 @@ def inflate_raw_indexed(data: bytes, index: StreamIndex,
             bytes(dictionary[-W:]), np.uint8).copy()).to(device)
     if chained:
         splice_stored(out, stream.bytes, data, index.blocks)
-    plans = plan_groups(data, index, device)
+    plans = plan_groups(data, index, device, stream.words)
     if stats is not None:
         stats.dispatches += len(plans)
         stats.chained_groups += sum(1 for p in plans if chained and p.d_base)
+        if stream.words.is_cuda:
+            stats.device_headers += sum(p.lt.shape[0] for p in plans)
     for p in plans:
         prefix = None
         if (chained and p.d_base) or (dict_tail is not None
@@ -472,7 +485,8 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
     turbo index, the wide path for a self-contained wide index, the group
     path for any other.  Returns the output bytes as a uint8 tensor on
     ``device``; ``stats`` counts the decode dispatches (one on the turbo
-    and wide paths, a group each on the group path)."""
+    and wide paths, a group each on the group path) and, on the wide and
+    group paths on the card, ``device_headers``."""
     if getattr(index, "turbo", False) or _on_device(index):
         if stats is not None:
             stats.dispatches += 1
@@ -482,6 +496,10 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
             return inflate_raw_turbo(data, index, device, check=check)
         from .wide import inflate_raw_wide
 
+        if stats is not None and torch.device(device).type == "cuda":
+            stats.device_headers += sum(
+                1 for b in index.blocks if b.out_len
+                and b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC))
         return inflate_raw_wide(data, index, device, check=check)
     return inflate_raw_indexed(data, index, device, check=check, stats=stats)
 
@@ -557,8 +575,8 @@ def inflate_to_device(data: bytes, index: StreamIndex, *,
     nothing read back between them.  As in the reference, the decode's
     meta checks are skipped; the caller verifies the bytes.  ``stats`` (a
     ``CodecStats``) gets the stream's and the output's bytes, the blocks,
-    the decode dispatches and ``chained_groups``.  The call is the span
-    ``zlibes.inflate_to_device``.
+    the decode dispatches, ``chained_groups`` and ``device_headers``.  The
+    call is the span ``zlibes.inflate_to_device``.
     """
     data = bytes(data)
     _refuse_fdict(data, "inflate_to_device")

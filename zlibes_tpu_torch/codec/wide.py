@@ -19,6 +19,7 @@ from ..spec import constants as C
 from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
 
+from ..ops import decode_tables as dtab
 from ..ops import wide_kernel as wk
 from ..ops.inflate_kernel import splice_stored, stream_words
 
@@ -88,7 +89,9 @@ class WidePlan:
     L = Cb * LPB lanes; a block's lanes past its output are empty
     (bit0 == endb == 0).  ``build`` is the span ``zlibes.plan``; its
     uploads are ``zlibes.upload``, the blocks' headers and table rows
-    ``zlibes.headers``.
+    (one ``decode_tables`` launch from the uploaded words)
+    ``zlibes.headers``, which reads the blocks' statuses back
+    (``zlibes.readback``) and raises on a bad header.
     """
 
     __slots__ = ("words", "start_w", "bit0", "endb", "base", "lt", "dt",
@@ -99,8 +102,6 @@ class WidePlan:
     @span("zlibes.plan")
     def build(data: bytes, index: StreamIndex,
               device: torch.device | str) -> "WidePlan":
-        from .inflate_pipeline import _block_code_lengths
-
         if not getattr(index, "wide", False):
             raise CorruptError("stream index does not carry wide anchors")
         if not getattr(index, "self_contained", True):
@@ -131,17 +132,15 @@ class WidePlan:
         p.contiguous = not p.stored and all(
             b.out_start == i * LPB * SUB for i, b in enumerate(p.coded))
 
-        # per-block two-level tables; every fixed block shares one pair
-        lt = np.zeros((Cb, wk.LL_W), np.int32)
-        dt = np.zeros((Cb, wk.D_W), np.int32)
-        cache: dict[object, tuple] = {}
+        # per-block two-level tables, built from the words on the device
         with trace("zlibes.headers"):
-            for cb, b in enumerate(p.coded):
-                key = b.btype if b.btype == C.BTYPE_FIXED else b.start_bit
-                if key not in cache:
-                    cache[key] = wk.wide_decode_tables(
-                        *_block_code_lengths(data, b))
-                lt[cb], dt[cb] = cache[key]
+            with trace("zlibes.upload"):
+                hdr = torch.from_numpy(dtab.headers(p.coded)).to(device)
+            p.lt, p.dt, status = dtab.decode_tables(p.words, hdr,
+                                                    len(data) * 8)
+            with trace("zlibes.readback"):
+                status = status.cpu().numpy()
+            dtab.raise_status(status)
 
         # per-lane anchor spans
         abit = np.asarray(index.anchor_bit, np.int64)
@@ -186,8 +185,6 @@ class WidePlan:
             p.bit0 = lanes(bit0_abs & 31)
             p.endb = lanes(endb)
             p.base = lanes(base)
-            p.lt = torch.from_numpy(lt).to(device)
-            p.dt = torch.from_numpy(dt).to(device)
         p.endb_host = endb.astype(np.int32)
         return p
 

@@ -131,6 +131,8 @@ class CodecStats:
     # card built (the general encoder's block_tables kernel)
     chained_groups: int = 0  # decode groups resolved behind the previous
     # group's output on the device (a chained index's group decode)
+    device_headers: int = 0  # coded blocks whose header and decode-table
+    # row the card built (the decoders' decode_tables kernel)
     stage_s: dict = field(default_factory=dict)
     adler: int | None = None  # trailer checksum, when the encode pipeline
     # folded its device Adler terms into the phase-1 dispatches

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "zt_encode_fields": [_P, _P, _P, _P, _P, _I64, _P, _P, _P],
     "zt_block_tables": [_P, _P, _P, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P,
                         _P],
+    "zt_decode_tables": [_P, _I64, _I64, _P, _INT, _P, _P, _P, _P],
     "zt_decode_tokens": [_P, _I64, _P, _P, _INT, _P, _P, _P, _P, _P, _INT,
                          _INT, _P, _P, _P, _P, _P, _P, _P],
     "zt_resolve_global": [_P, _P, _P, _P, _INT, _INT, _P, _INT, _INT, _INT,
