@@ -795,14 +795,15 @@ def select_turbo_last_dispatch(corpus: bytes, cfg, record: dict,
     is short, with ``lazy`` on and off, against its plain version.  Adds the
     error maxima to ``record``."""
     from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops import turbo_kernel as tk
     from zlibes_tpu_torch.ops.lz77 import find_matches
 
     N, Bp = cfg.block_size, cfg.blocks_per_dispatch
     nblocks = -(-len(corpus) // N)
     d0 = (nblocks - 1) // Bp * Bp
-    blk_np, nv_np = dp.block_rows(np.frombuffer(corpus, np.uint8), d0,
-                                  nblocks, N, Bp)
+    blk_np, nv_np = stage_rows(np.frombuffer(corpus, np.uint8), d0,
+                               nblocks, N, Bp)
     blk = torch.from_numpy(blk_np).cuda()
     nv = torch.from_numpy(nv_np).cuda()
     matches = find_matches(blk, nv, N=N, S=cfg.probe_words, J=cfg.candidates,
@@ -838,6 +839,7 @@ def encode_phase(corpus: bytes, card: str,
     import zlibes_tpu_torch
     from zlibes_tpu_torch import CodecConfig, CodecStats, StreamIndex
     from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.codec.inflate_pipeline import _block_code_lengths
     from zlibes_tpu_torch.ops import deflate_kernel as dk
     from zlibes_tpu_torch.ops import encode_kernel as ek
@@ -857,8 +859,8 @@ def encode_phase(corpus: bytes, card: str,
           f"L={Bp * nseg} lanes)")
 
     # -- the first dispatch, stage by stage, on the card
-    blk_np, nv_np = dp.block_rows(np.frombuffer(corpus, np.uint8), 0,
-                                  min(Bp, nblocks), N, Bp)
+    blk_np, nv_np = stage_rows(np.frombuffer(corpus, np.uint8), 0,
+                               min(Bp, nblocks), N, Bp)
     blk = torch.from_numpy(blk_np).cuda()
     nv = torch.from_numpy(nv_np).cuda()
 
@@ -1089,6 +1091,7 @@ def general_phase(corpus: bytes, card: str,
     import zlibes_tpu_torch
     from zlibes_tpu_torch import CodecConfig, CodecStats, StreamIndex
     from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops import block_tables as bt
     from zlibes_tpu_torch.ops import deflate_kernel as dk
     from zlibes_tpu_torch.ops import lz77
@@ -1109,8 +1112,7 @@ def general_phase(corpus: bytes, card: str,
 
     def dispatch(d0, arr=arr):
         n_blocks = -(-arr.size // N)
-        blk_np, nv_np, _ = dp.general_rows(arr, d0, min(n_blocks, d0 + Bp),
-                                           N, Bp, None)
+        blk_np, nv_np = stage_rows(arr, d0, min(n_blocks, d0 + Bp), N, Bp)
         blk = torch.from_numpy(blk_np).cuda()
         nv = torch.from_numpy(nv_np).cuda()
         return blk, nv, lz77.find_matches(blk, nv, N=N, S=cfg.probe_words,
@@ -1967,12 +1969,12 @@ def shared_dispatch(data: bytes, cfg):
     """The first dispatch of ``data`` under the shared-tables config
     ``cfg`` on the card, as the pipeline makes it: block rows, valid
     counts and the matches."""
-    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops.lz77 import find_matches
 
     N, Bp = cfg.block_size, cfg.blocks_per_dispatch
     arr = np.frombuffer(data, np.uint8)
-    blk_np, nv_np = dp.block_rows(arr, 0, min(Bp, -(-arr.size // N)), N, Bp)
+    blk_np, nv_np = stage_rows(arr, 0, min(Bp, -(-arr.size // N)), N, Bp)
     blk = torch.from_numpy(blk_np).cuda()
     nv = torch.from_numpy(nv_np).cuda()
     return blk, nv, find_matches(blk, nv, N=N, S=cfg.probe_words,
@@ -2295,6 +2297,7 @@ def hold_parallel_kernels(corpus: bytes, records: dict, card: str) -> None:
     against its plain version.  The decode kernels at world 1 take the
     whole stream's lanes, the shapes the earlier phases hold."""
     from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops import encode_kernel as ek
     from zlibes_tpu_torch.ops import lz77
     from zlibes_tpu_torch.ops import turbo_kernel as tk
@@ -2303,8 +2306,8 @@ def hold_parallel_kernels(corpus: bytes, records: dict, card: str) -> None:
     from zlibes_tpu_torch.parallel import block_parallel as bp
 
     N = 32768
-    rows_np, nv_np = bp._stage_rows(lambda i: corpus[i * N : (i + 1) * N],
-                                    0, bp.DISPATCH_BLOCKS, N, len(corpus))
+    rows_np, nv_np = stage_rows(np.frombuffer(corpus, np.uint8), 0,
+                               bp.DISPATCH_BLOCKS, N)
     rows = torch.from_numpy(rows_np).cuda()
     nv = torch.from_numpy(nv_np).cuda()
     matches = lz77.find_matches(rows, nv, N=N, S=bp._S, J=bp._J)

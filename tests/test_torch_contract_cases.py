@@ -96,6 +96,7 @@ import pytest
 import torch
 
 from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+from zlibes_tpu_torch.ops import block_tables as bt
 from zlibes_tpu_torch.ops import lz77
 from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
@@ -1351,7 +1352,7 @@ def _random_code(rng, nsym: int, nused: int, max_len: int = 15):
     over ``nused`` random symbols of ``nsym``, by random frequencies."""
     freq = np.zeros(nsym, np.int64)
     freq[rng.permutation(nsym)[:nused]] = rng.integers(1, 1000, nused)
-    return tdp.package_merge_np(freq, max_len).astype(np.int64)
+    return bt.package_merge_np(freq, max_len).astype(np.int64)
 
 
 def _skewed_code(nsym: int, scale: float):
@@ -1359,7 +1360,7 @@ def _skewed_code(nsym: int, scale: float):
     of rank i has 2^20 / (i + 1)^scale): the rarest get 12- to 15-bit
     codes."""
     freq = (2.0 ** 20 / (np.arange(nsym) + 1.0) ** scale).astype(np.int64)
-    return tdp.package_merge_np(np.maximum(freq, 1), 15).astype(np.int64)
+    return bt.package_merge_np(np.maximum(freq, 1), 15).astype(np.int64)
 
 
 def _draw_tokens(rng, lengths, n: int, eob: bool):
@@ -1394,7 +1395,7 @@ def _walk_case_spec(case: str):
         for _ in range(32):
             ll = _random_code(rng, 286, int(rng.integers(20, 286)))
             ll[C.END_OF_BLOCK] = ll[C.END_OF_BLOCK] or 15
-            rows.append((tdp.package_merge_np(
+            rows.append((bt.package_merge_np(
                 np.where(ll > 0, 2 ** (15 - np.minimum(ll, 15)), 0), 15
             ).astype(np.int64), _random_code(rng, 30, int(rng.integers(2, 30)))))
         return rows, [(r, _draw_tokens(rng, rows[r], 40, eob=r % 2 == 0), 0)

@@ -551,14 +551,13 @@ def test_select_turbo_kernel_matches_plain_on_random(lazy):
 
 
 def _first_dispatch(corpus):
-    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops.lz77 import find_matches
 
     cfg = zlibes_tpu_torch.CodecConfig.turbo()
     N = cfg.block_size
-    blk, nv = tdp.block_rows(np.frombuffer(corpus, np.uint8), 0,
-                             cfg.blocks_per_dispatch, N,
-                             cfg.blocks_per_dispatch)
+    blk, nv = stage_rows(np.frombuffer(corpus, np.uint8), 0,
+                         cfg.blocks_per_dispatch, N)
     blk, nv = torch.from_numpy(blk).cuda(), torch.from_numpy(nv).cuda()
     matches = find_matches(blk, nv, N=N, S=cfg.probe_words,
                            J=cfg.candidates, reset=cfg.chunk_reset,
@@ -586,13 +585,13 @@ def _fields_both(tv, td, en, lt, dt):
 
 
 def _corpus_tables(fixture_stream):
-    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
     from zlibes_tpu_torch.codec.inflate_pipeline import _block_code_lengths
+    from zlibes_tpu_torch.ops import block_tables as bt
     from zlibes_tpu_torch.ops import encode_kernel as ek
 
     comp, index = fixture_stream
     ll, dl = _block_code_lengths(comp, index.blocks[0])
-    ll_code, d_code = tdp._encode_tables(np.asarray(ll, np.int64),
+    ll_code, d_code = bt._encode_tables(np.asarray(ll, np.int64),
                                          np.asarray(dl, np.int64))
     return [t.cuda() for t in ek.pack_tables(ll_code, ll, d_code, dl)]
 
@@ -745,11 +744,11 @@ def test_encode_fields_kernel_matches_plain_on_fields_over_32_bits():
     """15-bit codes on the longest lengths at the farthest distances: fields
     of 33-48 bits, mixed with literals and short matches."""
     from shared_tables_cases import deep_tables
-    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.ops import block_tables as bt
     from zlibes_tpu_torch.ops import encode_kernel as ek
 
     ll_len, d_len = deep_tables()
-    ll_code, d_code = tdp._encode_tables(ll_len, d_len)
+    ll_code, d_code = bt._encode_tables(ll_len, d_len)
     lt, dt = (t.cuda() for t in ek.pack_tables(ll_code, ll_len, d_code,
                                                d_len))
     g = torch.Generator().manual_seed(43)
@@ -959,14 +958,14 @@ def test_select_tokens_kernel_matches_plain_on_chain_cases(case):
 def test_select_tokens_kernel_matches_plain_on_corpus():
     """Real matches of two 128 KiB blocks of raw.bin at level 6, the second
     one short."""
-    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops.lz77 import find_matches
 
     cfg = zlibes_tpu_torch.CodecConfig.from_level(6)
     N = cfg.block_size
     raw = np.frombuffer((GOLDEN / "raw.bin").read_bytes()[: N + 50000],
                         np.uint8)
-    blk, nv, _ = tdp.general_rows(raw, 0, 2, N, 3, None)
+    blk, nv = stage_rows(raw, 0, 2, N, 3)
     blk, nv = torch.from_numpy(blk), torch.from_numpy(nv)
     matches = find_matches(blk.cuda(), nv.cuda(), N=N, S=cfg.probe_words,
                            J=cfg.candidates).cpu()
@@ -1062,7 +1061,7 @@ def test_block_tables_kernel_matches_plain_on_a_level6_dispatch():
     """The histograms of raw.bin's one level-6 dispatch as the card's
     symbols stage leaves them: four blocks of 16, the last short and the
     stream's end."""
-    from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops import deflate_kernel as dk
     from zlibes_tpu_torch.ops import lz77
 
@@ -1070,7 +1069,7 @@ def test_block_tables_kernel_matches_plain_on_a_level6_dispatch():
     N, Bp, SEG = cfg.block_size, cfg.blocks_per_dispatch, cfg.seg_size
     raw = np.frombuffer((GOLDEN / "raw.bin").read_bytes(), np.uint8)
     nblocks = -(-raw.size // N)
-    blk, nv, _ = tdp.general_rows(raw, 0, nblocks, N, Bp, None)
+    blk, nv = stage_rows(raw, 0, nblocks, N, Bp)
     blk, nv = torch.from_numpy(blk).cuda(), torch.from_numpy(nv).cuda()
     matches = lz77.find_matches(blk, nv, N=N, S=cfg.probe_words,
                                 J=cfg.candidates)

@@ -28,6 +28,7 @@ from zlibes_tpu_torch import (
     index_from_reference,
 )
 from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+from zlibes_tpu_torch.ops import block_tables as bt
 from zlibes_tpu_torch.ops import deflate_kernel as dk
 from zlibes_tpu_torch.ops import lz77
 from zlibes_tpu_torch.spec import constants as C
@@ -218,10 +219,10 @@ def test_pack_payload_matches_reference(far):
     lsym, dsym, valid, llf, dfq = sym
     llf = np.asarray(llf).astype(np.int64)
     llf[:, C.END_OF_BLOCK] += 1
-    ll_len = np.stack([tdp.package_merge_np(llf[0], 15), tdp._FIXED_LL_LEN])
-    d_len = np.stack([tdp.package_merge_np(np.asarray(dfq)[0], 15),
-                      tdp._FIXED_D_LEN])
-    codes = [tdp._encode_tables(ll_len[i], d_len[i]) for i in range(BP)]
+    ll_len = np.stack([bt.package_merge_np(llf[0], 15), bt._FIXED_LL_LEN])
+    d_len = np.stack([bt.package_merge_np(np.asarray(dfq)[0], 15),
+                      bt._FIXED_D_LEN])
+    codes = [bt._encode_tables(ll_len[i], d_len[i]) for i in range(BP)]
     ll_code = np.stack([c[0] for c in codes])
     d_code = np.stack([c[1] for c in codes])
     hdr_bits = np.array([417, 3], np.int32)

@@ -20,6 +20,7 @@ import torch
 import zlibes_tpu_torch
 from zlibes_tpu_torch import CodecConfig, CodecStats, StreamIndex, errors
 from zlibes_tpu_torch.codec import deflate_pipeline as dp
+from zlibes_tpu_torch.ops import block_tables as bt
 from zlibes_tpu_torch.spec import constants as C
 from zlibes_tpu_torch.spec import refmodel as rm
 
@@ -46,7 +47,7 @@ def test_package_merge_np_matches_refmodel():
     for _ in range(20):
         freqs = rng.integers(0, 1000, 288)
         freqs[rng.random(288) < 0.5] = 0
-        a = dp.package_merge_np(freqs, 15)
+        a = bt.package_merge_np(freqs, 15)
         b = rm.package_merge_lengths(freqs, 15)
         assert (a[freqs == 0] == 0).all() and (a[freqs > 0] > 0).all()
         assert ((freqs > 0) * (1 << (15 - np.maximum(a, 1)))).sum() <= 1 << 15

@@ -23,6 +23,8 @@ import torch_parallel_worker as w
 import zlibes_tpu_torch as zt
 from zlibes_tpu_torch import parallel as P
 from zlibes_tpu_torch.codec import deflate_pipeline as dp
+from zlibes_tpu_torch.codec.framing import stage_rows
+from zlibes_tpu_torch.ops import block_tables as bt
 from zlibes_tpu_torch.ops.adler32 import adler_partials, adler_value
 from zlibes_tpu_torch.ops.deflate_kernel import (pack_payload_turbo,
                                                  token_symbols)
@@ -130,8 +132,7 @@ def test_parallel_inflate_splices_stored_blocks(world):
 def _turbo_tokens(data: bytes, N: int):
     """Phase 1 of the sharded turbo encode on ``data``'s blocks."""
     B = -(-len(data) // N)
-    rows, nv = P.block_parallel._stage_rows(
-        lambda i: data[i * N : (i + 1) * N], 0, B, N, len(data))
+    rows, nv = stage_rows(lambda i: data[i * N : (i + 1) * N], 0, B, N)
     rows, nv = torch.from_numpy(rows), torch.from_numpy(nv)
     matches = find_matches(rows, nv, N=N, S=16, J=16, reset=4096,
                            two_phase=True)
@@ -155,7 +156,7 @@ def test_pack_payload_turbo_matches_reference():
     B = llf.shape[0]
     ll_len, d_len = (x.long().numpy() for x in limited_lengths_pair(
         llf.sum(0), dfq.sum(0), 9))
-    ll_code, d_code = dp._encode_tables(ll_len, d_len)
+    ll_code, d_code = bt._encode_tables(ll_len, d_len)
     hdr = np.array([253, 261, 250][:B], np.int32)
     lt, dt = pack_tables(ll_code, ll_len, d_code, d_len)
     got = pack_payload_turbo(tv, td, valid, lt, dt, torch.from_numpy(hdr),
@@ -197,8 +198,8 @@ def test_adler_shard_combine_matches_reference(N):
     s1_sum = s2_sum = 0
     for shard in range(3):
         lo = shard * Bd
-        rows, nv = P.block_parallel._stage_rows(
-            lambda i: data[i * N : (i + 1) * N], lo, lo + Bd, N, n)
+        rows, nv = stage_rows(lambda i: data[i * N : (i + 1) * N], lo,
+                              lo + Bd, N)
         s1, s2 = P.block_parallel._adler_shard(
             torch.from_numpy(rows), torch.from_numpy(nv), lo, N, n)
         g_off = jnp.asarray((lo + np.arange(Bd, dtype=np.int32)) * N)

@@ -32,6 +32,7 @@ from zlibes_tpu.ops import lz77 as jlz
 import zlibes_tpu_torch
 from zlibes_tpu_torch import config_from_reference
 from zlibes_tpu_torch.codec import deflate_pipeline as tdp
+from zlibes_tpu_torch.ops import block_tables as bt
 from zlibes_tpu_torch.ops import deflate_kernel as dk
 from zlibes_tpu_torch.ops import encode_kernel as ek
 from zlibes_tpu_torch.ops import lz77
@@ -295,7 +296,7 @@ def _field(ll_len, d_len, tv: int, td: int) -> tuple[int, int]:
 
 
 def _packed(ll_len, d_len):
-    ll_code, d_code = tdp._encode_tables(ll_len, d_len)
+    ll_code, d_code = bt._encode_tables(ll_len, d_len)
     return ek.pack_tables(ll_code, ll_len, d_code, d_len)
 
 
@@ -305,7 +306,7 @@ def test_encode_fields_equals_reference_within_32_bits():
     bits ``val`` is the JAX kernel's; on every token its low 32 bits
     are."""
     ll_len, d_len = _tables(15, 1)
-    ll_code, d_code = tdp._encode_tables(ll_len, d_len)
+    ll_code, d_code = bt._encode_tables(ll_len, d_len)
     lt, dt = ek.pack_tables(ll_code, ll_len, d_code, d_len)
     lt_j, dt_j = jek.pack_tables(*(jnp.asarray(x[None]) for x in
                                    (ll_code, ll_len, d_code, d_len)))

@@ -174,7 +174,7 @@ def dispatches(seed: int) -> dict:
     """name -> (data, matches, n_valid, SEG_SIZE) on the card."""
     from zlibes_tpu_torch import CodecConfig
     from zlibes_tpu_torch.bench_corpus import bench_data
-    from zlibes_tpu_torch.codec import deflate_pipeline as dp
+    from zlibes_tpu_torch.codec.framing import stage_rows
     from zlibes_tpu_torch.ops.lz77 import find_matches
 
     cfg = CodecConfig.from_level(6)
@@ -182,7 +182,7 @@ def dispatches(seed: int) -> dict:
 
     def rows(arr: np.ndarray):
         nblocks = -(-arr.size // N)
-        blk, nv, _ = dp.general_rows(arr, 0, min(Bp, nblocks), N, Bp, None)
+        blk, nv = stage_rows(arr, 0, min(Bp, nblocks), N, Bp)
         blk = torch.from_numpy(blk).cuda()
         nv = torch.from_numpy(nv).cuda()
         return blk, find_matches(blk, nv, N=N, S=cfg.probe_words,

@@ -19,9 +19,8 @@ per dispatch:
            ``pack_payload`` under the per-block tables, with the 128-byte
            sub-anchors of the wide index; one readback of the metadata and
            the blocks' choices and headers, one of the used words;
-  host     splice headers, end-of-block codes, stored blocks, empty stored
-           sync blocks and the anchors into the stream and its StreamIndex
-           (``wide`` unless a dictionary was given).
+  host     the framing of ``framing.py``: blocks, sync blocks and the wide
+           index's anchors (``wide`` unless a dictionary was given).
 
 A preset dictionary's last 32 KiB ride in front of the first block's row as
 a context prefix the matcher may copy from and the selector never
@@ -45,10 +44,8 @@ dictionary):
   phase 2  ``encode_fields`` (CUDA kernel: coded fields of up to 48 bits)
            and the pack into a compacted stream image per dispatch, one
            readback for all dispatches;
-  host     splice headers, EOB codes, empty stored sync blocks and the
-           paired anchors (each segment's start and its first token at or
-           past byte 256) into the stream and its StreamIndex, a turbo
-           index for the turbo profile's geometry and codes.
+  host     the framing of ``framing.py``: blocks, sync blocks and the paired
+           anchors, a turbo index for the turbo profile's geometry and codes.
 
 The shared-table encode reads the device back twice.  Beyond
 ``cfg.phase1_cache_blocks`` blocks phase 2 runs match and select again
@@ -65,21 +62,16 @@ import torch
 
 from ..config import DEFAULT_CONFIG, CodecConfig, CodecStats, span, trace
 from ..spec import constants as C
-from ..spec.refmodel import BlockInfo, StreamIndex, adler32
+from ..spec.refmodel import StreamIndex
 
 from ..ops import turbo_kernel as tk
 from ..ops.adler32 import adler32_device, adler_partials, adler_value
-# the host functions of the tables live with the block_tables kernel; the
-# shared-table encoders, parallel/ and the tests take them from here too
-from ..ops.block_tables import (  # noqa: F401
+from ..ops.block_tables import (
     INFO,
-    _FIXED_D_LEN,
-    _FIXED_LL_LEN,
     _dynamic_header,
     _encode_tables,
     _payload_bits,
     block_tables,
-    package_merge_np,
 )
 from ..ops.deflate_kernel import (
     gather_compressed,
@@ -91,6 +83,15 @@ from ..ops.encode_kernel import pack_tables
 from ..ops.entropy import limited_lengths_pair
 from ..ops.lz77 import find_matches, select_tokens
 from ..ops.wide_kernel import SUB as WIDE_SUB
+from .framing import (
+    block_infos,
+    frame_blocks,
+    lane_anchors,
+    stage_rows,
+    stored_stream,
+    sub_anchors,
+    zlib_header,
+)
 
 _ADLER_CHUNK = 2048
 _M = C.ADLER_MOD
@@ -108,18 +109,6 @@ def _own_config(cfg: CodecConfig | None) -> CodecConfig:
             f"not zlibes_tpu_torch.CodecConfig; convert it with "
             f"zlibes_tpu_torch.config.config_from_reference")
     return cfg
-
-
-# ---------------------------------------------------------------------------
-# host splice helper
-
-def _or_bits(buf: np.ndarray, bit_off: int, value: int, nbits: int) -> None:
-    """OR an LSB-first bit-string into a byte buffer at a bit offset."""
-    v = value << (bit_off & 7)
-    pos = bit_off >> 3
-    nbytes = (nbits + (bit_off & 7) + 7) // 8
-    for i in range(nbytes):
-        buf[pos + i] |= (v >> (8 * i)) & 0xFF
 
 
 # ---------------------------------------------------------------------------
@@ -174,16 +163,6 @@ def select_glue(dev_bytes: torch.Tensor, matches: torch.Tensor,
     return tv, td, cnt
 
 
-def block_rows(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int):
-    blk_bytes = np.zeros((Bp, N + 8), dtype=np.uint8)
-    n_valid = np.zeros(Bp, dtype=np.int32)
-    for i, bi in enumerate(range(d0, d1)):
-        chunk = arr[bi * N : (bi + 1) * N]
-        blk_bytes[i, : chunk.size] = chunk
-        n_valid[i] = chunk.size
-    return blk_bytes, n_valid
-
-
 def _row_width(cfg: CodecConfig) -> int:
     """Word slots of a segment lane's row in the shared-table pack: its
     coded bits, up to 31 bits of offset into the first word, and 2 spare.
@@ -220,7 +199,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     turbo_lanes = SEG_SIZE == tk.SEL_SEG and cfg.chunk_reset == 4096
 
     def run_dispatch(d0: int, d1: int):
-        blk_bytes, n_valid = block_rows(arr, d0, d1, N, Bp)
+        blk_bytes, n_valid = stage_rows(arr, d0, d1, N, Bp)
         with trace("zlibes.upload"):
             dev_bytes = torch.from_numpy(blk_bytes).to(dev)
             dev_nv = torch.from_numpy(n_valid).to(dev)
@@ -237,13 +216,12 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
                 tv, td, cnt = select_tokens(dev_bytes, matches, dev_nv, N=N,
                                             SEG_SIZE=SEG_SIZE, lazy=cfg.lazy,
                                             split_far=short_codes)
-        return tv, td, cnt, n_valid, ad_a, ad_b
+        return tv, td, cnt, ad_a, ad_b
 
     # --- phase 1: every dispatch queued before one readback
     nh = C.NUM_LITLEN_SYMBOLS
     nd = C.NUM_DIST_SYMBOLS
     kept = {}
-    nv_all = {}
     handles = []
     ll_parts = []
     d_parts = []
@@ -251,7 +229,7 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
     nchunks = N // _ADLER_CHUNK
     nt = Bp * nchunks
     for d0, d1 in spans:
-        tv, td, cnt, n_valid, ad_a, ad_b = run_dispatch(d0, d1)
+        tv, td, cnt, ad_a, ad_b = run_dispatch(d0, d1)
         with trace("zlibes.symbols", stats.stage_s):
             _ls, _ds, valid, ll_freq, d_freq = token_symbols(tv, td, cnt,
                                                             nseg=nseg)
@@ -261,7 +239,6 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
                                   cnt.max().long()[None], ad_a, ad_b]))
         ll_parts.append(ll_freq.sum(0))
         d_parts.append(d_freq.sum(0))
-        nv_all[d0] = n_valid
         if keep_tokens:
             kept[d0] = (tv, td, valid)
         stats.dispatches += 1
@@ -278,31 +255,22 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
         hist_all = torch.cat(handles).cpu().numpy()
     ll_len = hist_all[-(nh + nd) : -nd]
     d_len = hist_all[-nd:]
-    hist_all = hist_all[: -(nh + nd)]
-    per = Bp * nh + Bp * nd + 1 + 2 * nt
-    ll_blocks = np.zeros((len(spans), Bp, nh), np.int64)
-    d_blocks = np.zeros((len(spans), Bp, nd), np.int64)
-    max_tokens = 0
-    s1_sum = 0
-    s2_sum = 0
-    for k, (d0, d1) in enumerate(spans):
-        h = hist_all[k * per : (k + 1) * per]
-        ll_blocks[k] = h[: Bp * nh].reshape(Bp, nh)
-        d_blocks[k] = h[Bp * nh : Bp * (nh + nd)].reshape(Bp, nd)
-        max_tokens = max(max_tokens, int(h[Bp * (nh + nd)]))
-        a_c = h[-2 * nt : -nt]
-        b_c = h[-nt:]
-        offs = ((np.arange(nt, dtype=np.int64) // nchunks + d0) * N
-                + (np.arange(nt, dtype=np.int64) % nchunks) * _ADLER_CHUNK)
-        s1, s2 = adler_partials(a_c, b_c, offs, n)
-        s1_sum += int(s1)
-        s2_sum += int(s2)
-    stats.adler = adler_value(s1_sum, s2_sum, n)
+    # per dispatch: block histograms, most tokens in a lane, Adler-32 terms
+    h = hist_all[: -(nh + nd)].reshape(len(spans), -1)
+    ll_blocks = h[:, : Bp * nh].reshape(-1, Bp, nh)
+    d_blocks = h[:, Bp * nh : Bp * (nh + nd)].reshape(-1, Bp, nd)
+    max_tokens = int(h[:, Bp * (nh + nd)].max())
+    j = np.arange(nt, dtype=np.int64)
+    offs = ((np.arange(len(spans), dtype=np.int64)[:, None] * Bp
+             + j // nchunks) * N + j % nchunks * _ADLER_CHUNK)
+    s1, s2 = adler_partials(h[:, -2 * nt : -nt].reshape(-1),
+                            h[:, -nt:].reshape(-1), offs.reshape(-1), n)
+    stats.adler = adler_value(int(s1), int(s2), n)
 
-    # --- host side of the entropy stage: header bits and canonical codes
+    # --- host side of the entropy stage: header bits and canonical codes;
+    # the last block's header differs only in BFINAL, which the framing sets
     with trace("zlibes.entropy", stats.stage_s):
-        hdr0, hb0 = _dynamic_header(ll_len, d_len, 0)
-        hdr1, hb1 = _dynamic_header(ll_len, d_len, 1)
+        hdr, hb = _dynamic_header(ll_len, d_len, 0)
         ll_code, d_code = _encode_tables(ll_len, d_len)
         eob_code = int(ll_code[C.END_OF_BLOCK])
         eob_len = int(ll_len[C.END_OF_BLOCK])
@@ -312,190 +280,73 @@ def _deflate_turbo(arr: np.ndarray, N: int, cfg: CodecConfig,
 
     # --- phase 2: pack every dispatch to its compacted stream image, one
     # readback for all; the phase-1 histograms size each block exactly
-    out_parts: list[bytes] = []
-    blocks: list[BlockInfo] = []
-    anchor_bit: list[int] = []
-    anchor_out: list[int] = []
-    anchor_block: list[int] = []
-    stream_bit = 0
     R = _row_width(cfg)
-    if hb0 // 32 + 3 > _F or hb1 // 32 + 3 > _F:
+    if hb // 32 + 3 > _F:
         raise RuntimeError("dynamic header exceeds the filler budget")
     L_ = Bp * nseg
-    layout = []
     handles2 = []
     dense_cap = L_ * R + Bp * _F
-    for k, (d0, d1) in enumerate(spans):
-        B = d1 - d0
-        hdr_bits_arr = np.full(Bp, hb0, np.int32)
-        if d1 == nblocks:
-            hdr_bits_arr[B - 1] = hb1
-        pe_h = np.zeros(Bp, np.int64)
-        for i in range(Bp):
-            pe_h[i] = hdr_bits_arr[i] + _payload_bits(
-                ll_blocks[k, i], d_blocks[k, i], ll_len, d_len)
-        used = (pe_h + eob_len + 31) // 32 + 1
-        blk_off = np.concatenate([[0], np.cumsum(used)]).astype(np.int64)
-        if int(blk_off[-1]) > dense_cap:
-            # a silent clamp would shorten the slices below and emit a
-            # corrupt stream
-            raise RuntimeError(
-                f"packed word spans ({int(blk_off[-1])}) exceed the dense "
-                f"pack capacity ({dense_cap})")
-        total_pad = min(dense_cap, -(-int(blk_off[-1]) // 2048) * 2048)
-        layout.append((pe_h, blk_off, total_pad))
-
+    hdr_bits = torch.full((Bp,), hb, dtype=torch.int32, device=dev)
+    # each block's payload end, and its words' offset in its dispatch's
+    # image (dispatch by block)
+    pe_h = hb + _payload_bits(ll_blocks, d_blocks, ll_len, d_len)
+    used = (pe_h + eob_len + 31) // 32 + 1
+    total = int(used.sum(1).max())
+    if total > dense_cap:
+        # a silent clamp would shorten the slices below and emit a corrupt
+        # stream
+        raise RuntimeError(f"packed word spans ({total}) exceed the dense "
+                           f"pack capacity ({dense_cap})")
+    blk_off = np.cumsum(used, 1) - used
+    total_pad = np.minimum(dense_cap, -(-used.sum(1) // 2048) * 2048)
+    for (d0, d1), pad in zip(spans, total_pad.tolist()):
         if keep_tokens:
             tv, td, valid = kept.pop(d0)
         else:
-            tv, td, cnt, _nv, _aa, _ab = run_dispatch(d0, d1)
+            tv, td, cnt, _aa, _ab = run_dispatch(d0, d1)
             _ls, _ds, valid, _lf, _df = token_symbols(tv, td, cnt, nseg=nseg)
         with trace("zlibes.pack", stats.stage_s):
             dense, pe, lb, sb, so = pack_payload_turbo_dense(
-                tv, td, valid, lt, dt,
-                torch.from_numpy(hdr_bits_arr).to(dev), eob_len,
+                tv, td, valid, lt, dt, hdr_bits, eob_len,
                 nseg=nseg, R=R, F=_F)
             handles2.append(torch.cat([torch.cat([pe, lb, sb, so]).int(),
-                                       dense[:total_pad]]))
+                                       dense[:pad]]))
     with trace("zlibes.readback", stats.stage_s):
         blob = torch.cat(handles2).cpu().numpy()
 
-    # --- host: splice headers, EOB codes, sync blocks and anchors
+    # --- host: frame the blocks, and the paired anchors (each segment's
+    # start and its first token at or past byte 256)
     with trace("zlibes.splice", stats.stage_s):
-        pos = 0
-        for k, (d0, d1) in enumerate(spans):
-            pe_h, blk_off, total_pad = layout[k]
-            B = d1 - d0
-            n_valid = nv_all[d0]
-            mlen = Bp + 3 * L_
-            meta = blob[pos : pos + mlen]
-            span_dense = blob[pos + mlen : pos + mlen + total_pad]
-            pos += mlen + total_pad
-            payload_end_np = meta[:Bp]
-            lane_bit0_np = meta[Bp : Bp + L_]
-            split_bit_np = meta[Bp + L_ : Bp + 2 * L_]
-            split_out_np = meta[Bp + 2 * L_ :]
-            if not np.array_equal(payload_end_np.astype(np.int64), pe_h):
-                raise RuntimeError(
-                    "host/device payload layout desync (per-block histogram "
-                    "bit counts disagree with the packed payload ends)")
+        # per dispatch: payload ends, then each lane's first bit, split bit
+        # and split output offset, then the image
+        mlen = Bp + 3 * L_
+        pos = np.cumsum(mlen + total_pad) - (mlen + total_pad)
+        meta = blob[pos[:, None] + np.arange(mlen)].astype(np.int64)
+        if not np.array_equal(meta[:, :Bp], pe_h):
+            raise RuntimeError(
+                "host/device payload layout desync (per-block histogram "
+                "bit counts disagree with the packed payload ends)")
+        payload_end = meta[:, :Bp].reshape(-1)[:nblocks]
+        lane_bit0, split_bit, split_out = meta[:, Bp:].reshape(
+            -1, 3, Bp, nseg).transpose(1, 0, 2, 3).reshape(
+                3, -1, nseg)[:, :nblocks]
+        out_start = np.arange(nblocks, dtype=np.int64) * N
+        nb = np.minimum(N, n - out_start)
+        body, table, start, row = frame_blocks(
+            blob, (pos[:, None] + mlen + blk_off).reshape(-1)[:nblocks],
+            payload_end, np.frombuffer(hdr, np.uint8), hb, eob_code,
+            eob_len, C.BTYPE_DYNAMIC, nb, out_start,
+            out_start == out_start[-1])
+        anchor_bit, anchor_out, anchor_block = lane_anchors(
+            start, row, nb, out_start, lane_bit0, SEG_SIZE,
+            split=(split_bit, split_out, payload_end))
 
-            for i in range(B):
-                bi = d0 + i
-                bfinal = 1 if bi == nblocks - 1 else 0
-                nb = int(n_valid[i])
-                out_start = bi * N
-                hdr = hdr1 if bfinal else hdr0
-                hdr_bits = hb1 if bfinal else hb0
-                buf = span_dense[int(blk_off[i]) : int(blk_off[i + 1])].view(
-                    np.uint8).copy()
-                end_bits = int(payload_end_np[i])
-                hb = np.frombuffer(hdr, dtype=np.uint8)
-                buf[: hb.size] |= hb
-                _or_bits(buf, end_bits, eob_code, eob_len)
-                end_bits += eob_len
-                start_bit = stream_bit
-                blocks.append(BlockInfo(
-                    C.BTYPE_DYNAMIC, bool(bfinal), start_bit,
-                    start_bit + hdr_bits, start_bit + end_bits, out_start, nb))
-                for s in range(-(-nb // SEG_SIZE)):
-                    lane = i * nseg + s
-                    lb_ = int(lane_bit0_np[lane])
-                    anchor_bit.append(start_bit + lb_)
-                    anchor_out.append(out_start + s * SEG_SIZE)
-                    anchor_block.append(len(blocks) - 1)
-                    # mid-segment split anchor; with no token starting at or
-                    # after SUB it is the lane end (an empty second half-lane)
-                    lane_end = (int(lane_bit0_np[lane + 1]) if s + 1 < nseg
-                                else int(payload_end_np[i]))
-                    sb_, so_ = int(split_bit_np[lane]), int(split_out_np[lane])
-                    if sb_ >= 1 << 30:
-                        sb_, so_ = lane_end - lb_, min(nb - s * SEG_SIZE,
-                                                       SEG_SIZE)
-                    anchor_bit.append(start_bit + lb_ + sb_)
-                    anchor_out.append(out_start + s * SEG_SIZE + so_)
-                    anchor_block.append(len(blocks) - 1)
-                if bfinal:
-                    nbytes = (end_bits + 7) // 8
-                    out_parts.append(buf[:nbytes].tobytes())
-                    stream_bit += nbytes * 8
-                else:
-                    # an empty stored block: the next block starts on a byte
-                    sync_start = end_bits
-                    nbytes = (end_bits + 3 + 7) // 8
-                    part = buf[:nbytes].tobytes() + b"\x00\x00\xff\xff"
-                    out_parts.append(part)
-                    blocks.append(BlockInfo(
-                        C.BTYPE_STORED, False, start_bit + sync_start,
-                        start_bit + nbytes * 8,
-                        stream_bit + len(part) * 8, out_start + nb, 0))
-                    stream_bit += len(part) * 8
-
-    body = b"".join(out_parts)
     stats.bytes_out += len(body)
-    stats.blocks += len(blocks)
-    index = StreamIndex(
-        blocks,
-        np.asarray(anchor_bit, np.int64),
-        np.asarray(anchor_out, np.int64),
-        np.asarray(anchor_block, np.int32),
-        chunk_reset=cfg.chunk_reset,
-        turbo=turbo_lanes and short_codes,
-        max_tokens=max_tokens,
-    )
-    return body, index
-
-
-def _stored_blocks(raw: np.ndarray, bfinal: int, bit: int, out_start: int):
-    """``raw`` (not empty) as stored blocks of at most 65,535 bytes, the
-    first at stream bit ``bit`` (on a byte) and output byte ``out_start``,
-    the last with ``bfinal`` -> [(bytes, BlockInfo)]."""
-    out = []
-    for pos in range(0, raw.size, 65535):
-        chunk = raw[pos : pos + 65535]
-        bf = bfinal if pos + 65535 >= raw.size else 0
-        ln = chunk.size
-        part = bytes([bf]) + ln.to_bytes(2, "little") \
-            + (~ln & 0xFFFF).to_bytes(2, "little") + chunk.tobytes()
-        out.append((part, BlockInfo(C.BTYPE_STORED, bool(bf), bit, bit + 8,
-                                    bit + len(part) * 8, out_start + pos,
-                                    ln)))
-        bit += len(part) * 8
-    return out
-
-
-def _stored_stream(arr: np.ndarray, stats: CodecStats):
-    """Level 0: stored blocks only, no device work."""
-    parts, blocks = zip(*_stored_blocks(arr, 1, 0, 0))
-    body = b"".join(parts)
-    stats.bytes_out += len(body)
-    stats.blocks += len(blocks)
-    return body, StreamIndex(list(blocks), np.zeros(0, np.int64),
-                             np.zeros(0, np.int64), np.zeros(0, np.int32))
-
-
-def general_rows(arr: np.ndarray, d0: int, d1: int, N: int, Bp: int,
-                 dict_np: np.ndarray | None):
-    """Block rows of one dispatch of the general encoder -> (blk_bytes
-    (Bp, CTX + N + 8) uint8, n_valid (Bp,) int32 bytes per block, ctx_start
-    (Bp,) int32 first real byte of each row or None).  CTX is 32 KiB with a
-    dictionary and 0 without; the dictionary's tail sits just below CTX in
-    block 0's row only, and the padding below it (every other row's whole
-    prefix) is no match source."""
-    CTX = C.WINDOW_SIZE if dict_np is not None else 0
-    blk_bytes = np.zeros((Bp, CTX + N + 8), dtype=np.uint8)
-    n_valid = np.zeros(Bp, dtype=np.int32)
-    for i, bi in enumerate(range(d0, d1)):
-        chunk = arr[bi * N : (bi + 1) * N]
-        blk_bytes[i, CTX : CTX + chunk.size] = chunk
-        n_valid[i] = chunk.size
-    if not CTX:
-        return blk_bytes, n_valid, None
-    ctx_start = np.full(Bp, CTX, np.int32)
-    if d0 == 0:
-        blk_bytes[0, CTX - dict_np.size : CTX] = dict_np
-        ctx_start[0] = CTX - dict_np.size
-    return blk_bytes, n_valid, ctx_start
+    stats.blocks += len(table)
+    return body, StreamIndex(
+        block_infos(table), anchor_bit, anchor_out,
+        anchor_block.astype(np.int32), chunk_reset=cfg.chunk_reset,
+        turbo=turbo_lanes and short_codes, max_tokens=max_tokens)
 
 
 def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
@@ -511,20 +362,26 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
     CTX = C.WINDOW_SIZE if dict_np is not None else 0
     W = (15 * N + 4096) // 32           # words of one block's buffer
     L_ = Bp * nseg
-    nsub_lane = SEG_SIZE // WIDE_SUB
+    nsub = Bp * N // WIDE_SUB           # sub-anchor boundaries a dispatch
 
     out_parts: list[bytes] = []
-    blocks: list[BlockInfo] = []
-    anchor_bit: list[int] = []
-    anchor_out: list[int] = []
-    anchor_block: list[int] = []
+    blocks = []
+    anchors = []
     stream_bit = 0      # every block starts on a byte
 
     for d0 in range(0, nblocks, Bp):
         d1 = min(nblocks, d0 + Bp)
         B = d1 - d0
         stats.dispatches += 1
-        blk_bytes, n_valid, ctx_np = general_rows(arr, d0, d1, N, Bp, dict_np)
+        # a dictionary's tail sits just below CTX in block 0's row only; the
+        # padding below it (every other row's whole prefix) is no match
+        # source
+        blk_bytes, n_valid = stage_rows(arr, d0, d1, N, Bp, CTX)
+        if CTX:
+            ctx_np = np.full(Bp, CTX, np.int32)
+            if d0 == 0:
+                blk_bytes[0, CTX - dict_np.size : CTX] = dict_np
+                ctx_np[0] = CTX - dict_np.size
         with trace("zlibes.upload"):
             dev_bytes = torch.from_numpy(blk_bytes).to(dev)
             dev_n = torch.from_numpy(n_valid).to(dev)
@@ -566,26 +423,22 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
             meta_np = torch.cat([payload_end, lane_bit0, sub_bit.reshape(-1),
                                  sub_out.reshape(-1),
                                  info.reshape(-1)]).cpu().numpy()
-        payload_end_np = meta_np[:Bp]
-        sub_end = Bp + L_ + 2 * L_ * nsub_lane
-        sub_bit_np = meta_np[Bp + L_ : Bp + L_ + L_ * nsub_lane].reshape(
-            L_, nsub_lane)
-        sub_out_np = meta_np[Bp + L_ + L_ * nsub_lane : sub_end].reshape(
-            L_, nsub_lane)
-        # per block: btype, end-of-block code and length, header bits, then
-        # the header's bytes
-        info_np = meta_np[sub_end:].reshape(Bp, INFO)
-        btype_np, eob_code_np, eob_len_np, hdr_bits_np = info_np[:, :4].T
+        # the real blocks' payload ends, sub-anchors (bits, then output
+        # offsets) and info: btype, end-of-block code and length, header
+        # bits, then the header's bytes
+        pe_np, _lb, sub_bit_np, sub_out_np, info_np = (
+            x.reshape(Bp, -1)[:B] for x in np.split(
+                meta_np, np.cumsum([Bp, L_, nsub, nsub])))
+        btype, eob_code, eob_len, hdr_bits = info_np[:, :4].T
+        pe_np = pe_np[:, 0]
+        coded = btype != C.BTYPE_STORED
 
         # one indexed read of the words the coded blocks used
-        used_words = np.where(btype_np[:B] != C.BTYPE_STORED,
-                              (payload_end_np[:B] + eob_len_np[:B] + 31)
-                              // 32 + 1, 0)
+        used_words = np.where(coded, (pe_np + eob_len + 31) // 32 + 1, 0)
         offs = np.concatenate([[0], np.cumsum(used_words)]).astype(np.int64)
         if offs[-1]:
-            flat_idx = np.concatenate(
-                [np.arange(used_words[i], dtype=np.int64) + i * W
-                 for i in range(B)])
+            flat_idx = np.arange(offs[-1]) + np.repeat(
+                np.arange(B, dtype=np.int64) * W - offs[:-1], used_words)
             with trace("zlibes.readback", stats.stage_s):
                 dense = gather_compressed(
                     words.reshape(-1),
@@ -593,81 +446,32 @@ def _deflate_general(arr: np.ndarray, N: int, cfg: CodecConfig,
         else:
             dense = np.zeros(0, np.int32)
 
-        # --- host: splice the blocks
+        # --- host: frame the blocks, and one anchor every 128 output bytes
+        # of each coded block (the wide decode's lanes)
         with trace("zlibes.splice", stats.stage_s):
-            for i in range(B):
-                bi = d0 + i
-                bfinal = bi == nblocks - 1
-                btype = int(btype_np[i])
-                nb = int(n_valid[i])
-                out_start = bi * N
-                if btype == C.BTYPE_STORED:
-                    for part, binfo in _stored_blocks(
-                            arr[out_start : out_start + nb], int(bfinal),
-                            stream_bit, out_start):
-                        out_parts.append(part)
-                        blocks.append(binfo)
-                        stream_bit = binfo.end_bit
-                    continue
-                buf = dense[int(offs[i]) : int(offs[i + 1])].view(
-                    np.uint8).copy()
-                end_bits = int(payload_end_np[i])
-                hdr_bits = int(hdr_bits_np[i])
-                eob_len = int(eob_len_np[i])
-                # the device left the header's bits [0, hdr_bits) free
-                nhb = (hdr_bits + 7) // 8
-                buf[:nhb] |= info_np[i, 4:].view(np.uint8)[:nhb]
-                _or_bits(buf, end_bits, int(eob_code_np[i]), eob_len)
-                end_bits += eob_len
-                start_bit = stream_bit
-                blocks.append(BlockInfo(
-                    btype, bfinal, start_bit, start_bit + hdr_bits,
-                    start_bit + end_bits, out_start, nb))
-                # one anchor every 128 output bytes of the block (the wide
-                # decode's lanes).  A boundary with no token starting at or
-                # after it in its own selection lane takes the next
-                # boundary's: the valid (bit, out) pairs do not decrease in
-                # boundary order, so that is a suffix minimum over the
-                # block's flattened arrays with the block's end appended;
-                # repeated anchors mark empty decode lanes.
-                na_b = -(-nb // WIDE_SUB)
-                lanes_i = slice(i * nseg, (i + 1) * nseg)
-                flat_bit = np.concatenate(
-                    [sub_bit_np[lanes_i].reshape(-1)[:na_b],
-                     [end_bits]]).astype(np.int64)
-                flat_out = np.concatenate(
-                    [(np.arange(nseg, dtype=np.int64)[:, None] * SEG_SIZE
-                      + sub_out_np[lanes_i]).reshape(-1)[:na_b],
-                     [nb]])
-                fb = np.minimum.accumulate(flat_bit[::-1])[::-1][:-1]
-                fo = np.minimum.accumulate(flat_out[::-1])[::-1][:-1]
-                anchor_bit.extend(start_bit + fb)
-                anchor_out.extend(out_start + fo)
-                anchor_block.extend([len(blocks) - 1] * na_b)
-                if bfinal:
-                    nbytes = (end_bits + 7) // 8
-                    out_parts.append(buf[:nbytes].tobytes())
-                    stream_bit += nbytes * 8
-                else:
-                    # an empty stored block: the next block starts on a byte
-                    sync_start = end_bits
-                    nbytes = (end_bits + 3 + 7) // 8
-                    part = buf[:nbytes].tobytes() + b"\x00\x00\xff\xff"
-                    out_parts.append(part)
-                    blocks.append(BlockInfo(
-                        C.BTYPE_STORED, False, start_bit + sync_start,
-                        start_bit + nbytes * 8,
-                        stream_bit + len(part) * 8, out_start + nb, 0))
-                    stream_bit += len(part) * 8
+            out_start = np.arange(d0, d1, dtype=np.int64) * N
+            nb = n_valid[:B]
+            body, table, start, row = frame_blocks(
+                dense, offs[:-1], pe_np,
+                np.ascontiguousarray(info_np[:, 4:]).view(np.uint8),
+                hdr_bits, eob_code, eob_len, btype, nb, out_start,
+                out_start == (nblocks - 1) * N, raw=arr)
+            c = coded
+            a_bit, a_out, a_blk = sub_anchors(
+                start[c], row[c], (pe_np + eob_len)[c], nb[c], out_start[c],
+                sub_bit_np[c], sub_out_np[c], SEG_SIZE, WIDE_SUB)
+            anchors.append((a_bit + stream_bit, a_out, a_blk + len(blocks)))
+            blocks += block_infos(table, stream_bit)
+            out_parts.append(body)
+            stream_bit += 8 * len(body)
 
     body = b"".join(out_parts)
     stats.bytes_out += len(body)
     stats.blocks += len(blocks)
+    anchor_bit, anchor_out, anchor_block = (np.concatenate(a)
+                                            for a in zip(*anchors))
     index = StreamIndex(
-        blocks,
-        np.asarray(anchor_bit, np.int64),
-        np.asarray(anchor_out, np.int64),
-        np.asarray(anchor_block, np.int32),
+        blocks, anchor_bit, anchor_out, anchor_block.astype(np.int32),
         chunk_reset=cfg.chunk_reset,
         # a dictionary stream's first block copies from the dictionary,
         # which the wide resolve kernel does not hold: it keeps the host
@@ -700,21 +504,19 @@ def deflate_raw(data: bytes, block_size: int = C.BLOCK_MAX_BUFFER_LEN,
     arr = np.frombuffer(bytes(data), dtype=np.uint8)
     n = arr.size
     stats.bytes_in += n
-    if n == 0:
-        body = b"\x01\x00\x00\xff\xff"
-        blocks = [BlockInfo(C.BTYPE_STORED, True, 0, 8, 40, 0, 0)]
-        # counted, so that stats.ratio describes the member a user stores
-        # (the reference leaves this block out of bytes_out and blocks)
-        stats.bytes_out += len(body)
-        stats.blocks += 1
-        stats.adler = 1     # the Adler-32 of no bytes
-        return body, StreamIndex(blocks, np.zeros(0, np.int64),
-                                 np.zeros(0, np.int64), np.zeros(0, np.int32))
     N = block_size
-    if N % cfg.seg_size:
+    if n == 0:
+        stats.adler = 1     # the Adler-32 of no bytes
+    elif N % cfg.seg_size:
         raise ValueError("block_size must be a multiple of config.seg_size")
-    if cfg.force_stored:
-        return _stored_stream(arr, stats)
+    if n == 0 or cfg.force_stored:
+        # stored blocks only, no device work; the empty input's one empty
+        # block is counted, so that stats.ratio describes the member a user
+        # stores (the reference leaves it out of bytes_out and blocks)
+        body, index = stored_stream(arr)
+        stats.bytes_out += len(body)
+        stats.blocks += len(index.blocks)
+        return body, index
     if cfg.shared_tables and not dictionary:
         if N % _ADLER_CHUNK:
             raise ValueError(
@@ -760,12 +562,7 @@ def deflate(data: bytes, block_size: int | None = None,
             adler = adler32_device(arr)
             with trace("zlibes.readback"):
                 trailer = int(adler).to_bytes(4, "big")
-    if dictionary is not None:
-        flg = 0x20 + (2 << 6)
-        flg += (31 - (0x78 * 256 + flg) % 31) % 31
-        header = bytes([0x78, flg]) + adler32(dictionary).to_bytes(4, "big")
-    else:
-        header = C.ZLIB_HEADER
+    header = zlib_header(dictionary)
     # the container's framing counts toward the emitted bytes
     stats.bytes_out += len(header) + len(trailer)
     out = header + body + trailer

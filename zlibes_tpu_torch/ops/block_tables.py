@@ -127,14 +127,14 @@ def _dynamic_header(ll_len: np.ndarray, d_len: np.ndarray,
     return bytes(bw.out) + (bytes([bw.bitbuf]) if bw.bitcnt else b""), nbits
 
 
-def _payload_bits(ll_freq, d_freq, ll_len, d_len) -> int:
-    """Exact coded payload size (tokens only, EOB excluded)."""
-    bits = int((ll_freq * ll_len).sum()) + int((d_freq * d_len).sum())
-    lf = ll_freq[257:286]
-    bits += int((lf * C.LENGTH_EXTRA_BITS[: lf.size]).sum())
-    df = d_freq[:30]
-    bits += int((df * C.DIST_EXTRA_BITS[: df.size]).sum())
-    return bits
+def _payload_bits(ll_freq, d_freq, ll_len, d_len):
+    """Exact coded payload size (tokens only, EOB excluded) of the
+    histograms along the last axis."""
+    lf = ll_freq[..., 257:286]
+    df = d_freq[..., :30]
+    return ((ll_freq * ll_len).sum(-1) + (d_freq * d_len).sum(-1)
+            + (lf * C.LENGTH_EXTRA_BITS[: lf.shape[-1]]).sum(-1)
+            + (df * C.DIST_EXTRA_BITS[: df.shape[-1]]).sum(-1))
 
 
 class _BlockPlan:

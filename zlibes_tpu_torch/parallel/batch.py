@@ -17,16 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..codec.deflate_pipeline import _encode_tables, _or_bits, adler_terms
+from ..codec.deflate_pipeline import adler_terms
+from ..codec.framing import frame_blocks, stage_rows, zlib_header
 from ..config import span, trace
 from ..ops.adler32 import adler_partials, adler_value
+from ..ops.block_tables import _FIXED_D_LEN, _FIXED_LL_LEN, _encode_tables
 from ..ops.deflate_kernel import pack_payload, token_symbols
 from ..ops.lz77 import find_matches, select_tokens
 from ..spec import constants as C
-from ..spec.refmodel import adler32 as adler32_host
 from .block_parallel import (
-    _FIXED_D_LEN,
-    _FIXED_LL_LEN,
     LAST_TIMINGS,
     Mesh,
     _all_gather,
@@ -115,48 +114,30 @@ def compress_batch(payloads: list[bytes], dictionary: bytes,
     for r0 in range(lo, hi, ROWS_PER_DISPATCH):
         r1 = min(hi, r0 + ROWS_PER_DISPATCH)
         with trace("zlibes.host_stage", LAST_TIMINGS):
-            rows = np.zeros((r1 - r0, P_CAP + 8), np.uint8)
-            n_valid = np.zeros(r1 - r0, np.int32)
-            for k, p in enumerate(payloads[r0:r1]):
-                rows[k, : len(p)] = np.frombuffer(bytes(p), np.uint8)
-                n_valid[k] = len(p)
+            rows, n_valid = stage_rows(payloads.__getitem__, r0, r1, P_CAP)
         with _dispatch():
             words, pe, adler = _batch_step(
                 dict_row, _DICT - dt.size, torch.from_numpy(rows).to(dev),
                 torch.from_numpy(n_valid).to(dev), P_CAP, seg_size, W)
             w = torch.where(words >= 1 << 31, words - (1 << 32), words)
-            handles.append(torch.cat([pe.long(), adler.long(),
-                                      w.reshape(-1)]))
+            handles.append((pe.long(), adler.long(), w.reshape(-1)))
     with trace("zlibes.readback", LAST_TIMINGS):
-        blob = (torch.cat(handles).cpu().numpy() if handles
-                else np.zeros(0, np.int64))
+        # the payload ends of every dispatch, their Adler-32s, their words
+        blob = (torch.cat([torch.cat(x) for x in zip(*handles)]).cpu().numpy()
+                if handles else np.zeros(0, np.int64))
 
     ll_code, _ = _encode_tables(_FIXED_LL_LEN, _FIXED_D_LEN)
-    eob_code = int(ll_code[C.END_OF_BLOCK])
-    eob_len = int(_FIXED_LL_LEN[C.END_OF_BLOCK])
-    dictid = adler32_host(dictionary).to_bytes(4, "big")
-    flg_base = 0x78 * 256 + 0x20 + (2 << 6)
-    flg = 0x20 + (2 << 6) + (31 - flg_base % 31) % 31
-    header = bytes([0x78, flg]) + dictid
-
-    own = []
+    header = zlib_header(dictionary)
     with trace("zlibes.host_splice", LAST_TIMINGS):
-        pos = 0
-        for r0 in range(lo, hi, ROWS_PER_DISPATCH):
-            B = min(hi, r0 + ROWS_PER_DISPATCH) - r0
-            pe = blob[pos : pos + B]
-            adler_np = blob[pos + B : pos + 2 * B]
-            words_np = blob[pos + 2 * B : pos + 2 * B + B * W].astype(
-                np.int32).reshape(B, W)
-            pos += 2 * B + B * W
-            for i in range(B):
-                end_bits = int(pe[i])
-                nbytes = (end_bits + eob_len + 7) // 8
-                buf = words_np[i].view(np.uint8)[: nbytes + 4].copy()
-                buf[0] |= 1 | (C.BTYPE_FIXED << 1)  # BFINAL=1, fixed block
-                _or_bits(buf, end_bits, eob_code, eob_len)
-                body = buf[: (end_bits + eob_len + 7) // 8].tobytes()
-                own.append(header + body + int(adler_np[i]).to_bytes(4, "big"))
+        # every member is a stream of one fixed-Huffman block
+        k = hi - lo
+        body, table, _start, _row = frame_blocks(
+            blob.astype(np.int32), 2 * k + np.arange(k) * W, blob[:k],
+            np.array([C.BTYPE_FIXED << 1], np.uint8), 3,
+            int(ll_code[C.END_OF_BLOCK]), int(_FIXED_LL_LEN[C.END_OF_BLOCK]),
+            C.BTYPE_FIXED, [len(p) for p in payloads[lo:hi]], 0, True)
+        own = [header + body[s // 8 : (e + 7) // 8] + int(a).to_bytes(4, "big")
+               for s, e, a in zip(table[:, 2], table[:, 4], blob[k : 2 * k])]
 
     # members to every rank: their lengths, then their bytes
     lens = np.zeros(per, np.int64)

@@ -43,21 +43,32 @@ import torch
 import torch.distributed as dist
 
 from ..codec.api import _device, _own_index
-from ..codec.deflate_pipeline import (
-    _FIXED_D_LEN,
-    _FIXED_LL_LEN,
-    _dynamic_header,
-    _encode_tables,
-    _or_bits,
-    adler_terms,
-    select_glue,
+from ..codec.deflate_pipeline import adler_terms, select_glue
+from ..codec.framing import (
+    TABLE_FIELDS,
+    block_infos,
+    frame_blocks,
+    lane_anchors,
+    stage_rows,
+    stored_stream,
 )
 from ..codec.inflate_pipeline import inflate_raw_indexed
 from ..config import CodecConfig, span, trace
 from ..ops import turbo_kernel as tk
 from ..ops import wide_kernel as wk
 from ..ops.adler32 import adler_partials, adler_value
-from ..ops.deflate_kernel import pack_payload, pack_payload_turbo, token_symbols
+from ..ops.block_tables import (
+    _FIXED_D_LEN,
+    _FIXED_LL_LEN,
+    _dynamic_header,
+    _encode_tables,
+)
+from ..ops.deflate_kernel import (
+    _BIGS,
+    pack_payload,
+    pack_payload_turbo,
+    token_symbols,
+)
 from ..ops.encode_kernel import pack_tables
 from ..ops.entropy import limited_lengths_pair
 from ..ops.lz77 import find_matches, select_tokens
@@ -79,8 +90,6 @@ DISPATCH_BLOCKS = 16
 # the reference's matcher defaults (S_WORDS, J_CANDS of zlibes_tpu/ops/lz77.py)
 _S = 16
 _J = 16
-_BIGS = 1 << 30          # "no split token" sentinel of the turbo pack
-_INFO = 7                # int64 fields of a BlockInfo in the gathered index
 
 
 def _dispatch():
@@ -239,18 +248,6 @@ def _fixed_tables(Bd: int):
                  for x in (ll_code, _FIXED_LL_LEN, d_code, _FIXED_D_LEN))
 
 
-def _stage_rows(block_provider, lo: int, hi: int, N: int, n: int):
-    """Blocks [lo, hi) of an n-byte input, from ``block_provider``, as
-    (hi - lo, N + 8) uint8 rows and their byte counts (hi - lo,) int32."""
-    rows = np.zeros((hi - lo, N + 8), np.uint8)
-    n_valid = np.clip(n - np.arange(lo, hi, dtype=np.int64) * N, 0, N
-                      ).astype(np.int32)
-    for k, i in enumerate(range(lo, hi)):
-        chunk = np.frombuffer(bytes(block_provider(i)), np.uint8)
-        rows[k, : chunk.size] = chunk
-    return rows, n_valid
-
-
 def _tokens(dev_bytes, dev_nv, N: int, seg_size: int, reset: int,
             turbo: bool):
     """Match and select one dispatch's blocks -> (tv, td, cnt), in the
@@ -297,11 +294,12 @@ def _pack(tv, td, cnt, tables, hdr_bits, nseg: int, W: int, R: int):
         return words, pe, lb, big, big
 
 
-def _pack_handle(words, pe, lb, sb, so) -> torch.Tensor:
-    """One dispatch's pack outputs as one int32 tensor for the readback."""
+def _pack_handle(words, pe, lb, sb, so) -> tuple:
+    """One dispatch's pack outputs as int32 tensors for the readback:
+    payload ends, each lane's first bit, split bit and split output offset,
+    and the blocks' words."""
     w = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return torch.cat([pe.long(), lb.long(), sb.long(), so.long(),
-                      w.reshape(-1)]).int()
+    return tuple(x.reshape(-1).int() for x in (pe, lb, sb, so, w))
 
 
 def sharded_deflate_step(rows: torch.Tensor, n_valid: torch.Tensor, d0: int,
@@ -354,96 +352,6 @@ def sharded_pack_step(tv, td, cnt, tables, hdr_bits: torch.Tensor,
     return _pack(tv, td, cnt, tables, hdr_bits, nseg, W, R)
 
 
-def _splice(meta_words: np.ndarray, lo: int, hi: int, nblocks: int, N: int,
-            W: int, nseg: int, seg_size: int, n_valid: np.ndarray,
-            dynamic: bool, headers: dict, eob_code: int, eob_len: int,
-            anchors: bool, split: bool):
-    """This rank's blocks [lo, hi) as bytes and their part of the index,
-    relative to the rank's first byte: (body, binfo (k, 7) int64,
-    anchor_bit, anchor_out, anchor_block (m,) int64; no anchors without
-    ``anchors``, the split anchors of turbo pairs with ``split``)."""
-    parts = []
-    binfos = []
-    anchor_bit: list[int] = []
-    anchor_out: list[int] = []
-    anchor_block: list[int] = []
-    stream_bit = 0
-    pos = 0
-    for d0 in range(lo, hi, DISPATCH_BLOCKS):
-        B = min(hi, d0 + DISPATCH_BLOCKS) - d0
-        L = B * nseg
-        m = meta_words[pos : pos + B + 3 * L + B * W]
-        pos += B + 3 * L + B * W
-        pe = m[:B].astype(np.int64)
-        lane_bit0 = m[B : B + L].astype(np.int64)
-        split_bit = m[B + L : B + 2 * L].astype(np.int64)
-        split_out = m[B + 2 * L : B + 3 * L].astype(np.int64)
-        words = m[B + 3 * L :].reshape(B, W)
-        for k in range(B):
-            i = d0 + k
-            bfinal = 1 if i == nblocks - 1 else 0
-            end_bits = int(pe[k])
-            nbytes = (end_bits + eob_len + 3 + 7) // 8
-            buf = words[k].view(np.uint8)[: nbytes + 4].copy()
-            if dynamic:
-                hdr, hb = headers[bfinal]
-                hb_arr = np.frombuffer(hdr, dtype=np.uint8)
-                buf[: hb_arr.size] |= hb_arr
-                btype = C.BTYPE_DYNAMIC
-            else:
-                buf[0] |= bfinal | (C.BTYPE_FIXED << 1)
-                hb = 3
-                btype = C.BTYPE_FIXED
-            _or_bits(buf, end_bits, eob_code, eob_len)
-            end_bits += eob_len
-            start_bit = stream_bit
-            nb = int(n_valid[i - lo])
-            binfos.append((btype, bfinal, start_bit, start_bit + hb,
-                           start_bit + end_bits, i * N, nb))
-            for s in range(-(-nb // seg_size) if anchors else 0):
-                lane = k * nseg + s
-                lb = int(lane_bit0[lane])
-                anchor_bit.append(start_bit + lb)
-                anchor_out.append(i * N + s * seg_size)
-                anchor_block.append(len(binfos) - 1)
-                if not split:
-                    continue
-                lane_end = (int(lane_bit0[lane + 1]) if s + 1 < nseg
-                            else int(pe[k]))
-                sb, so = int(split_bit[lane]), int(split_out[lane])
-                if sb >= _BIGS:
-                    sb, so = lane_end - lb, min(nb - s * seg_size, seg_size)
-                anchor_bit.append(start_bit + lb + sb)
-                anchor_out.append(i * N + s * seg_size + so)
-                anchor_block.append(len(binfos) - 1)
-            if bfinal:
-                nby = (end_bits + 7) // 8
-                parts.append(buf[:nby].tobytes())
-                stream_bit += nby * 8
-            else:
-                sync_start = end_bits
-                nby = (end_bits + 3 + 7) // 8
-                part = buf[:nby].tobytes() + b"\x00\x00\xff\xff"
-                parts.append(part)
-                binfos.append((C.BTYPE_STORED, 0, start_bit + sync_start,
-                               start_bit + nby * 8,
-                               stream_bit + len(part) * 8, i * N + nb, 0))
-                stream_bit += len(part) * 8
-    return (b"".join(parts), np.asarray(binfos, np.int64).reshape(-1, _INFO),
-            np.asarray(anchor_bit, np.int64), np.asarray(anchor_out, np.int64),
-            np.asarray(anchor_block, np.int64))
-
-
-def _empty_stream(with_index: bool):
-    out = C.ZLIB_HEADER + b"\x01\x00\x00\xff\xff" + (1).to_bytes(4, "big")
-    if with_index:
-        blocks = [BlockInfo(C.BTYPE_STORED, True, 0, 8, 40, 0, 0)]
-        return out, StreamIndex(blocks, np.zeros(0, np.int64),
-                                np.zeros(0, np.int64),
-                                np.zeros(0, np.int32)).shifted(16)
-    return out
-
-
 @span("zlibes.parallel_deflate")
 def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
                      seg_size: int = 1024, dynamic: bool = True,
@@ -476,25 +384,22 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
                          f"{seg_size} and of 2048 above 2048")
     reset = 4096 if turbo else 0
     if data is not None:
-        arr = np.frombuffer(bytes(data), dtype=np.uint8)
-        n = arr.size
-
-        def block_provider(i, _arr=arr, _N=N):  # noqa: A001 — default feed
-            return _arr[i * _N : (i + 1) * _N]
+        src = np.frombuffer(bytes(data), dtype=np.uint8)
+        n = src.size
     else:
         if n_bytes is None or block_provider is None:
             raise ValueError("data=None requires n_bytes and block_provider")
-        n = n_bytes
+        src, n = block_provider, n_bytes
     if n == 0:
-        return _empty_stream(with_index)
+        body, index = stored_stream(np.zeros(0, np.uint8))
+        out = C.ZLIB_HEADER + body + (1).to_bytes(4, "big")
+        return (out, index.shifted(16)) if with_index else out
     dev = mesh.device
     nblocks = -(-n // N)
     lo, hi, _Bd = _span(nblocks, mesh)
     W = (15 * N + 4096) // 32
     nseg = N // seg_size
     R = CodecConfig.turbo().pack_row_width(seg_size) if turbo else 0
-    hb0 = hb1 = 3
-    headers = {}
 
     # phase 1 (dynamic) or the whole encode (fixed), a dispatch at a time
     kept = []
@@ -502,12 +407,10 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
     acc = torch.zeros(C.NUM_LITLEN_SYMBOLS + C.NUM_DIST_SYMBOLS + 2,
                       dtype=torch.long, device=dev)
     max_cnt = torch.zeros((), dtype=torch.int32, device=dev)
-    n_valid_all = np.zeros(0, np.int32)
     for d0 in range(lo, hi, DISPATCH_BLOCKS):
         d1 = min(hi, d0 + DISPATCH_BLOCKS)
         with trace("zlibes.host_stage", LAST_TIMINGS):
-            rows_np, nv_np = _stage_rows(block_provider, d0, d1, N, n)
-            n_valid_all = np.concatenate([n_valid_all, nv_np])
+            rows_np, nv_np = stage_rows(src, d0, d1, N)
         with _dispatch():
             rows = torch.from_numpy(rows_np).to(dev)
             nv = torch.from_numpy(nv_np).to(dev)
@@ -538,9 +441,10 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
         d_len = host[nh:-2]
         s1, s2 = (int(x) for x in host[-2:])
         with trace("zlibes.entropy"):
-            hdr0, hb0 = _dynamic_header(ll_len, d_len, 0)
-            hdr1, hb1 = _dynamic_header(ll_len, d_len, 1)
-            headers = {0: (hdr0, hb0), 1: (hdr1, hb1)}
+            # the last block's header differs only in BFINAL, which the
+            # framing sets
+            hdr, hb = _dynamic_header(ll_len, d_len, 0)
+            hdr = np.frombuffer(hdr, np.uint8)
             ll_code, d_code = _encode_tables(ll_len, d_len)
             host_tables = (pack_tables(ll_code, ll_len, d_code, d_len)
                            if turbo else
@@ -549,12 +453,10 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
         with trace("zlibes.upload"):
             tables = tuple(t.to(dev) for t in host_tables)
         for d0, d1, tv, td, cnt in kept:
-            hdr_bits = np.full(d1 - d0, hb0, np.int64)
-            if d1 == nblocks:
-                hdr_bits[-1] = hb1
             with _dispatch():
                 handles.append(_pack_handle(*sharded_pack_step(
-                    tv, td, cnt, tables, torch.from_numpy(hdr_bits).to(dev),
+                    tv, td, cnt, tables,
+                    torch.full((d1 - d0,), hb, dtype=torch.long, device=dev),
                     N, seg_size, W, R)))
         kept.clear()
     else:
@@ -563,22 +465,38 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
             s1, s2 = (int(x) for x in adler.cpu())
         ll_code, _ = _encode_tables(_FIXED_LL_LEN, _FIXED_D_LEN)
         ll_len = _FIXED_LL_LEN
+        hdr, hb = np.array([C.BTYPE_FIXED << 1], np.uint8), 3
     with trace("zlibes.readback", LAST_TIMINGS):
-        blob = (torch.cat(handles).cpu().numpy() if handles
-                else np.zeros(0, np.int32))
+        # each output of every dispatch, then the next output
+        blob = (torch.cat([torch.cat(x) for x in zip(*handles)]).cpu().numpy()
+                if handles else np.zeros(0, np.int32))
         max_tokens = int(max_cnt) if dynamic and with_index else 0
 
+    # this rank's blocks as bytes and their part of the index, relative to
+    # the rank's first byte
     with trace("zlibes.host_splice", LAST_TIMINGS):
-        body, binfo, a_bit, a_out, a_blk = _splice(
-            blob, lo, hi, nblocks, N, W, nseg, seg_size, n_valid_all,
-            dynamic, headers, int(ll_code[C.END_OF_BLOCK]),
-            int(ll_len[C.END_OF_BLOCK]), with_index, turbo)
+        k = hi - lo
+        m = k * (1 + 3 * nseg)
+        pe = blob[:k].astype(np.int64)
+        out_start = np.arange(lo, hi, dtype=np.int64) * N
+        nb = np.clip(n - out_start, 0, N)
+        body, binfo, start, row = frame_blocks(
+            blob, m + np.arange(k, dtype=np.int64) * W, pe, hdr, hb,
+            int(ll_code[C.END_OF_BLOCK]), int(ll_len[C.END_OF_BLOCK]),
+            C.BTYPE_DYNAMIC if dynamic else C.BTYPE_FIXED, nb, out_start,
+            out_start == (nblocks - 1) * N)
+        anchors = (np.zeros(0, np.int64),) * 3
+        if with_index:
+            lane_bit0, split_bit, split_out = blob[k:m].reshape(3, k, nseg)
+            anchors = lane_anchors(
+                start, row, nb, out_start, lane_bit0, seg_size,
+                split=(split_bit, split_out, pe) if turbo else None)
         own = np.frombuffer(body, np.uint8)
-        idx = (np.concatenate([binfo.reshape(-1), a_bit, a_out, a_blk])
+        idx = (np.concatenate([binfo.reshape(-1), *anchors])
                if with_index else np.zeros(0, np.int64))
         payload = np.concatenate([own, idx.view(np.uint8)])
-        sizes = np.array([own.size, binfo.shape[0], a_bit.size, max_tokens,
-                          payload.size], np.int64)
+        sizes = np.array([own.size, binfo.shape[0], anchors[0].size,
+                          max_tokens, payload.size], np.int64)
 
     # the gathers: sizes, then the bytes and index arrays of every rank
     # (the reads of what they gathered wait for the slowest rank)
@@ -603,30 +521,19 @@ def parallel_deflate(data: bytes | None, mesh: Mesh, block_size: int = 32768,
 def _gathered_index(parts, all_sizes, reset: int, turbo: bool):
     """The whole stream's StreamIndex from every rank's part, each shifted
     by the bits of the ranks before it and the 16-bit zlib header."""
-    blocks: list[BlockInfo] = []
-    bits: list[np.ndarray] = []
-    outs: list[np.ndarray] = []
-    blks: list[np.ndarray] = []
+    blocks, anchors = [], []
     base_bit = 0
     for p, s in zip(parts, all_sizes):
         nbytes, nb, na = int(s[0]), int(s[1]), int(s[2])
         x = np.frombuffer(p[nbytes:].tobytes(), np.int64)
-        info = x[: nb * _INFO].reshape(nb, _INFO)
-        for r in info:
-            blocks.append(BlockInfo(int(r[0]), bool(r[1]),
-                                    int(r[2]) + base_bit,
-                                    int(r[3]) + base_bit,
-                                    int(r[4]) + base_bit, int(r[5]),
-                                    int(r[6])))
-        a = x[nb * _INFO :].reshape(3, na)
-        bits.append(a[0] + base_bit)
-        outs.append(a[1])
-        blks.append(a[2] + (len(blocks) - nb))
+        # (bit, out, block) rows, moved by the ranks before this one
+        anchors.append(x[nb * TABLE_FIELDS :].reshape(3, na)
+                       + np.array([[base_bit], [0], [len(blocks)]]))
+        blocks += block_infos(x[: nb * TABLE_FIELDS], base_bit)
         base_bit += 8 * nbytes
+    bits, outs, blks = np.concatenate(anchors, 1)
     return StreamIndex(
-        blocks, np.concatenate(bits).astype(np.int64),
-        np.concatenate(outs).astype(np.int64),
-        np.concatenate(blks).astype(np.int32), chunk_reset=reset,
+        blocks, bits, outs, blks.astype(np.int32), chunk_reset=reset,
         turbo=turbo, max_tokens=max(int(s[3]) for s in all_sizes),
     ).shifted(16)
 
