@@ -594,6 +594,71 @@ def wide_other_inputs(plan, win: torch.Tensor, record: dict,
     assert int(meta[3].sum()) > 0, "T=16 cut no lane"
 
 
+def wide_lanes_phase(comp: bytes, index, card: str, records: dict) -> None:
+    """``wide_lanes`` on the level-6 fixture and on the fixture tiled nine
+    times (an nci-sized stream: 270 coded blocks, 270,225 anchors), each
+    exact against its plain version on the CPU, with its device time
+    (torch.profiler), CUDA event time, the plain version's time and the
+    bound; then ``WidePlan.build`` of the tiled stream on the card, host
+    clock.  The tiled record is the kernel's row; the fixture's rides in
+    it."""
+    from test_torch_wide_lanes import tile
+    from zlibes_tpu_torch.codec import wide as wd
+    from zlibes_tpu_torch.ops import wide_kernel as wk
+    from zlibes_tpu_torch.spec import constants as C
+
+    results = {}
+    for what, (c, idx) in (("the fixture", (comp, index)),
+                           ("tiled x9", tile(comp, index, 9))):
+        ids = [i for i, b in enumerate(idx.blocks)
+               if b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC) and b.out_len]
+        host = [torch.from_numpy(x) for x in wd.anchor_rows(idx, ids)]
+        dev = [t.cuda() for t in host]
+        LPB = 1024
+
+        def launch():
+            return wk.wide_lanes(*dev, LPB)
+
+        got = launch()
+        torch.cuda.synchronize()
+        want = wk.wide_lanes_plain(*host, LPB)
+        for g, w, name in zip(got, want, ("start_w", "bit0", "endb", "base",
+                                          "status")):
+            assert torch.equal(g.cpu(), w), f"wide_lanes {what}: {name}"
+        assert not int(want[-1][0]), f"wide_lanes {what}: a lane flagged"
+        dev_ms, n_rec = kernel_event_ms(launch, "wide_lanes")
+        r = dict(
+            replaces="none: the JAX package builds the lanes on the host, a "
+                     "loop over the coded blocks (zlibes_tpu/codec/wide.py)",
+            max_abs_err=max(max_abs_err(g.cpu(), w)
+                            for g, w in zip(got, want)),
+            ms=cuda_ms(launch), device_ms=dev_ms,
+            plain_ms=wall_s(lambda: wk.wide_lanes_plain(*host, LPB),
+                            runs=3) * 1e3, plain_runs=3,
+            shape=[len(ids), LPB],
+            note="no Pallas counterpart; plain_ms is the plain version on "
+                 "the host's CPU (median of 3), not a device time",
+            # read: the anchors and the rows; written: four int32 a lane
+            # and the status; ~20 operations a lane
+            **bound(nbytes(*dev, *got), 20 * got[0].numel()))
+        print(f"kernel wide_lanes, {what} ({len(ids)} blocks, "
+              f"{host[0].numel()} anchors, {got[0].numel()} lanes): exact vs "
+              f"plain; device {dev_ms:.4f} ms a launch (torch.profiler, "
+              f"{n_rec} records), events {r['ms']:.4f} ms (median of 20), "
+              f"bound {r['bound_ms']:.5f} ms ({r['bytes']} B), plain "
+              f"{r['plain_ms']:.2f} ms (CPU, median of 3) {card}")
+        results[what] = r
+        plan_ms = wall_s(lambda: wd.WidePlan.build(c, idx, "cuda")) * 1e3
+        out_mib = idx.total_out / 2**20
+        r["plan_ms"] = plan_ms
+        print(f"WidePlan.build, {what} ({out_mib:.1f} MiB out): "
+              f"{plan_ms:.2f} ms ({plan_ms / out_mib:.4f} ms/MiB; stream "
+              f"words, uploads, decode_tables, wide_lanes, one readback), "
+              f"median of 5 (host clock) {card}")
+    records["wide_lanes"] = dict(results["tiled x9"],
+                                 **{"the fixture": results["the fixture"]})
+
+
 def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     """The wide (default-profile) path on the level-6 fixture: kernels
     against their plain versions, the public entry points, times and a
@@ -619,6 +684,7 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
           f"{index.anchor_bit.size} anchors, L={L} lanes "
           f"(LPB={plan.LPB}), SW={plan.SW} words, T={plan.T}, "
           f"contiguous={plan.contiguous}")
+    wide_lanes_phase(comp, index, card, records)
 
     # -- each kernel against its plain version, at the fixture's shapes
     win = tk.lane_windows(plan.words, plan.start_w, width=plan.SW)
@@ -704,8 +770,8 @@ def wide_phase(corpus: bytes, card: str, records: dict) -> tuple[dict, dict]:
     assert out == corpus, "wide inflate(device='cuda') output != corpus"
     print(f"wide inflate(device='cuda'): {len(out)} B byte-exact, "
           f"Adler-32 verified on the device; launches {launches}")
-    assert launches == {"decode_tables": 1, "decode_wide": 1,
-                        "resolve_wide": 1}, launches
+    assert launches == {"decode_tables": 1, "wide_lanes": 1,
+                        "decode_wide": 1, "resolve_wide": 1}, launches
     for start, length in [(0, 100), (131070, 300), (400000, 80000)]:
         got = zlibes_tpu_torch.inflate_range(comp, index, start, length,
                                              device="cuda")
@@ -1260,8 +1326,9 @@ def general_phase(corpus: bytes, card: str,
     tk.LAUNCHES.clear()
     back = zlibes_tpu_torch.inflate(out, index=index, device="cuda")
     assert back == corpus, "inflate(deflate(corpus, level=6)) != corpus"
-    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_wide": 1,
-                                 "resolve_wide": 1}, dict(tk.LAUNCHES)
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "wide_lanes": 1,
+                                 "decode_wide": 1, "resolve_wide": 1}, \
+        dict(tk.LAUNCHES)
     host_ms = (stats.stage_s["tables"] + stats.stage_s["splice"]) * 1e3
     print(f"index equals the fixture's ({len(index.blocks)} blocks, "
           f"{index.anchor_bit.size} anchors); CPython zlib.decompress and "
@@ -2454,7 +2521,7 @@ def parallel_calls(corpus: bytes, streams: dict, mesh) -> list:
          lambda: P.parallel_inflate(turbo, t_index, mesh), back, turbo_in),
         ("parallel_inflate wide_bench",
          lambda: P.parallel_inflate(wide, w_index, mesh), back,
-         ("decode_wide", "resolve_wide")),
+         ("wide_lanes", "decode_wide", "resolve_wide")),
         ("parallel_inflate generic (32 KiB flushes)",
          lambda: P.parallel_inflate(flush, g_index, mesh), back,
          ("decode_tokens", "resolve_global")),
@@ -2915,7 +2982,7 @@ def main() -> None:
                     if m.split(".")[0] in ("jax", "jaxlib", "zlibes_tpu"))
     assert not loaded, f"the port pulled in {loaded}"
 
-    wide = ("decode_wide", "resolve_wide")
+    wide = ("wide_lanes", "decode_wide", "resolve_wide")
     encode = ("select_turbo", "select_tokens", "encode_fields",
               "block_tables")
     generic = ("decode_tokens", "resolve_global")
@@ -2948,7 +3015,8 @@ def main() -> None:
             "rounds_with_work", "the bench dispatch",
             "the incompressible dispatch", "note", "split_far off",
             "split_far on, seg 1024", "split_far off, seg 512",
-            "fields over 32 bits", "shared_device_ms", "wide plan")
+            "fields over 32 bits", "shared_device_ms", "wide plan",
+            "the fixture", "plan_ms")
             if k in r})
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -5,6 +5,7 @@ nothing of ``zlibes_tpu``, so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import collections
 import zlib
 from pathlib import Path
 
@@ -21,6 +22,7 @@ from zlibes_tpu_torch.ops import turbo_kernel as tk
 from zlibes_tpu_torch.ops import wide_kernel as wk
 from zlibes_tpu_torch.spec import constants as C
 import block_tables_cases as bt_cases
+import test_torch_wide_lanes as wl
 from test_torch_contract_cases import (SELECT_CHAIN_CASES,
                                        check_decode_tokens, zlib_flushed)
 from test_torch_fixed_streams import expand, fixed_lane, fixed_stream
@@ -476,14 +478,14 @@ def test_wide_inflate_on_card_counts_launches(wide_stream, monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("a plain version ran on the card")
 
-    for mod, name in ((tk, "lane_windows_plain"), (wk, "decode_wide_plain"),
-                      (wk, "resolve_wide_plain")):
+    for mod, name in ((tk, "lane_windows_plain"), (wk, "wide_lanes_plain"),
+                      (wk, "decode_wide_plain"), (wk, "resolve_wide_plain")):
         monkeypatch.setattr(mod, name, plain)
     tk.LAUNCHES.clear()
     out = zlibes_tpu_torch.inflate(comp, index=index, device="cuda")
     assert out == data
-    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_wide": 1,
-                                 "resolve_wide": 1}
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "wide_lanes": 1,
+                                 "decode_wide": 1, "resolve_wide": 1}
 
 
 def test_wide_inflate_range_and_to_device_on_card(wide_stream):
@@ -497,6 +499,137 @@ def test_wide_inflate_range_and_to_device_on_card(wide_stream):
                                                         device="cuda")
     assert out.is_cuda and (off, n) == (0, len(data))
     assert out[:n].cpu().numpy().tobytes() == data
+
+
+# ---------------------------------------------------------------------------
+# the wide plan's lane spans: wide_lanes
+
+def _wide_lanes_both(index, LPB: int = 1024):
+    """``wide_lanes`` on the card against its plain version on the CPU, for
+    the coded blocks of ``index``; returns the kernel's results."""
+    ids = [i for i, b in enumerate(index.blocks)
+           if b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC) and b.out_len]
+    host = [torch.from_numpy(x) for x in wd.anchor_rows(index, ids)]
+    got = wk.wide_lanes(*(t.cuda() for t in host), LPB)
+    torch.cuda.synchronize()
+    want = wk.wide_lanes_plain(*host, LPB)
+    for g, w, name in zip(got, want, ("start_w", "bit0", "endb", "base",
+                                      "status")):
+        assert g.dtype == w.dtype == torch.int32 and _same(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("case", ["fixture", "tiled_x9", "unsorted",
+                                  *wl.FAULTS])
+def test_wide_lanes_kernel_matches_plain(case):
+    """The fixture, the fixture tiled nine times (270 blocks, 270,225
+    anchors), its anchors out of block order, and each one-fault index."""
+    comp, index = wl.fixture()
+    if case == "tiled_x9":
+        comp, index = wl.tile(comp, index, 9)
+    elif case == "unsorted":
+        index = wl.unsorted(index)
+    elif case != "fixture":
+        index = wl.faulty(index, case)
+    status = _wide_lanes_both(index)[-1].cpu()
+    # a missing or extra anchor shifts the block's later anchors by a lane
+    # (the host raises on its count first), so only the others are pinned
+    if case not in ("missing_anchor", "extra_anchor"):
+        flagged = case in ("non_monotone_bit", "rel_below_zero",
+                           "rel_past_limit")
+        assert int(status[0]) == flagged
+
+
+@pytest.mark.parametrize("LPB", [128, 1024])
+def test_wide_lanes_kernel_matches_plain_on_random_anchors(LPB):
+    """Random anchors (negative, past 2**31 bits, out of order) under
+    random rows that keep first + count <= NA, some with more anchors than
+    lanes: every lane value, the flag and the clamped widest end."""
+    g = np.random.default_rng(LPB)
+    NA, Cb = 50000, 333
+    abit = g.integers(-(1 << 33), 1 << 40, NA, dtype=np.int64)
+    abit[: NA // 2].sort()
+    aout = g.integers(-1000, 1 << 20, NA, dtype=np.int64)
+    first = g.integers(0, NA, Cb)
+    count = np.minimum(g.integers(0, LPB + 50, Cb), NA - first)
+    count[::7] = 0
+    rows = np.stack([first, count, g.integers(0, 1 << 20, Cb),
+                     g.integers(-(1 << 33), 1 << 40, Cb)], 1).astype(np.int64)
+    host = [torch.from_numpy(x) for x in (abit, aout, rows)]
+    got = wk.wide_lanes(*(t.cuda() for t in host), LPB)
+    torch.cuda.synchronize()
+    want = wk.wide_lanes_plain(*host, LPB)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert _same(a, b), k
+    assert want[-1].tolist() == [1, (1 << 31) - 1]
+
+
+def test_wide_plan_reads_back_once_and_launches_wide_lanes_once(
+        wide_stream, monkeypatch):
+    """``inflate_to_device`` of the wide fixture: one ``wide_lanes`` launch,
+    one ``zlibes.readback`` in the plan (the headers' and lanes' statuses
+    together), no host sync once the plan is built (CUDA's sync debug mode
+    raises on one), no plain version, and every lane in
+    ``device_lanes``."""
+    from zlibes_tpu_torch.ops import decode_tables as dtab
+
+    comp, index, data = wide_stream
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((dtab, "decode_tables_plain"), (wk, "wide_lanes_plain"),
+                      (wk, "decode_wide_plain"), (wk, "resolve_wide_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    spans = collections.Counter()
+    real_trace, real_build = wd.trace, wd.WidePlan.build
+    plans = []
+
+    def counted(name, into=None):
+        spans[name] += 1
+        return real_trace(name, into)
+
+    def planned_then_no_sync(*args, **kwargs):
+        plans.append(real_build(*args, **kwargs))
+        assert spans["zlibes.readback"] == 1, dict(spans)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        return plans[-1]
+
+    monkeypatch.setattr(wd, "trace", counted)
+    monkeypatch.setattr(wd.WidePlan, "build",
+                        staticmethod(planned_then_no_sync))
+    stats = zlibes_tpu_torch.CodecStats()
+    tk.LAUNCHES.clear()
+    try:
+        (out, off, n), = zlibes_tpu_torch.inflate_to_device(
+            comp, index, device="cuda", stats=stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.cpu().numpy().tobytes() == data and (off, n) == (0, len(data))
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "wide_lanes": 1,
+                                 "decode_wide": 1, "resolve_wide": 1}
+    assert spans["zlibes.readback"] == 1
+    p, = plans
+    assert stats.device_lanes == p.Cb * p.LPB == 30 * 1024
+    assert stats.device_headers == p.Cb
+
+
+def test_wide_check_meta_compares_on_the_card(wide_plan):
+    """``check_meta`` holds the decode's end bits to the lanes' on the
+    card: a lane one bit off raises, the decode's own meta passes."""
+    p = wide_plan
+    _, _, meta = wk.decode_wide((p.words, p.start_w), p.bit0, p.endb, p.base,
+                                p.lt, p.dt, LPB=p.LPB, SW=p.SW)
+    p.check_meta(meta)
+    bad = meta.clone()
+    bad[1, 1000] += 1
+    with pytest.raises(zlibes_tpu_torch.CorruptError, match="did not end"):
+        p.check_meta(bad)
+    bad = meta.clone()
+    bad[2, 7] = 1
+    with pytest.raises(zlibes_tpu_torch.CorruptError, match="invalid Huffman"):
+        p.check_meta(bad)
 
 
 def test_turbo_inflate_to_device_on_card(fixture_stream):
@@ -1027,8 +1160,8 @@ def test_general_deflate_on_card_equals_cpu(monkeypatch):
     assert zlib.decompress(out) == raw
     tk.LAUNCHES.clear()
     assert zlibes_tpu_torch.inflate(out, index=idx, device="cuda") == raw
-    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_wide": 1,
-                                 "resolve_wide": 1}
+    assert dict(tk.LAUNCHES) == {"decode_tables": 1, "wide_lanes": 1,
+                                 "decode_wide": 1, "resolve_wide": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -1495,9 +1628,10 @@ def test_parallel_inflate_on_card_equals_cpu():
     tk.LAUNCHES.clear()
     assert P.parallel_inflate(wide, w_index, cuda) == data
     assert P.parallel_inflate(gen, g_index, cuda) == data[:40000]
-    assert {k: tk.LAUNCHES[k] for k in ("decode_wide", "resolve_wide",
-                                        "decode_tokens", "resolve_global")} \
-        == dict(decode_wide=1, resolve_wide=1, decode_tokens=1,
+    assert {k: tk.LAUNCHES[k] for k in ("wide_lanes", "decode_wide",
+                                        "resolve_wide", "decode_tokens",
+                                        "resolve_global")} \
+        == dict(wide_lanes=1, decode_wide=1, resolve_wide=1, decode_tokens=1,
                 resolve_global=1)
     assert P.parallel_inflate(wide, w_index, cpu) == data
 

@@ -288,11 +288,11 @@ def streams():
 
 def _plan_spans(kind: str) -> dict:
     """A turbo plan uploads once and reads its lane ends back; a wide plan
-    uploads the stream, then builds the blocks' table rows from it (the
-    blocks' input goes up, their statuses come back), then uploads the
-    lanes; a one-group plan of a chained index builds its rows the same
-    way, then uploads its lanes (the stream's upload comes before the
-    plan)."""
+    uploads the stream, then the anchors its lanes are built from, then
+    builds the blocks' table rows from the stream (the blocks' input goes
+    up, their statuses and the lanes' come back); a one-group plan of a
+    chained index builds its rows the same way, then uploads its lanes
+    (the stream's upload comes before the plan)."""
     if kind == "turbo":
         return {"zlibes.plan": 1, "zlibes.upload": 1, "zlibes.readback": 1}
     return {"zlibes.plan": 1, "zlibes.headers": 1, "zlibes.upload": 3,

@@ -101,7 +101,6 @@ def wide_plan_from_reference(jp) -> wd.WidePlan:
     for name, src in (("bit0", jp.bit0), ("endb", jp.endb),
                       ("base", jp.base_g)):
         setattr(p, name, t(np.asarray(_from_grid(src, LB=LB))))
-    p.endb_host = np.asarray(jp.lane_end_check, np.int32)
     step, sub = (lane[::p.LPB] // LB), (lane[::p.LPB] % LB) // 128
     p.lt = t(np.asarray(jp.lt)[step, sub])
     p.dt = t(np.asarray(jp.dt)[step, sub])
@@ -231,7 +230,9 @@ def test_plan_matches_reference(ref):
         got, exp = getattr(built, name), getattr(want, name)
         assert torch.equal(got, exp[:L]), name
         assert not exp[L:].any(), name
-    assert np.array_equal(built.endb_host, want.endb_host[:L])
+    # the lane ends the reference checks the decode against
+    assert np.array_equal(built.endb.numpy(),
+                          np.asarray(jp.lane_end_check, np.int32)[:L])
     for name in ("lt", "dt"):
         got, exp = getattr(built, name), getattr(want, name)
         assert torch.equal(got, exp[: built.Cb]), name
@@ -418,9 +419,9 @@ def test_inflate_range_rides_wide_path(fixture_stream, monkeypatch):
     calls = []
     real = wd.inflate_raw_wide
 
-    def spy(data, idx, device, check=True):
+    def spy(data, idx, device, check=True, stats=None):
         calls.append(idx.total_out)
-        return real(data, idx, device, check)
+        return real(data, idx, device, check, stats)
 
     monkeypatch.setattr(wd, "inflate_raw_wide", spy)
     assert zlibes_tpu_torch.inflate_range(comp, index, 262100, 100,

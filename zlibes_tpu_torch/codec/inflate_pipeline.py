@@ -486,7 +486,8 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
     path for any other.  Returns the output bytes as a uint8 tensor on
     ``device``; ``stats`` counts the decode dispatches (one on the turbo
     and wide paths, a group each on the group path) and, on the wide and
-    group paths on the card, ``device_headers``."""
+    group paths on the card, ``device_headers`` (and ``device_lanes`` on
+    the wide path)."""
     if getattr(index, "turbo", False) or _on_device(index):
         if stats is not None:
             stats.dispatches += 1
@@ -496,11 +497,8 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
             return inflate_raw_turbo(data, index, device, check=check)
         from .wide import inflate_raw_wide
 
-        if stats is not None and torch.device(device).type == "cuda":
-            stats.device_headers += sum(
-                1 for b in index.blocks if b.out_len
-                and b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC))
-        return inflate_raw_wide(data, index, device, check=check)
+        return inflate_raw_wide(data, index, device, check=check,
+                                stats=stats)
     return inflate_raw_indexed(data, index, device, check=check, stats=stats)
 
 
@@ -575,8 +573,8 @@ def inflate_to_device(data: bytes, index: StreamIndex, *,
     nothing read back between them.  As in the reference, the decode's
     meta checks are skipped; the caller verifies the bytes.  ``stats`` (a
     ``CodecStats``) gets the stream's and the output's bytes, the blocks,
-    the decode dispatches, ``chained_groups`` and ``device_headers``.  The
-    call is the span ``zlibes.inflate_to_device``.
+    the decode dispatches, ``chained_groups``, ``device_headers`` and
+    ``device_lanes``.  The call is the span ``zlibes.inflate_to_device``.
     """
     data = bytes(data)
     _refuse_fdict(data, "inflate_to_device")

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import span, trace
+from ..config import CodecStats, span, trace
 from ..spec import constants as C
 from ..spec.errors import CorruptError
 from ..spec.refmodel import StreamIndex
@@ -77,6 +77,27 @@ def _glue_wide(tokens: torch.Tensor, starts: torch.Tensor,
             relayout(starts, pred_s - boundary, wk.START_PAD))
 
 
+def anchor_rows(index: StreamIndex, ids):
+    """``wide_lanes``' input for the blocks ``ids`` of ``index`` (indices
+    into ``index.blocks``): the anchors' bits and output offsets (NA,)
+    int64, sorted by block, in array order within a block (one stable
+    argsort where the index does not come so), and (len(ids), 4) int64
+    rows: each block's first anchor, anchor count, out_start, end_bit."""
+    abit = np.asarray(index.anchor_bit, np.int64)
+    aout = np.asarray(index.anchor_out, np.int64)
+    ablk = np.asarray(index.anchor_block)
+    if (ablk[1:] < ablk[:-1]).any():
+        order = np.argsort(ablk, kind="stable")
+        abit, aout, ablk = abit[order], aout[order], ablk[order]
+    key = np.asarray(ids).astype(ablk.dtype)
+    first = np.searchsorted(ablk, key, "left")
+    count = np.searchsorted(ablk, key, "right") - first
+    blocks = [index.blocks[i] for i in ids]
+    rows = np.stack([first, count, [b.out_start for b in blocks],
+                     [b.end_bit for b in blocks]], 1).astype(np.int64)
+    return np.ascontiguousarray(abit), np.ascontiguousarray(aout), rows
+
+
 class WidePlan:
     """Host-prepared device tensors for one wide-profile stream (reusable).
 
@@ -88,15 +109,17 @@ class WidePlan:
                              coded block
     L = Cb * LPB lanes; a block's lanes past its output are empty
     (bit0 == endb == 0).  ``build`` is the span ``zlibes.plan``; its
-    uploads are ``zlibes.upload``, the blocks' headers and table rows
-    (one ``decode_tables`` launch from the uploaded words)
-    ``zlibes.headers``, which reads the blocks' statuses back
-    (``zlibes.readback``) and raises on a bad header.
+    uploads are ``zlibes.upload``; the lanes are one ``wide_lanes`` launch
+    from the uploaded anchors, the blocks' headers and table rows (one
+    ``decode_tables`` launch from the uploaded words) ``zlibes.headers``,
+    which reads the blocks' statuses and the lanes' status back in one
+    ``zlibes.readback``, after which a bad header, anchor count or anchor
+    raises.
     """
 
     __slots__ = ("words", "start_w", "bit0", "endb", "base", "lt", "dt",
-                 "endb_host", "coded", "stored", "contiguous", "total_out",
-                 "Cb", "LPB", "SW", "T")
+                 "coded", "stored", "contiguous", "total_out", "Cb", "LPB",
+                 "SW", "T")
 
     @staticmethod
     @span("zlibes.plan")
@@ -107,9 +130,9 @@ class WidePlan:
         if not getattr(index, "self_contained", True):
             raise CorruptError("wide decode requires self-contained blocks")
         p = WidePlan()
-        p.coded = [b for b in index.blocks
-                   if b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC)
-                   and b.out_len]
+        ids = [i for i, b in enumerate(index.blocks)
+               if b.btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC) and b.out_len]
+        p.coded = [index.blocks[i] for i in ids]
         p.stored = [b for b in index.blocks
                     if b.btype == C.BTYPE_STORED and b.out_len]
         p.total_out = index.total_out
@@ -121,79 +144,66 @@ class WidePlan:
             p.Cb = p.LPB = p.SW = 0
             p.contiguous = False
             return p
-        max_out = max(b.out_len for b in p.coded)
-        LPB = max(128, -(-max_out // (SUB * 128)) * 128)
+        out_start = np.array([b.out_start for b in p.coded], np.int64)
+        out_len = np.array([b.out_len for b in p.coded], np.int64)
+        LPB = max(128, -(-int(out_len.max()) // (SUB * 128)) * 128)
         p.LPB = LPB
         p.Cb = Cb = len(p.coded)
-        L = Cb * LPB
         # rows flatten straight into the output iff the coded blocks tile
         # it back to back at LPB*SUB bytes each (no stored content, uniform
         # block size: the common case)
-        p.contiguous = not p.stored and all(
-            b.out_start == i * LPB * SUB for i, b in enumerate(p.coded))
+        p.contiguous = not p.stored and bool(
+            (out_start == np.arange(Cb) * (LPB * SUB)).all())
 
-        # per-block two-level tables, built from the words on the device
+        # per-lane anchor spans, built on the device from the anchors
+        abit, aout, rows = anchor_rows(index, ids)
+        with trace("zlibes.upload"):
+            abit_d, aout_d, rows_d = (torch.from_numpy(x).to(device)
+                                      for x in (abit, aout, rows))
+        p.start_w, p.bit0, p.endb, p.base, lanes = wk.wide_lanes(
+            abit_d, aout_d, rows_d, LPB)
+
+        # per-block two-level tables, built from the words on the device;
+        # the blocks' statuses come back with the lanes' status
         with trace("zlibes.headers"):
             with trace("zlibes.upload"):
                 hdr = torch.from_numpy(dtab.headers(p.coded)).to(device)
             p.lt, p.dt, status = dtab.decode_tables(p.words, hdr,
                                                     len(data) * 8)
             with trace("zlibes.readback"):
-                status = status.cpu().numpy()
-            dtab.raise_status(status)
-
-        # per-lane anchor spans
-        abit = np.asarray(index.anchor_bit, np.int64)
-        aout = np.asarray(index.anchor_out, np.int64)
-        ablk = np.asarray(index.anchor_block, np.int64)
-        bit0_abs = np.zeros(L, np.int64)
-        end_abs = np.zeros(L, np.int64)
-        base = np.zeros(L, np.int64)
-        block_of = {id(b): i for i, b in enumerate(index.blocks)}
-        for cb, b in enumerate(p.coded):
-            sel = np.nonzero(ablk == block_of[id(b)])[0]
-            na_b = -(-b.out_len // SUB)
-            if sel.size != na_b:
-                raise CorruptError(
-                    f"wide index must carry one anchor per {SUB} B of "
-                    f"block output ({na_b} expected, {sel.size} found)")
-            ab = abit[sel]
-            rel = aout[sel] - b.out_start - np.arange(na_b) * SUB
-            if (np.diff(ab) < 0).any() or (rel < 0).any() \
-                    or (rel >= SUB + C.MAX_MATCH + 1).any():
-                raise CorruptError("wide anchors are not monotone uniform")
-            lo = cb * LPB
-            bit0_abs[lo : lo + na_b] = ab
-            end_abs[lo : lo + na_b] = np.concatenate([ab[1:], [b.end_bit]])
-            base[lo : lo + na_b] = rel
-
-        start_w = bit0_abs >> 5
-        endb = end_abs - (start_w << 5)
+                status = torch.cat([status, lanes]).cpu().numpy()
+            dtab.raise_status(status[:Cb])
+        na = -(-out_len // SUB)
+        short = np.flatnonzero(rows[:, 1] != na)
+        if short.size:
+            cb = short[0]
+            raise CorruptError(
+                f"wide index must carry one anchor per {SUB} B of "
+                f"block output ({na[cb]} expected, {rows[cb, 1]} found)")
+        if status[Cb]:
+            raise CorruptError("wide anchors are not monotone uniform")
         # a lane's 128-B sub-span codes at most ~128*15 + 48 bits (~66
         # words): the window covers the lane's span + 2 words of lookahead,
         # bucketed to multiples of 8 words
-        wneed = -(-int(endb.max(initial=0)) // 32) + 2
+        wneed = -(-int(status[Cb + 1]) // 32) + 2
         p.SW = max(8, -(-wneed // 8) * 8)
         if p.SW > MAX_SW:
             raise CorruptError("anchor span exceeds the lane stream window")
-
-        def lanes(x):
-            return torch.from_numpy(x.astype(np.int32)).to(device)
-
-        with trace("zlibes.upload"):
-            p.start_w = lanes(start_w)
-            p.bit0 = lanes(bit0_abs & 31)
-            p.endb = lanes(endb)
-            p.base = lanes(base)
-        p.endb_host = endb.astype(np.int32)
         return p
 
-    def check_meta(self, meta: np.ndarray) -> None:
-        """Validate decode metadata (>= 4 rows, L): no lane flagged, every
-        lane ended exactly at its anchor (empty lanes: 0 == 0)."""
-        if meta[2].any() or meta[3].any():
+    def check_meta(self, meta) -> None:
+        """Validate decode metadata (>= 4 rows, L; a tensor on any device or
+        an array): no lane flagged, every lane ended exactly at its anchor
+        (empty lanes: 0 == 0).  Compared on the lanes' device; the verdict
+        is one ``zlibes.readback`` of two flags."""
+        meta = torch.as_tensor(meta, device=self.endb.device)
+        flags = torch.stack([meta[2].any() | meta[3].any(),
+                             (meta[1] != self.endb).any()])
+        with trace("zlibes.readback"):
+            failed, missed = flags.tolist()
+        if failed:
             raise CorruptError("invalid Huffman data in wide lane")
-        if not (meta[1] == self.endb_host).all():
+        if missed:
             raise CorruptError("wide lane did not end at its anchor")
 
 
@@ -208,9 +218,7 @@ def run_wide(plan: WidePlan, check: bool = True) -> torch.Tensor:
             (plan.words, plan.start_w), plan.bit0, plan.endb, plan.base,
             plan.lt, plan.dt, LPB=plan.LPB, T=plan.T, SW=plan.SW)
     if check:
-        with trace("zlibes.readback"):
-            meta_np = meta[:4].cpu().numpy()
-        plan.check_meta(meta_np)
+        plan.check_meta(meta)
     with trace("zlibes.glue"):
         toks, sts = _glue_wide(tokens, starts, meta, plan.Cb, plan.LPB)
     with trace("zlibes.resolve"):
@@ -218,16 +226,22 @@ def run_wide(plan: WidePlan, check: bool = True) -> torch.Tensor:
 
 
 def inflate_raw_wide(data: bytes, index: StreamIndex,
-                     device: torch.device | str,
-                     check: bool = True) -> torch.Tensor:
+                     device: torch.device | str, check: bool = True,
+                     stats: CodecStats | None = None) -> torch.Tensor:
     """Full wide-profile inflate; returns the decompressed bytes as a uint8
     tensor on ``device``.
 
     Contiguous streams are the rows flattened; otherwise the coded rows and
     the stored blocks' payloads (read from the plan's copy of the stream on
-    the device) are spliced into one tensor.
+    the device) are spliced into one tensor.  On the card ``stats`` counts
+    the coded blocks whose header and table rows ``decode_tables`` built
+    (``device_headers``) and the lanes ``wide_lanes`` built
+    (``device_lanes``).
     """
     plan = WidePlan.build(data, index, device)
+    if stats is not None and plan.words.is_cuda:
+        stats.device_headers += plan.Cb
+        stats.device_lanes += plan.Cb * plan.LPB
     rows = run_wide(plan, check=check) if plan.coded else None
     return wide_output(plan, rows, data)
 

@@ -133,6 +133,8 @@ class CodecStats:
     # group's output on the device (a chained index's group decode)
     device_headers: int = 0  # coded blocks whose header and decode-table
     # row the card built (the decoders' decode_tables kernel)
+    device_lanes: int = 0  # wide decode lanes whose spans the card built
+    # from the index's anchors (the wide plan's wide_lanes kernel)
     stage_s: dict = field(default_factory=dict)
     adler: int | None = None  # trailer checksum, when the encode pipeline
     # folded its device Adler terms into the phase-1 dispatches

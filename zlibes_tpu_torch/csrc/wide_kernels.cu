@@ -479,6 +479,64 @@ resolve_wide_walk_kernel(const int32_t* __restrict__ state, int n,
   }
 }
 
+// ----------------------------------------------------------------- lanes
+// wide_lanes: each decode lane's span from the index's anchors, one thread a
+// lane.  Lane l = cb * lpb + m takes anchor j = first + m of its coded
+// block's row (first, count, out_start, end_bit) when m < count; its end is
+// the next anchor, or end_bit for the block's last lane.  Neighbouring
+// threads read neighbouring anchors and write neighbouring lanes: 16 B an
+// anchor in, 16 B a lane out, so bytes bind it.  The status word is folded a
+// block at a time (__syncthreads_or for the flag, warp and block maxima for
+// the widest end bit), one atomic each a block.
+constexpr int kLanesThreads = 256;
+constexpr int64_t kRelLimit = kSub + 258 + 1;  // REL_LIMIT: SUB + MAX_MATCH + 1
+constexpr int64_t kInt32Max = 0x7FFFFFFF;
+
+__global__ void __launch_bounds__(kLanesThreads)
+wide_lanes_kernel(const int64_t* __restrict__ abit,
+                  const int64_t* __restrict__ aout, int64_t na,
+                  const int64_t* __restrict__ rows, int lanes, int lpb,
+                  int32_t* __restrict__ start_w, int32_t* __restrict__ bit0,
+                  int32_t* __restrict__ endb, int32_t* __restrict__ base,
+                  int32_t* status) {
+  __shared__ int s_max[kLanesThreads / 32];
+  const int l = blockIdx.x * kLanesThreads + threadIdx.x;
+  bool bad = false;
+  int widest = 0;
+  if (l < lanes) {
+    const int cb = l / lpb;
+    const int m = l - cb * lpb;
+    const int64_t* row = rows + 4 * (int64_t)cb;
+    const int64_t count = row[1];
+    const int64_t j = row[0] + m;
+    int64_t w = 0, b = 0, e = 0, rel = 0;
+    if (m < count && j < na) {
+      const bool last = m == count - 1 || j + 1 >= na;
+      const int64_t a = abit[j];
+      const int64_t next = last ? row[3] : abit[j + 1];
+      rel = aout[j] - row[2] - (int64_t)m * kSub;
+      w = a >> 5;
+      b = a & 31;
+      e = next - (w << 5);
+      bad = (!last && next < a) || rel < 0 || rel >= kRelLimit;
+      widest = (int)(e < 0 ? 0 : e > kInt32Max ? kInt32Max : e);
+    }
+    start_w[l] = (int32_t)w;
+    bit0[l] = (int32_t)b;
+    endb[l] = (int32_t)e;
+    base[l] = (int32_t)rel;
+  }
+  widest = __reduce_max_sync(0xFFFFFFFFu, widest);
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = widest;
+  // the barrier also makes s_max visible
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(status, 1);
+  if (threadIdx.x < 32) {
+    widest = threadIdx.x < kLanesThreads / 32 ? s_max[threadIdx.x] : 0;
+    widest = __reduce_max_sync(0xFFFFFFFFu, widest);
+    if (threadIdx.x == 0 && widest > 0) atomicMax(status + 1, widest);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -529,6 +587,21 @@ int zt_resolve_wide(const void* toks, const void* starts, int rows,
                                       (cudaStream_t)stream>>>(
         (const int32_t*)state, n, (uint8_t*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+// abit, aout: (na,) int64; rows: (lanes / lpb, 4) int64; start_w, bit0,
+// endb, base: (lanes,) int32; status: (2,) int32, zeroed by the wrapper
+int zt_wide_lanes(const void* abit, const void* aout, int64_t na,
+                  const void* rows, int lanes, int lpb, void* start_w,
+                  void* bit0, void* endb, void* base, void* status,
+                  void* stream) {
+  const unsigned blocks = (unsigned)((lanes + kLanesThreads - 1) /
+                                     kLanesThreads);
+  wide_lanes_kernel<<<blocks, kLanesThreads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)abit, (const int64_t*)aout, na, (const int64_t*)rows,
+      lanes, lpb, (int32_t*)start_w, (int32_t*)bit0, (int32_t*)endb,
+      (int32_t*)base, (int32_t*)status);
   return (int)cudaGetLastError();
 }
 

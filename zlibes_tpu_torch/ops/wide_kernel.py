@@ -12,6 +12,9 @@ LZ window, which is what levels 1-9 emit.  Two stages:
     too);
   * ``resolve_wide`` LZ expansion of whole block rows (32 KiB reach).
 
+Before them, ``wide_lanes`` builds every decode lane's span (first window
+word, start and end bit, first token's offset) from the index's anchors.
+
 Each wrapper launches its CUDA kernel (``csrc/wide_kernels.cu``) for a CUDA
 tensor and runs its plain PyTorch version for a CPU tensor; any other
 device raises.  Launches are counted in ``turbo_kernel.LAUNCHES``.
@@ -178,6 +181,96 @@ def wide_decode_tables(ll_len: np.ndarray, d_len: np.ndarray):
     dt = _fill_two_level(d_len, D_ROOT_BITS, D_ROOT, D_SUB_OFF, D_SUB,
                          D_W, d_entry, d_subptr)
     return lt, dt
+
+
+# ---------------------------------------------------------------------------
+# the plan's per-lane anchor spans
+#
+# Replaces no TPU kernel: the JAX package builds the lanes on the host, a
+# loop over the coded blocks that selects each block's anchors from all of
+# them (zlibes_tpu/codec/wide.py), O(blocks x anchors).  On the card one
+# thread a lane (csrc/wide_kernels.cu): lane l = cb * LPB + m reads anchor
+# j = first[cb] + m and the one after it, and writes its four int32 values;
+# neighbouring threads read neighbouring anchors.  The kernel moves 16 B an
+# anchor in and 16 B a lane out, so bytes bind it (a few microseconds for a
+# 35 MB stream's 270,000 lanes).  The checks the host loop made become one
+# status word, folded a block at a time into one atomic each: a flag where a
+# lane's next anchor lies before its own (the block's end bit, for its last
+# lane, is not checked) or its first token's offset falls outside
+# [0, SUB + MAX_MATCH]; and the largest end bit, which sizes the lane window.
+# The per-block anchor counts are the host's to check (``WidePlan.build``).
+
+# a lane's first token starts at most a longest match before its sub-span
+REL_LIMIT = SUB + C.MAX_MATCH + 1
+_INT32_MAX = (1 << 31) - 1
+
+
+def wide_lanes_plain(abit: torch.Tensor, aout: torch.Tensor,
+                     rows: torch.Tensor, LPB: int):
+    NA = abit.shape[0]
+    L = rows.shape[0] * LPB
+    lane = torch.arange(L, device=abit.device)
+    m = lane % LPB
+    first, count, out_start, end_bit = rows[lane // LPB].unbind(1)
+    j = first + m
+    live = (m < count) & (j < NA)
+    last = (m == count - 1) | (j + 1 >= NA)
+    # a zero past the last anchor, read by the lanes that read none
+    ab = torch.cat([abit, abit.new_zeros(1)])
+    ao = torch.cat([aout, aout.new_zeros(1)])
+    j = torch.where(live, j, NA)
+    a = ab[j]
+    nxt = torch.where(last, end_bit, ab[(j + 1).clamp(max=NA)])
+    rel = ao[j] - out_start - m * SUB
+    start_w = a >> 5
+    endb = nxt - (start_w << 5)
+    bad = live & ((~last & (nxt < a)) | (rel < 0) | (rel >= REL_LIMIT))
+    widest = torch.where(live, endb, 0).clamp(0, _INT32_MAX)
+    status = torch.stack([bad.any().long(),
+                          widest.amax() if L else widest.new_zeros(())])
+
+    def lanes(x):
+        return torch.where(live, x, 0).to(torch.int32)
+
+    return (lanes(start_w), lanes(a & 31), lanes(endb), lanes(rel),
+            status.to(torch.int32))
+
+
+def wide_lanes(abit: torch.Tensor, aout: torch.Tensor, rows: torch.Tensor,
+               LPB: int):
+    """Every decode lane's span from the index's anchors.
+
+    abit, aout (NA,) int64 the anchors' stream bits and output offsets;
+    rows (Cb, 4) int64, a coded block each: its first anchor, its anchor
+    count, out_start and end_bit (0 <= first, first + count <= NA); LPB
+    lanes a block.  Lane ``cb * LPB + m`` with m < count takes anchor
+    ``first + m``; the others are empty (every value 0).
+
+    Returns start_w, bit0, endb, base (Cb * LPB,) int32: the lane's first
+    window word, its start and end bit within the window (the end is the
+    next anchor, or end_bit for the block's last lane) and its first
+    token's offset in its sub-span; and status (2,) int32: 1 where a lane's
+    next anchor lies before its own or its offset is outside [0,
+    REL_LIMIT), and the largest end bit (0 at least, at most 2**31 - 1)."""
+    dev = abit.device
+    NA = abit.shape[0]
+    Cb = rows.shape[0]
+    L = Cb * LPB
+    _check(abit, "abit", torch.int64, (NA,), dev)
+    _check(aout, "aout", torch.int64, (NA,), dev)
+    _check(rows, "rows", torch.int64, (Cb, 4), dev)
+    if LPB <= 0 or L >= 1 << 31:
+        raise ValueError(f"{Cb} rows of LPB={LPB} lanes: LPB must be "
+                         f"positive and the lanes fewer than 2**31")
+    if not _route(abit):
+        return wide_lanes_plain(abit, aout, rows, LPB)
+    out = [torch.empty(L, dtype=torch.int32, device=dev) for _ in range(4)]
+    status = torch.zeros(2, dtype=torch.int32, device=dev)
+    if L:
+        _launch("wide_lanes", dev, _ptr(abit), _ptr(aout), ctypes.c_int64(NA),
+                _ptr(rows), ctypes.c_int(L), ctypes.c_int(LPB),
+                *map(_ptr, out), _ptr(status))
+    return (*out, status)
 
 
 # ---------------------------------------------------------------------------

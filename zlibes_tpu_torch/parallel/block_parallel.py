@@ -543,12 +543,13 @@ def _gathered_index(parts, all_sizes, reset: int, turbo: bool):
 
 def _plan_rows(plan, lo: int, hi: int, lanes_per_row: int, **rows):
     """A copy of a turbo or wide plan cut to its rows [lo, hi): the
-    per-lane tensors to those rows' lanes, and ``rows``' per-row fields
-    (cut here) and counts set."""
+    per-lane tensors (and a turbo plan's host lane ends) to those rows'
+    lanes, and ``rows``' per-row fields (cut here) and counts set."""
     sub = copy.copy(plan)
     lanes = slice(lo * lanes_per_row, hi * lanes_per_row)
     for name in ("start_w", "bit0", "endb", "base", "endb_host"):
-        setattr(sub, name, getattr(plan, name)[lanes])
+        if hasattr(plan, name):
+            setattr(sub, name, getattr(plan, name)[lanes])
     for name, value in rows.items():
         setattr(sub, name, value)
     return sub

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "zt_decode_wide": [_P, _I64, _P, _INT, _P, _P, _P, _P, _P, _INT, _INT,
                        _INT, _P, _P, _P, _P],
     "zt_resolve_wide": [_P, _P, _INT, _INT, _P, _P, _P],
+    "zt_wide_lanes": [_P, _P, _I64, _P, _INT, _INT, _P, _P, _P, _P, _P, _P],
     "zt_select_turbo": [_P, _P, _INT, _INT, _INT, _P, _P, _P],
     "zt_select_tokens": [_P, _I64, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
                          _INT, _P, _P, _P, _P],
