@@ -1541,6 +1541,149 @@ def test_stock_zlib_stream_decodes_to_the_card(monkeypatch):
                                        if b.out_len and b.btype != 0)
 
 
+def test_stock_zlib_stream_random_reads_on_the_card(monkeypatch):
+    """Reads of the 10 MB stock-zlib stream from access points every 1 MiB
+    (``build_index(..., point_every=)``, 32 KiB windows), as zlib's
+    examples/zran.c reads: zlib's bytes; each read one ``decode_tables``,
+    one ``decode_tokens`` and one ``resolve_global`` (one group behind the
+    point's window), no plain version, and nothing that waits for the card
+    before the one readback of the range and its statuses (two copies
+    from one workspace); ``point_reads``
+    the reads and ``lead_bytes`` the leads worked out from the index, each
+    below a span and a block."""
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.ops import decode_tables as dtab
+    from zlibes_tpu_torch.ops import inflate_kernel as ik
+
+    data, comp, _ = _stock_zlib_10mb()
+    every = 1 << 20
+    index = zlibes_tpu_torch.build_index(comp, point_every=every)
+    pts = [index.blocks[b].out_start for b in index.point_block]
+    assert len(pts) >= 9 and index.point_window[0] == b""
+    assert all(w == data[o - 32768 : o] for o, w in
+               zip(pts[1:], index.point_window[1:]))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(ik, "decode_tokens_plain", plain)
+    monkeypatch.setattr(ik, "resolve_global_plain", plain)
+    monkeypatch.setattr(dtab, "decode_tables_plain", plain)
+    rng = np.random.default_rng(29)
+    reads = [(0, 4096), (len(data) - 1, 1), (pts[3], 65536),
+             (pts[5] + 100, 30000), (pts[6] - 1000, 2 * every)]
+    reads += [(int(s), int(min(len(data) - s, rng.integers(1024, 1 << 18))))
+              for s in rng.integers(0, len(data), 20)]
+    widest = max(b.out_len for b in index.blocks)
+    stats = zlibes_tpu_torch.CodecStats()
+    leads = 0
+    real_to_host = ip._to_host
+    waits = []
+
+    def waited(tensors):
+        torch.cuda.set_sync_debug_mode("default")
+        waits.append(len(tensors))
+        return real_to_host(tensors)
+
+    monkeypatch.setattr(ip, "_to_host", waited)
+    for s, n in reads:
+        tk.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = zlibes_tpu_torch.inflate_range(comp, index, s, n,
+                                                 device="cuda", stats=stats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got == data[s : s + n], (s, n)
+        assert dict(tk.LAUNCHES) == {"decode_tables": 1, "decode_tokens": 1,
+                                     "resolve_global": 1}, (s, n)
+        lead = s - pts[int(np.searchsorted(pts, s, side="right")) - 1]
+        assert 0 <= lead < every + widest
+        leads += lead
+    assert (stats.point_reads, stats.lead_bytes) == (len(reads), leads)
+    assert stats.bytes_out == sum(n for _, n in reads)
+    assert waits == [2] * len(reads)
+    plain_index = zlibes_tpu_torch.build_index(comp)
+    with pytest.raises(zlibes_tpu_torch.CorruptError, match="point_every="):
+        zlibes_tpu_torch.inflate_range(comp, plain_index, 100, 10,
+                                       device="cuda")
+
+
+def test_stock_zlib_point_reads_launch_as_the_wrappers_do(monkeypatch):
+    """A point read's card group (pointer launches into one workspace)
+    returns what the same group through the kernels' wrappers returns:
+    the bytes of seeded reads, and the error of windows cut to their last
+    100 bytes (a copy escapes the history)."""
+    from zlibes_tpu_torch.codec import inflate_pipeline as ip
+    from zlibes_tpu_torch.spec.refmodel import StreamIndex
+
+    data, comp, _ = _stock_zlib_10mb()
+    index = zlibes_tpu_torch.build_index(comp, point_every=1 << 20)
+    pts = [index.blocks[b].out_start for b in index.point_block]
+    short = StreamIndex(index.blocks, index.anchor_bit, index.anchor_out,
+                        index.anchor_block, False,
+                        point_block=index.point_block,
+                        point_window=[w[-100:] for w in index.point_window])
+    rng = np.random.default_rng(31)
+    reads = [(int(s), int(min(len(data) - s, rng.integers(1024, 1 << 18))))
+             for s in rng.integers(0, len(data), 12)]
+
+    def run():
+        got = [zlibes_tpu_torch.inflate_range(comp, index, s, n,
+                                              device="cuda")
+               for s, n in reads]
+        with pytest.raises(zlibes_tpu_torch.CorruptError) as e:
+            zlibes_tpu_torch.inflate_range(comp, short, pts[3], 32768,
+                                           device="cuda")
+        return got, str(e.value)
+
+    card = run()
+    monkeypatch.setattr(ip, "_CardGroup", ip._Group)
+    assert run() == card
+    assert card[0] == [data[s : s + n] for s, n in reads]
+
+
+@pytest.mark.parametrize("level,stored", [(1, False), (6, False),
+                                          (9, False), (6, True)])
+def test_stock_zlib_point_reads_at_each_level_on_the_card(level, stored):
+    """Point reads (a point every 64 KiB) of 1 MB stock-zlib streams at
+    levels 1, 6 and 9, and of one whose middle is 120,000 random bytes
+    that zlib stores, on the card: zlib's bytes, for seeded reads and for
+    reads that start at a point, end at the stream's end or cross the
+    stored blocks (the group decode, split at them)."""
+    raw = (GOLDEN / "raw.bin").read_bytes()
+    ring = raw + raw[:1 << 16]
+    rng = np.random.default_rng(level)
+    parts, have = [], 0
+    while have < 1_000_000:
+        n = min(int(rng.integers(1 << 14, (1 << 16) + 1)), 1_000_000 - have)
+        off = int(rng.integers(0, len(raw)))
+        parts.append(ring[off : off + n])
+        have += n
+    if stored:
+        parts.insert(len(parts) // 2, rng.integers(
+            0, 256, 120000, np.uint8).tobytes())
+    data = b"".join(parts)
+    c = zlib.compressobj(level, zlib.DEFLATED, 15, 8)
+    comp = c.compress(data) + c.flush()
+    index = zlibes_tpu_torch.build_index(comp, point_every=1 << 16)
+    kept = [b for b in index.blocks if b.btype == C.BTYPE_STORED
+            and b.out_len]
+    assert bool(kept) == stored
+    pts = [index.blocks[b].out_start for b in index.point_block]
+    reads = [(0, 1), (pts[3], 70000), (len(data) - 5000, 5000)]
+    reads += [(int(s), int(min(len(data) - s, rng.integers(1, 1 << 18))))
+              for s in rng.integers(0, len(data), 16)]
+    if stored:
+        reads.append((kept[0].out_start - 3000,
+                      kept[-1].out_start + kept[-1].out_len + 6000
+                      - kept[0].out_start))
+    for s, n in reads:
+        got = zlibes_tpu_torch.inflate_range(comp, index, s, n, device="cuda")
+        assert got == data[s : s + n], (s, n)
+
+
 @pytest.mark.parametrize("case", ["warp_32_rows", "long_codes", "lane_ends",
                                   "scan_lane"])
 def test_decode_tokens_kernel_gives_the_walk_cases(case):

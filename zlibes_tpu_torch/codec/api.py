@@ -1,8 +1,10 @@
 """Public API of the PyTorch port (counterpart of ``zlibes_tpu/codec/api.py``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..spec import constants as C
 from ..spec import refmodel as _rm
 from ..spec.refmodel import StreamIndex
 
@@ -136,20 +138,29 @@ def inflate(data: bytes, *, backend: str = "device", index=None,
 
 
 def inflate_range(data: bytes, index, start: int, length: int, *,
-                  device: torch.device | str = "cuda") -> bytes:
+                  device: torch.device | str = "cuda", stats=None) -> bytes:
     """Random-access decode: output bytes [start, start+length) only.
 
     Decodes, on ``device``, just the blocks covering the range, through
     any self-contained index (turbo, wide, or generic: the host model's,
     ``build_index`` of a stream written with full flushes), so the cost is
-    O(length + block_size) whatever the stream's size.  A chained index
-    raises CorruptError, a stream with a preset dictionary HeaderError.
+    O(length + block_size) whatever the stream's size.  A chained index (a
+    stock-zlib stream's) needs access points, ``build_index(...,
+    point_every=)``: the read decodes from the last point at or before
+    ``start``, behind that point's window, through the block that holds
+    the last byte, and uploads only those blocks' bytes, as zlib's
+    examples/zran.c reads.  A chained index without points raises
+    CorruptError, a stream with a preset dictionary HeaderError.
+    ``stats`` (a ``CodecStats``) gets the bytes returned, the decode
+    dispatches and, from a point, ``point_reads`` and ``lead_bytes`` (the
+    output decoded before ``start``).
     """
     from . import inflate_pipeline
 
     return inflate_pipeline.inflate_range(bytes(data), _own_index(index),
                                           start, length,
-                                          device=_device(device))
+                                          device=_device(device),
+                                          stats=stats)
 
 
 def inflate_to_device(data: bytes, index, *,
@@ -176,20 +187,42 @@ def inflate_to_device(data: bytes, index, *,
                                               stats=stats)
 
 
-def build_index(data: bytes, anchor_every: int = 4096) -> StreamIndex:
+def build_index(data: bytes, anchor_every: int = 4096,
+                point_every: int = 0) -> StreamIndex:
     """Scan any conformant zlib stream into a StreamIndex (block layout and
     one decode anchor about every ``anchor_every`` output bytes), for
     streams this framework did not write.  ``inflate(data, index=...)``
     accepts it (host decode, the index checked against the stream),
     ``inflate_to_device`` does whether its blocks are chained or not, and
     ``inflate_range`` does when they are self-contained (a stream written
-    with full flushes).
+    with full flushes) or when the index has access points.
+
+    ``point_every`` > 0 adds access points, as zlib's examples/zran.c
+    keeps them: one at block 0 and one at the first block boundary at or
+    past every ``point_every`` bytes of output after the last, each with
+    the up to 32 KiB of output before it, from one host decode of the
+    stream (in place of the scan, which gives the same blocks and
+    anchors).  0, the default, adds none.
     Requires the native runtime scanner; RuntimeError without it.
     """
     from ..runtime import native
 
     if not native.available():
         raise RuntimeError("native runtime unavailable")
-    _, _, index, _, _ = native.scan(bytes(data), bit_offset=16,
-                                    anchor_every=anchor_every)
+    if point_every <= 0:
+        _, _, index, _, _ = native.scan(bytes(data), bit_offset=16,
+                                        anchor_every=anchor_every)
+        return index
+    out, index, _, _ = native.decode(bytes(data), bit_offset=16,
+                                     anchor_every=anchor_every)
+    starts = [b.out_start for b in index.blocks]
+    points, last = [0], 0
+    for b, o in enumerate(starts):
+        if o - starts[last] >= point_every and o < out.size:
+            points.append(b)
+            last = b
+    W = C.WINDOW_SIZE
+    index.point_block = np.asarray(points, np.int64)
+    index.point_window = [out[max(0, starts[b] - W) : starts[b]].tobytes()
+                          for b in points]
     return index

@@ -20,11 +20,17 @@ decodes:
 native runtime (``runtime/native.py``) when it is available, as the JAX
 package does, and checks the index against what was decoded; without it
 such a stream takes the device decodes above.  ``inflate_range`` takes
-any self-contained index; ``inflate_to_device`` takes any index, a chained
-one (a stock-zlib stream's ``build_index``) through the group decode, its
-groups in stream order, each behind the output before it on the device.
+any self-contained index, and a chained one with access points
+(``build_index(..., point_every=)``) from the last point before the read,
+behind its window, as zlib's examples/zran.c reads; ``inflate_to_device``
+takes any index, a chained one (a stock-zlib stream's ``build_index``)
+through the group decode, its groups in stream order, each behind the
+output before it on the device.
 """
 from __future__ import annotations
+
+import bisect
+import itertools
 
 import numpy as np
 import torch
@@ -49,9 +55,13 @@ from ..spec.refmodel import (
 from ..ops import decode_tables as dtab
 from ..ops import wide_kernel as wk
 from ..ops.adler32 import adler32_device
+from ..ops.turbo_kernel import _launch
 from ..ops.inflate_kernel import (
+    FLAT_W,
+    RESOLVE_TILE,
     decode_tokens,
     resolve_global,
+    resolve_rounds,
     splice_stored,
     stream_words,
 )
@@ -59,8 +69,9 @@ from ..ops.inflate_kernel import (
 _FIXED_LITLEN_LENGTHS = C.fixed_litlen_code_lengths()
 _FIXED_DIST_LENGTHS = C.fixed_dist_code_lengths()
 
-# decode lanes a group dispatch
+# decode lanes a group dispatch, and the output bytes it may span
 _LANES = 8192
+_MAX_GROUP_SPAN = (1 << 23) - C.BLOCK_MAX_BUFFER_LEN
 # tokens a scan-path decode call (a block resumes until its end)
 _SCAN_CHUNK_TOKENS = 65536
 # output bytes a resolve window of the scan path, behind a 32 KiB halo
@@ -73,11 +84,15 @@ def _bucket(n: int, lo: int = 4096) -> int:
 
 class _Stream:
     """The compressed stream on the device: ``words`` (NW,) int32, the same
-    memory as ``bytes`` (4·NW,) uint8."""
+    memory as ``bytes`` (4·NW,) uint8; uploaded here unless the caller
+    gives its ``words``."""
 
-    def __init__(self, data: bytes, device: torch.device | str):
-        with trace("zlibes.upload"):
-            self.words = torch.from_numpy(stream_words(data)).to(device)
+    def __init__(self, data: bytes, device: torch.device | str,
+                 words: torch.Tensor | None = None):
+        if words is None:
+            with trace("zlibes.upload"):
+                words = torch.from_numpy(stream_words(data)).to(device)
+        self.words = words
         self.bytes = self.words.view(torch.uint8)
         self.total_bits = len(data) * 8
 
@@ -243,23 +258,27 @@ def inflate_raw_scan(data: bytes, byte_offset: int = 0,
 # ---------------------------------------------------------------------------
 # an index: anchor lanes in groups
 
-def _index_lanes(index: StreamIndex):
+def _index_lanes(index: StreamIndex, b0: int = 0, b1: int | None = None):
     """Flatten a StreamIndex into per-lane (bit0, end_bit, out_base,
     out_len, block_id) int64 arrays: a lane runs to the next anchor of its
-    block, or to the block's end."""
-    lane_bit0 = np.asarray(index.anchor_bit, np.int64)
-    lane_out = np.asarray(index.anchor_out, np.int64)
-    lane_block = np.asarray(index.anchor_block, np.int64)
-    blk_end = np.array([b.end_bit for b in index.blocks] or [0], np.int64)
-    blk_out_end = np.array([b.out_start + b.out_len for b in index.blocks]
-                           or [0], np.int64)
-    same = np.zeros(lane_bit0.size, bool)
-    same[:-1] = lane_block[1:] == lane_block[:-1]
-    nxt = np.roll(lane_bit0, -1)
-    nxt_out = np.roll(lane_out, -1)
-    lane_end = np.where(same, nxt, blk_end[lane_block])
-    lane_outlen = np.where(same, nxt_out, blk_out_end[lane_block]) - lane_out
-    return lane_bit0, lane_end, lane_out, lane_outlen, lane_block
+    block, or to the block's end.  With ``b1``, only the anchors of blocks
+    ``b0..b1`` (the index's anchors in block order), their ids counted
+    from ``b0``."""
+    bit0 = np.asarray(index.anchor_bit, np.int64)
+    out = np.asarray(index.anchor_out, np.int64)
+    block = np.asarray(index.anchor_block, np.int64)
+    blocks = index.blocks
+    if b1 is not None:
+        a0, a1 = np.searchsorted(block, [b0, b1 + 1]).tolist()
+        bit0, out, blocks = bit0[a0:a1], out[a0:a1], blocks[b0 : b1 + 1]
+        block = block[a0:a1] - b0
+    ends = np.array([(b.end_bit, b.out_start + b.out_len) for b in blocks]
+                    or [(0, 0)], np.int64)
+    end, out_end = ends[block, 0], ends[block, 1]
+    same = block[1:] == block[:-1]
+    end[:-1] = np.where(same, bit0[1:], end[:-1])
+    out_end[:-1] = np.where(same, out[1:], out_end[:-1])
+    return bit0, end, out, out_end - out, block
 
 
 class _GroupPlan:
@@ -305,7 +324,6 @@ def plan_groups(data: bytes, index: StreamIndex,
         return []
     max_span = int(lane_outlen.max(initial=1))
     T = _bucket(max_span + 16, lo=512)
-    max_span_bytes = (1 << 23) - C.BLOCK_MAX_BUFFER_LEN
     groups: list[tuple[int, int]] = []
     gstart = 0
     i = 0
@@ -316,7 +334,7 @@ def plan_groups(data: bytes, index: StreamIndex,
         span = int(lane_out[j - 1] + lane_outlen[j - 1] - lane_out[gstart])
         gap = (split_at_stored and i > gstart
                and lane_block[i] != lane_block[i - 1] + 1)
-        if (j - gstart > _LANES or span > max_span_bytes or gap) \
+        if (j - gstart > _LANES or span > _MAX_GROUP_SPAN or gap) \
                 and i > gstart:
             groups.append((gstart, i))
             gstart = i
@@ -364,6 +382,19 @@ def plan_groups(data: bytes, index: StreamIndex,
     return plans
 
 
+_ESCAPED = "back-reference escapes its resolve span"
+
+
+def _check_lanes(err, still, endpos, lane_end) -> None:
+    """Raise CorruptError for a decode that stopped a lane on a bad code or
+    at its last token slot, or left one off its end bit (host arrays, a
+    lane each)."""
+    if err.any() or still.any():
+        raise CorruptError("invalid Huffman data in indexed block")
+    if not (endpos == lane_end).all():
+        raise CorruptError("lane did not end at its anchor boundary")
+
+
 def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
               prefix: torch.Tensor | None = None) -> torch.Tensor:
     """Decode and resolve one planned group on the stream's device; returns
@@ -383,10 +414,7 @@ def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
         with trace("zlibes.readback"):
             meta = torch.stack([count.long(), err.long(), still.long(),
                                 endpos]).cpu().numpy()
-        if meta[1].any() or meta[2].any():
-            raise CorruptError("invalid Huffman data in indexed block")
-        if not (meta[3] == p.lane_end).all():
-            raise CorruptError("lane did not end at its anchor boundary")
+        _check_lanes(meta[1], meta[2], meta[3], p.lane_end)
         # the occupied token rows only (unchecked, the whole (T, B) arrays
         # go on: the counts stay on the device, and the resolve skips every
         # slot at or past its lane's count)
@@ -402,7 +430,7 @@ def run_group(stream: _Stream, p: _GroupPlan, check: bool = True,
         with trace("zlibes.readback"):
             escaped = bool(rerr)
         if escaped:
-            raise CorruptError("back-reference escapes its resolve span")
+            raise CorruptError(_ESCAPED)
     return out
 
 
@@ -410,15 +438,19 @@ def inflate_raw_indexed(data: bytes, index: StreamIndex,
                         device: torch.device | str,
                         dictionary: bytes | None = None,
                         check: bool = True,
-                        stats: CodecStats | None = None) -> torch.Tensor:
+                        stats: CodecStats | None = None,
+                        history: torch.Tensor | None = None,
+                        words: torch.Tensor | None = None) -> torch.Tensor:
     """Anchor-parallel inflate through any index; returns the bytes as a
     uint8 tensor on ``device``.
 
     Self-contained blocks (no copy across a block boundary) resolve group
     by group; a chained index (a foreign stream) resolves its groups in
     order, each behind the 32 KiB before it.  ``dictionary`` (FDICT
-    streams): its tail is the prefix of every group that starts in the first
-    32 KiB of output.  Stored payloads are spliced in on the device: before
+    streams), or ``history`` (the up to 32 KiB of output before the
+    stream's first byte, on ``device``: an access point's window): its
+    tail is the prefix of every group that starts in the first 32 KiB of
+    output.  Stored payloads are spliced in on the device: before
     the groups of a chained index (its groups split at stored blocks, and a
     group's prefix reads them), after those of a self-contained one (a group
     may span a stored block and writes its span whole).  With
@@ -427,12 +459,14 @@ def inflate_raw_indexed(data: bytes, index: StreamIndex,
     groups in ``dispatches`` and, in ``chained_groups``, those resolved
     behind the previous group's output; on the card ``device_headers``
     counts the blocks whose header and table row ``decode_tables`` built.
+    ``words``: the stream's words on ``device`` where the caller has
+    uploaded them.
     """
-    stream = _Stream(data, device)
+    stream = _Stream(data, device, words)
     out = torch.empty(index.total_out, dtype=torch.uint8, device=device)
     chained = not getattr(index, "self_contained", True)
     W = C.WINDOW_SIZE
-    dict_tail = None
+    dict_tail = history
     if dictionary:
         dict_tail = torch.from_numpy(np.frombuffer(
             bytes(dictionary[-W:]), np.uint8).copy()).to(device)
@@ -502,9 +536,254 @@ def _inflate_indexed(data: bytes, index: StreamIndex,
     return inflate_raw_indexed(data, index, device, check=check, stats=stats)
 
 
+def _host_buffer(nbytes: int, device: torch.device | str) -> torch.Tensor:
+    """An uninitialised host byte buffer, page-locked when ``device`` is a
+    card, so that a copy to or from it is one DMA the host does not wait
+    for (a pageable one goes through the driver's own staging)."""
+    return torch.empty(nbytes, dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def _layout(sizes, align: int = 8) -> list[int]:
+    """The byte offsets of regions of ``sizes`` bytes one after another in
+    one buffer, each at a multiple of ``align`` bytes, and the buffer's
+    size last."""
+    return list(itertools.accumulate((-(-n // align) * align for n in sizes),
+                                     initial=0))
+
+
+def _to_device(arrays: list[np.ndarray], device: torch.device | str):
+    """Host arrays on ``device`` by one copy of one buffer, each one's bytes
+    followed by zeros up to its next multiple of 8.  Returns (the buffer on
+    ``device``, each array's byte offset in it)."""
+    at = _layout([a.nbytes for a in arrays])
+    host = _host_buffer(at[-1], device)
+    flat = host.numpy()
+    for a, o, o1 in zip(arrays, at, at[1:]):
+        flat[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+        flat[o + a.nbytes : o1] = 0
+    return host.to(device, non_blocking=True), at
+
+
+def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Tensors of one device on the host after one wait: on a card each is
+    copied without a wait into one page-locked buffer, then the stream is
+    synchronised once."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.numpy() for t in tensors]
+    at = _layout([t.nbytes for t in tensors])
+    host = _host_buffer(at[-1], dev)
+    views = [host[o : o + t.nbytes].view(t.dtype).view(t.shape)
+             for t, o in zip(tensors, at)]
+    for v, t in zip(views, tensors):
+        v.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return [v.numpy() for v in views]
+
+
+class _Group:
+    """One group of a point read behind its history: the uploaded lane
+    arrays (``_to_device`` of headers, bit0, end bits, rows, out bases,
+    active), then ``decode_tables``, ``decode_tokens`` and
+    ``resolve_global`` through their wrappers, on any device, with
+    nothing read back between them; ``readback`` returns output bytes
+    [r0, r1) of the group (history included) and every status after one
+    wait: (bytes, table statuses, end bits, stopped, errors, escaped)."""
+
+    def __init__(self, words, n, on, at, arrays, T, P, total, history):
+        self.words, self.n, self.T, self.P = words, n, T, P
+        self.total, self.history = total, history
+        self.hdr, self.bit0, self.endb, self.rows, self.base, self.active = (
+            on[o : o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, at))
+
+    def tables(self):
+        self.lt, self.dt, self.status = dtab.decode_tables(
+            self.words, self.hdr, self.n * 8)
+
+    def decode(self):
+        (self.tokens, self.starts, self.count, self.bitpos, self.still,
+         self.err) = decode_tokens(self.words, self.lt, self.dt, self.rows,
+                                   self.bit0, self.endb, self.active,
+                                   T=self.T)
+
+    def resolve(self):
+        self.out, self.escaped = resolve_global(
+            self.tokens, self.starts, self.count, self.base,
+            self.P + self.total, self.history)
+
+    def readback(self, r0, r1):
+        return _to_host([self.out[r0:r1], self.status, self.bitpos,
+                         self.still, self.err, self.escaped])
+
+
+class _CardGroup(_Group):
+    """``_Group`` on a card with the wrappers' host work left out: the
+    three kernels' launchers get pointers into the uploaded arrays and
+    into one workspace that holds every output and scratch buffer, the
+    statuses last and side by side, so that the range and the statuses
+    come back in two copies after one wait."""
+
+    def __init__(self, words, n, on, at, arrays, T, P, total, history):
+        self.words, self.n, self.T, self.P = words, n, T, P
+        self.total, self.history = total, history
+        NB, B = arrays[0].shape[0], arrays[1].size
+        if T * B >= 1 << 31:
+            raise ValueError(f"{T} token slots of {B} lanes: T * B must be "
+                             f"below 2**31")
+        self.NB, self.B = NB, B
+        self.rounds = resolve_rounds(P + total)
+        tiles = -(-(P + total) // RESOLVE_TILE)
+        # lt, dt, flat, tokens, starts, count, state, tile_open, out; then
+        # the statuses: a table status a block, a lane's end bit, stopped
+        # and error flags, the resolve's error and open flags (zeroed)
+        sizes = [NB * wk.LL_W * 4, NB * wk.D_W * 4, NB * FLAT_W * 4,
+                 T * B * 4, T * B * 4, B * 4, (P + total) * 4, tiles * 4,
+                 P + total, NB * 4, B * 8, B, B, 4 * (self.rounds + 2)]
+        self.at = _layout(sizes, 256)
+        self.ws = torch.empty(self.at[-1], dtype=torch.uint8,
+                              device=words.device)
+        self.ws[self.at[13] : self.at[14]].zero_()
+        w = self.ws.data_ptr()
+        self.p = [w + o for o in self.at]
+        u = on.data_ptr()
+        self.u = [u + o for o in at]
+
+    def tables(self):
+        p = self.p
+        _launch("decode_tables", self.words.device, self.words.data_ptr(),
+                self.words.numel(), self.n * 8, self.u[0], self.NB, p[0],
+                p[1], p[9])
+
+    def decode(self):
+        p, u = self.p, self.u
+        _launch("decode_tokens", self.words.device, self.words.data_ptr(),
+                self.words.numel(), p[0], p[1], self.NB, p[2], u[3], u[1],
+                u[2], u[5], self.B, self.T, p[3], p[4], p[5], p[10], p[11],
+                p[12])
+
+    def resolve(self):
+        p = self.p
+        _launch("resolve_global", self.words.device, p[3], p[4], p[5],
+                self.u[4], self.T, self.B, self.history.data_ptr(), self.P,
+                self.P + self.total, self.rounds, p[6], p[7], p[13] + 4,
+                p[8], p[13])
+
+    def readback(self, r0, r1):
+        at = self.at
+        got, st = _to_host([self.ws[at[8] + r0 : at[8] + r1],
+                            self.ws[at[9] : at[13] + 4]])
+        o = [x - at[9] for x in at[9:14]]
+        NB, B = self.NB, self.B
+        return (got, st[o[0] : o[0] + 4 * NB].view(np.int32),
+                st[o[1] : o[1] + 8 * B].view(np.int64),
+                st[o[2] : o[2] + B].view(bool), st[o[3] : o[3] + B].view(bool),
+                st[o[4] : o[4] + 4].view(np.int32)[0])
+
+
+def _point_read(data: bytes, index: StreamIndex, start: int, end: int,
+                device: torch.device | str,
+                stats: CodecStats | None) -> bytes:
+    """Output [start, end) of a chained stream as zlib's examples/zran.c
+    reads it: from the last access point at or before ``start``, behind
+    that point's window, through the block that holds ``end - 1``.  Only
+    those blocks' bytes are cut from the stream (bit offsets rebased by
+    whole bytes, so each block keeps its bit within a byte) and decoded.
+
+    A span whose blocks all have lanes (no stored block) is one group: its
+    stream bytes and window go up in one copy, its lane arrays and headers
+    in another, ``decode_tables``, ``decode_tokens`` and ``resolve_global``
+    run behind the window with nothing read back between them, and the
+    range and every status come back after one wait, then raise as
+    ``run_group`` raises (on a card ``_CardGroup``, else ``_Group``).  Any
+    other span takes the group decode (``inflate_raw_indexed``) of the
+    same upload.  The point's lookup, the cut and its upload are the span
+    ``zlibes.point``, the lanes of the point's blocks (the sub-index)
+    ``zlibes.subindex``, the group's upload and table build
+    ``zlibes.plan``."""
+    blocks = index.blocks
+    with trace("zlibes.point"):
+        k = bisect.bisect_right([blocks[b].out_start
+                                 for b in index.point_block.tolist()],
+                                start) - 1
+        if k < 0:
+            raise CorruptError(f"no access point at or before {start}")
+        b0 = int(index.point_block[k])
+        lo = blocks[b0].out_start
+        b1 = b0
+        while blocks[b1].out_start + blocks[b1].out_len < end:
+            b1 += 1
+        byte0 = blocks[b0].start_bit >> 3
+        n = ((blocks[b1].end_bit + 7) >> 3) - byte0
+        window = np.frombuffer(index.point_window[k], np.uint8)
+        P = window.size
+        with trace("zlibes.upload"):
+            on, at = _to_device(
+                [np.frombuffer(data, np.uint8, n, byte0), window], device)
+        words = on[: 4 * -(-n // 4)].view(torch.int32)
+        history = on[at[1] : at[1] + P]
+    with trace("zlibes.subindex"):
+        shift = byte0 * 8
+        bit0, endb, out, out_len, rows = _index_lanes(index, b0, b1)
+        bit0, endb, out = bit0 - shift, endb - shift, out - lo
+        one = (0 < rows.size <= _LANES
+               and np.count_nonzero(rows[1:] != rows[:-1]) == b1 - b0
+               and blocks[b1].out_start + blocks[b1].out_len - lo
+               <= _MAX_GROUP_SPAN)
+        if not one:
+            sub = StreamIndex(
+                [BlockInfo(b.btype, b.bfinal, b.start_bit - shift,
+                           b.payload_start_bit - shift, b.end_bit - shift,
+                           b.out_start - lo, b.out_len)
+                 for b in blocks[b0 : b1 + 1]],
+                bit0, out, rows.astype(np.int32), False)
+    if stats is not None:
+        stats.point_reads += 1
+        stats.lead_bytes += start - lo
+        stats.bytes_out += end - start
+    if not one:
+        out = inflate_raw_indexed(data[byte0 : byte0 + n], sub, device,
+                                  stats=stats, history=history if P else None,
+                                  words=words)
+        with trace("zlibes.readback"):
+            return out[start - lo : end - lo].cpu().numpy().tobytes()
+    with trace("zlibes.plan"):
+        T = _bucket(int(out_len.max()) + 16, lo=512)
+        hdr = dtab.headers(blocks[b0 : b1 + 1])
+        hdr[:, :2] -= shift
+        arrays = [hdr, bit0, endb, rows.astype(np.int32),
+                  (out + P).astype(np.int32), np.ones(rows.size, bool)]
+        with trace("zlibes.upload"):
+            on, at = _to_device(arrays, device)
+        g = (_CardGroup if on.is_cuda else _Group)(
+            words, n, on, at, arrays, T, P,
+            blocks[b1].out_start + blocks[b1].out_len - lo, history)
+        with trace("zlibes.headers"):
+            g.tables()
+    with trace("zlibes.decode"):
+        g.decode()
+    with trace("zlibes.resolve"):
+        g.resolve()
+    with trace("zlibes.readback"):
+        got, status, bitpos, still, err, escaped = g.readback(
+            P + start - lo, P + end - lo)
+    dtab.raise_status(status, np.array([0, status.size]))
+    _check_lanes(err, still, bitpos, endb)
+    if escaped:
+        raise CorruptError(_ESCAPED)
+    if stats is not None:
+        stats.dispatches += 1
+        if words.is_cuda:
+            stats.device_headers += status.size
+    return got.tobytes()
+
+
 @span("zlibes.inflate_range")
 def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
-                  *, device: torch.device | str) -> bytes:
+                  *, device: torch.device | str,
+                  stats: CodecStats | None = None) -> bytes:
     """Random-access decode of output bytes [start, start+length).
 
     Only the self-contained blocks overlapping the range are decoded, on
@@ -513,9 +792,14 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
     out_starts are multiples of 128 KiB in turbo and wide streams, so the
     sub-stream keeps their anchor geometry (512 B turbo segments, 128 B
     wide sub-spans); a generic index's lanes are its anchors wherever they
-    lie.  The call is the span ``zlibes.inflate_range``; the sub-index is
-    ``zlibes.subindex``, the copy of the range to the host
-    ``zlibes.readback``.
+    lie.  A chained index with access points (``build_index(...,
+    point_every=)``) reads from its last point at or before ``start``
+    (``_point_read``); one without them raises CorruptError.  The call is
+    the span ``zlibes.inflate_range``; the sub-index is
+    ``zlibes.subindex``, a point's lookup and cut ``zlibes.point``, the
+    copy of the range to the host ``zlibes.readback``.  ``stats`` gets the
+    bytes returned, the decode dispatches and, on a point read,
+    ``point_reads`` and ``lead_bytes``.
     """
     total = index.total_out
     if start < 0 or length < 0 or start + length > total:
@@ -523,14 +807,18 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
                          f"output [0, {total})")
     data = bytes(data)
     _refuse_fdict(data, "inflate_range")
-    if not getattr(index, "self_contained", True):
+    chained = not getattr(index, "self_contained", True)
+    if chained and getattr(index, "point_block", None) is None:
         raise CorruptError(
-            "inflate_range requires self-contained blocks (indexes from "
-            "this framework's encoder); foreign chained streams must "
-            "decode from the start")
+            "inflate_range requires self-contained blocks or access "
+            "points: this index is chained (copies cross its block "
+            "boundaries, as in stock zlib's streams) and has no points; "
+            "build it with build_index(..., point_every=)")
     if length == 0:
         return b""
     end = start + length
+    if chained:
+        return _point_read(data, index, start, end, device, stats)
     with trace("zlibes.subindex"):
         keep = [i for i, b in enumerate(index.blocks) if b.out_len
                 and b.out_start < end and b.out_start + b.out_len > start]
@@ -552,7 +840,9 @@ def inflate_range(data: bytes, index: StreamIndex, start: int, length: int,
             getattr(index, "max_tokens", 0),
             getattr(index, "wide", False),
         )
-    out = _inflate_indexed(data, sub, device)
+    out = _inflate_indexed(data, sub, device, stats=stats)
+    if stats is not None:
+        stats.bytes_out += length
     with trace("zlibes.readback"):
         return out[start - out_lo : end - out_lo].cpu().numpy().tobytes()
 

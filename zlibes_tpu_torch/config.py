@@ -135,6 +135,9 @@ class CodecStats:
     # row the card built (the decoders' decode_tables kernel)
     device_lanes: int = 0  # wide decode lanes whose spans the card built
     # from the index's anchors (the wide plan's wide_lanes kernel)
+    point_reads: int = 0  # inflate_range reads decoded from an access point
+    # of a chained index, behind its window (as zlib's examples/zran.c)
+    lead_bytes: int = 0  # output those reads decoded before their start
     stage_s: dict = field(default_factory=dict)
     adler: int | None = None  # trailer checksum, when the encode pipeline
     # folded its device Adler terms into the phase-1 dispatches

@@ -343,6 +343,11 @@ class StreamIndex:
     # repeats when no token starts in its 128-B sub-span).  Fuel for the
     # two-level-table decoder (ops/wide_kernel.py) — the wire
     # format is untouched, anchors are pure sidecar metadata
+    point_block: np.ndarray | None = None  # int64[NP] access points for
+    # random reads of a chained stream, as zlib's examples/zran.c keeps
+    # them: the block at which each point starts (block 0 first), or None
+    point_window: list[bytes] | None = None  # each point's history: the
+    # up to 32 KiB of output before it (empty at block 0)
 
     @property
     def total_out(self) -> int:
@@ -362,7 +367,7 @@ class StreamIndex:
         return StreamIndex(blocks, self.anchor_bit + bits, self.anchor_out,
                            self.anchor_block, self.self_contained,
                            self.chunk_reset, self.turbo, self.max_tokens,
-                           self.wide)
+                           self.wide, self.point_block, self.point_window)
 
     # sidecar format version.  v2: turbo anchors come in PAIRS per 512 B
     # segment (segment start + mid-segment split).  v3: default-profile indexes carry uniform 128-B "wide" anchors for
@@ -378,6 +383,15 @@ class StreamIndex:
               b.end_bit, b.out_start, b.out_len] for b in self.blocks],
             dtype=np.int64,
         )
+        points = {}
+        if self.point_block is not None:
+            # the windows one after another, and each one's length
+            points = dict(
+                point_block=np.asarray(self.point_block, np.int64),
+                point_window=np.frombuffer(b"".join(self.point_window),
+                                           np.uint8),
+                point_window_len=np.array(
+                    [len(w) for w in self.point_window], np.int64))
         np.savez(path, blocks=blk, anchor_bit=self.anchor_bit,
                  anchor_out=self.anchor_out, anchor_block=self.anchor_block,
                  self_contained=np.array([self.self_contained]),
@@ -385,7 +399,7 @@ class StreamIndex:
                  turbo=np.array([self.turbo]),
                  max_tokens=np.array([self.max_tokens]),
                  wide=np.array([self.wide]),
-                 version=np.array([StreamIndex.FORMAT_VERSION]))
+                 version=np.array([StreamIndex.FORMAT_VERSION]), **points)
 
     @staticmethod
     def load(path) -> "StreamIndex":
@@ -402,12 +416,20 @@ class StreamIndex:
                       int(r[5]), int(r[6]))
             for r in z["blocks"]
         ]
+        point_block = point_window = None
+        if "point_block" in z:
+            point_block = z["point_block"].astype(np.int64)
+            ends = np.cumsum(z["point_window_len"])
+            flat = z["point_window"].tobytes()
+            point_window = [flat[e - n : e] for e, n in
+                            zip(ends.tolist(), z["point_window_len"].tolist())]
         return StreamIndex(blocks, z["anchor_bit"], z["anchor_out"],
                            z["anchor_block"], bool(z["self_contained"][0]),
                            int(z["chunk_reset"][0]) if "chunk_reset" in z else 0,
                            bool(z["turbo"][0]) if "turbo" in z else False,
                            int(z["max_tokens"][0]) if "max_tokens" in z else 0,
-                           bool(z["wide"][0]) if "wide" in z else False)
+                           bool(z["wide"][0]) if "wide" in z else False,
+                           point_block, point_window)
 
 
 def block_from_reference(obj) -> BlockInfo:
